@@ -36,6 +36,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.kernels import build_words_t
+
 # samples per crumb plane are padded to a multiple of _LANE bytes; the value
 # is the JAX package's, so both packages pad every n to the same n4
 _LANE = 512
@@ -124,6 +126,10 @@ class PackedGenotypes:
     n: int                   # true sample count
     p: int                   # true SNP count
     has_missing: bool        # skip the missing-plane work when False
+    # optional second, score-only layout: the transposed per-SNP words
+    # (n4/4, 4*p4) of ops/kernels.build_words_t, built by with_dual_layout;
+    # never used for gathers
+    words_t: torch.Tensor | None = None
 
     @property
     def shape(self):
@@ -198,6 +204,16 @@ class PackedGenotypes:
             _bytes_to_words(np.asarray(packed)),
             np.asarray(mu, np.float32), np.asarray(inv_sd, np.float32),
             n=n, p=p, has_missing=has_missing, device=device, dtype=dtype)
+
+    def with_dual_layout(self) -> "PackedGenotypes":
+        """Attach the transposed per-SNP word view (score-only layout, on the
+        words' device) and return self.  Idempotent, and deliberately in
+        place, as in the JAX package: repeated operator builds on the same
+        genotypes must share one ``words_t``, since a copy per build would
+        hold another packed matrix of device memory each."""
+        if self.words_t is None:
+            self.words_t = build_words_t(self.words, self.p)
+        return self
 
     # -- host-side dense views (tests / small problems) --------------------
     def packed_np(self) -> np.ndarray:

@@ -34,6 +34,21 @@ _NOT_PORTED = {
 }
 
 
+def check_not_ported(fn: str, kwargs: dict, table: dict):
+    """Raise TypeError for an argument ``fn`` does not know, and
+    NotImplementedError for one of ``table`` (name -> (values that mean
+    "not used", ROADMAP item)) given a value that would use it."""
+    for name, value in kwargs.items():
+        if name not in table:
+            raise TypeError(f"{fn}() got an unexpected keyword argument "
+                            f"{name!r}")
+        unused, item = table[name]
+        if not any(value is u or (type(value) is type(u) and value == u)
+                   for u in unused):
+            raise NotImplementedError(
+                f"{fn}({name}=...) is not ported yet: ROADMAP {item}")
+
+
 def checky(y, dist: str):
     """Response-range validation (the reference imports GLM.checky)."""
     y = np.asarray(y)
@@ -103,15 +118,7 @@ def fit_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
     (intercept only) are host arrays.  Only the Normal family with the
     identity link is ported; the JAX package's other arguments raise
     NotImplementedError naming the ROADMAP item that ports them."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"fit_iht() got an unexpected keyword argument "
-                            f"{name!r}")
-        unused, item = _NOT_PORTED[name]
-        if not any(value is u or (type(value) is type(u) and value == u)
-                   for u in unused):
-            raise NotImplementedError(
-                f"fit_iht({name}=...) is not ported yet: ROADMAP {item}")
+    check_not_ported("fit_iht", not_ported, _NOT_PORTED)
     d = d if d is not None else glm.Normal()
     op, data, cfg, k = build_fit(y, x, z, k=k, d=d, l=l, tol=tol,
                                  max_iter=max_iter, min_iter=min_iter,

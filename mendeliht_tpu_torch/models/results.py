@@ -56,3 +56,21 @@ def _table(positions, values):
     for i, (pos, v) in enumerate(zip(positions, values)):
         rows.append(f"{i+1:4d} │ {pos:8d}  {v: .6g}")
     return "\n".join(rows)
+
+
+def print_cv_results(io, errors, path, k):
+    print("\n\nCrossvalidation Results:", file=io)
+    print("\tk\tMSE", file=io)
+    for ki, e in zip(path, errors):
+        print(f"\t{ki}\t{e}", file=io)
+    print(f"\nBest k = {k}\n", file=io)
+
+
+def print_a_bunch_of_path_results(io, loglikelihoods, path):
+    print("\n\nResults of running all the model sizes specified in `path`:", file=io)
+    print("\tk\tloglikelihoods", file=io)
+    for ki, l in zip(path, loglikelihoods):
+        print(f"\t{ki}\t{l}", file=io)
+    print("\nWe recommend running cross validation through `cv_iht` on "
+          "appropriate model sizes, which is roughly the values of k where the "
+          "loglikelihood stop increasing significantly.", file=io)

@@ -212,6 +212,31 @@ def finalize_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
         sel_valid=sel_valid, idc=best_c != 0, xb=xb, zc=zc, mu=mu)
 
 
+def run_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
+    """Full solve: loop to completion, then restore the best model."""
+    st = run_segment(op, data, cfg, st, cfg.max_iter - 1)
+    return finalize_iht(op, data, cfg, st)
+
+
+def predict_deviance(op, data: FitData, cfg: FitConfig, st: IHTState,
+                     test_wts: torch.Tensor) -> torch.Tensor:
+    """Holdout deviance (B,) of the fitted models (reference predict!,
+    src/cross_validation.jl:279-286): the full mean g^-1(xb + zc) against
+    the held-out samples of each task."""
+    mu = glm.linkinv(cfg.link, st.xb + st.zc)
+    return glm.deviance(cfg.dist, data.y[None, :], mu, test_wts, dim=1)
+
+
+def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts):
+    """init + solve + finalize + holdout deviance of the whole
+    cross-validation grid as one batch of tasks."""
+    from .initialize import init_state
+
+    st = init_state(op, data, cfg, ks, train_wts)
+    st = run_iht(op, data, cfg, st)
+    return predict_deviance(op, data, cfg, st, test_wts)
+
+
 def _sparse_extract(st: IHTState, sigma_g):
     """Sparse result pieces: ~S floats instead of the (B, p) beta."""
     full = torch.cat([st.b, st.c], dim=1)

@@ -2,13 +2,15 @@
 
 These are the reference versions of the hand-written kernels in
 ``ops/kernels.py``: the CPU path runs them, the tests hold them against the
-JAX package, and ``chip_smoke.py`` holds the CUDA kernel against them on the
+JAX package, and ``chip_smoke.py`` holds the CUDA kernels against them on the
 card.
 
 Layout (genotype/snparray.py): ``words (p4, n4)`` int32, byte ``k`` of
 ``words[i, w]`` is byte ``w`` of SNP ``4i+k``, and crumb ``s`` of that byte is
 sample ``s*n4 + w``, so shift-plane ``s`` is the contiguous sample block
-``[s*n4, (s+1)*n4)``.
+``[s*n4, (s+1)*n4)``.  The transposed dual layout ``words_t (n4/4, 4*p4)``
+(``ops/kernels.build_words_t``) holds bytes ``4w..4w+3`` of SNP ``j``'s byte
+row in word ``(w, j)``.
 
 Decode algebra per crumb code c (hi = c>>1, lo = c&1):
     raw value (missing -> 0):  v  = hi + (hi & lo)      in {0,1,2}
@@ -47,18 +49,19 @@ def quad_rows_bytes(words: torch.Tensor) -> torch.Tensor:
     return by.permute(0, 2, 1).reshape(4 * c, n4)
 
 
-def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
-                  want_missing: bool, want_sq: bool = False,
-                  p: int | None = None):
-    """Raw-plane dots of the whole packed matrix against ``rhs``.
+def t_rows_bytes(words_t: torch.Tensor) -> torch.Tensor:
+    """(nw, c) int32 transposed words -> (c, 4*nw) uint8 byte rows, row j =
+    SNP column j (word (w, j) holds bytes 4w..4w+3 of that row)."""
+    nw, c = words_t.shape
+    return words_t.T.contiguous().view(torch.uint8).reshape(c, 4 * nw)
 
-    words (p4, n4) int32; rhs (n_pad = 4*n4, m) float.  Returns (A, M, S):
-    value dot (p, m), missing dot (p, m) or None, squared-value dot (p, m)
-    or None, with p = 4*p4 unless ``p`` slices off the quad-padding rows.
 
-    Chunked over quad rows (like the JAX package's ``decode.xt_dots``) so
-    that no (p, n_pad) float matrix is ever materialized."""
-    p4, n4 = words.shape
+def _xt_dots_rows(row_bytes, p4: int, rhs: torch.Tensor, want_missing: bool,
+                  want_sq: bool, p: int | None):
+    """Raw-plane dots of 4*p4 SNP byte rows against ``rhs`` (4*n4, m), chunk
+    by chunk: ``row_bytes(lo, hi)`` gives the (4*(hi-lo), n4) uint8 rows of
+    SNPs 4*lo..4*hi-1, so no (p, n_pad) float matrix is ever materialized."""
+    n4 = rhs.shape[0] // 4
     m = rhs.shape[1]
     p_out = 4 * p4 if p is None else p
     planes = rhs.reshape(4, n4, m)
@@ -70,7 +73,7 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
     chunk = max(1, _CHUNK_WORDS // max(n4, 1))
     for lo in range(0, p4, chunk):
         hi = min(lo + chunk, p4)
-        by = quad_rows_bytes(words[lo:hi])                   # (4c, n4) u8
+        by = row_bytes(lo, hi)                               # (4c, n4) u8
         rows = slice(4 * lo, 4 * hi)
         a = torch.zeros((4 * (hi - lo), m), **kw)
         mm = torch.zeros_like(a) if want_missing else None
@@ -90,6 +93,42 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
             S[rows] = ss
     return (A[:p_out], M[:p_out] if want_missing else None,
             S[:p_out] if want_sq else None)
+
+
+def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
+                  want_missing: bool, want_sq: bool = False,
+                  p: int | None = None):
+    """Raw-plane dots of the whole packed matrix against ``rhs``.
+
+    words (p4, n4) int32; rhs (n_pad = 4*n4, m) float.  Returns (A, M, S):
+    value dot (p, m), missing dot (p, m) or None, squared-value dot (p, m)
+    or None, with p = 4*p4 unless ``p`` slices off the quad-padding rows.
+
+    Chunked over quad rows (like the JAX package's ``decode.xt_dots``) so
+    that no (p, n_pad) float matrix is ever materialized."""
+    return _xt_dots_rows(lambda lo, hi: quad_rows_bytes(words[lo:hi]),
+                         words.shape[0], rhs, want_missing, want_sq, p)
+
+
+def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
+                    want_missing: bool, want_sq: bool = False,
+                    p: int | None = None):
+    """``xt_dots_words`` over the transposed per-SNP words: words_t
+    (nw = n4/4, 4*p4) int32, rhs (16*nw, m).  Same outputs, the contract of
+    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t`` (a NaN in an rhs
+    column is NaN in that output column).  Chunked over SNP columns, each
+    chunk viewed back as byte rows."""
+    return _xt_dots_rows(
+        lambda lo, hi: t_rows_bytes(words_t[:, 4 * lo:4 * hi]),
+        words_t.shape[1] // 4, rhs, want_missing, want_sq, p)
+
+
+def read_words(words: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``c + sum(words)`` in wrapping int32, as a (1,) int32 tensor: the
+    read-bandwidth probe's result (``mendeliht_tpu.utils.profiling.
+    _pallas_reader`` returns the same sum as a (1, 1) int32)."""
+    s = words.sum(dtype=torch.int64) + c.to(torch.int64)
+    return ((s + 2**31) % 2**32 - 2**31).to(torch.int32).reshape(1)
 
 
 def take_rows_bytes(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
