@@ -39,14 +39,32 @@ result line):
 10. profile   ``profiling.trace`` over one warm cv and one warm dual fit:
               wall, device busy and idle share, launches, syncs, the
               heaviest device kernels
-11. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
+11. lab       the kernel lab (``mendeliht_tpu_torch.tools.kernel_lab5``) on
+              the same 10k x 1M genotypes: ``main(["--quick"])`` (int4
+              probes, int8/int4 ingestion, quad and int8 digit-plane score
+              at m in {1, 8, 100}) and ``main(["--attrib"])`` with every
+              launch count set to 0 before and read after, each of the six
+              kernels launched; the probe verdicts against the reference's;
+              the sweep of kernels 1, 2 and 6 over m = 1..128; kernels 4
+              and 5 equal to their plain versions at the lab's shapes and
+              timed by profiler device time (CUDA events would time the
+              host's launches), ``torch._int_mm``'s beside kernel 5's
+12. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernel 2 vs plain and
               timed at m=100 on them
-12. result    a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+13. result    a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+
+Between phases 4 and 5, ``kernel-i8`` holds kernel 6 (``xt_dots_T``, the
+int8 digit-plane score) to its plain version, exactly, on the kernel cases'
+genotypes and at 10k x 1M for m in {1, 8, 100}, and times it there.
 
 Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
-(kernel 1), the cv (kernel 2) and the read-ceiling measurement (kernel 3).
+(kernel 1), the cv (kernel 2), the read-ceiling measurement (kernel 3) and
+the lab run (kernels 4-6; ``lab_launches`` of every kernel).  Each entry's
+``bound_ms`` is the larger of its bytes over the data sheet's memory rate
+and its operations over the data sheet's rate for their type (f32 on the
+CUDA cores, int8 on the tensor cores), for this run's shapes.
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -65,6 +83,7 @@ from mendeliht_tpu_torch import PackedGenotypes, cv_iht, fit_iht
 from mendeliht_tpu_torch.models import univariate
 from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.ops.linalg import PackedOp
+from mendeliht_tpu_torch.tools import kernel_lab5 as lab
 from mendeliht_tpu_torch.utils import profiling
 from mendeliht_tpu_torch.utils.simulate import simulate_packed_problem
 
@@ -78,7 +97,19 @@ CV_MAX_ITER = 100                        # cv_iht's default
 SEED = 2026
 TOL = 2e-5         # the bound tests/test_pallas.py holds the Pallas kernels to
 CV_TOL = 1e-4      # cv mse, card vs CPU: f32 sums in another order
-SOURCES = ("xt_dots", "xt_dots_t", "read_probe")
+EXACT_TOL = 1e-6   # kernel 6 vs plain: exact integer sums, the same f32 combine
+SOURCES = ("xt_dots", "xt_dots_t", "read_probe", "xt_dots_i8", "int_probe")
+# data-sheet rates of an H100 SXM (dense): f32 on the CUDA cores, int8 on
+# the tensor cores, operations per second
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+# the reference lab's verdicts (tools/kernel_lab5.py::probe_int4): its
+# int4 x int4 operands do not match, so that one is dot_general's error
+PROBE_VERDICTS = {
+    "bitcast_i32_to_i4": "ok", "dot_i4_i8": "ok",
+    "dot_i4_i4_256x256_256x128": (
+        "FAIL: TypeError: dot_general requires contracting dimensions to "
+        "have the same shape, got (256,) and (128,)."),
+    "dot_i8_lhs_i4_rhs": "ok"}
 KERNELS = {
     "xt_dots_words": dict(
         route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots.cu",
@@ -89,6 +120,15 @@ KERNELS = {
     "read_words": dict(
         route="cuda", source="mendeliht_tpu_torch/csrc/read_probe.cu",
         replaces="mendeliht_tpu/utils/profiling.py:68"),
+    "unpack_words": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/int_probe.cu",
+        replaces="tools/kernel_lab5.py:89"),
+    "int_dot_packed": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/int_probe.cu",
+        replaces="tools/kernel_lab5.py:134"),
+    "xt_dots_T": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots_i8.cu",
+        replaces="tools/kernel_lab5.py:176"),
 }
 
 
@@ -111,6 +151,23 @@ def cuda_ms(fn, reps):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, match=None):
+    """Device ms per call of ``fn`` from a profiler trace of ``reps`` calls
+    after one: the kernels whose name holds ``match``, or (``match`` None)
+    all device activity.  For calls so short that CUDA events would time
+    the host's launches instead."""
+    fn()
+    with profiling.trace() as s:
+        for _ in range(reps):
+            fn()
+    if match is None:
+        return s["device_busy_ms"] / reps
+    hits = [ms for name, ms, _ in s["kernels"] if match in name]
+    if not hits:
+        raise AssertionError(f"no {match} kernel in the trace: {s['kernels']}")
+    return sum(hits) / reps
 
 
 def interleaved(kern, plain, reps, plain_reps):
@@ -288,6 +345,86 @@ def phase_kernel_t(small, g, gen):
                 ms_m8=times[8][0], plain_ms_m8=times[8][1])
 
 
+def bound(device, nbytes, ops, kind):
+    """The least time the card could take: bytes over the data sheet's
+    memory rate or operations over its ``kind`` rate, the larger."""
+    t_bytes = nbytes / profiling.device_hbm_bandwidth(device) * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def score_bound(g, m, kind, planes=1):
+    """Bound of one score pass at width m: the words, R and A moved once,
+    ``planes`` x 2*n_pad*p*m operations."""
+    nbytes = g.words.numel() * 4 + 4 * g.n_pad * m + 4 * g.p * m
+    return bound(g.device, nbytes, planes * 2 * g.n_pad * g.p * m, kind)
+
+
+def check_i8(s, gen):
+    """Kernel 6 vs plain on the genotypes ``s`` (words_t built) at m in
+    {1, 8, 100}; returns the worst relative error."""
+    worst = 0.0
+    for m in (1, 8, 100):
+        rhs = rhs_on(s, m, gen)
+        got = kernels.xt_dots_T(s.words_t, rhs)
+        ref = decode.xt_dots_T(s.words_t, rhs)
+        sync()
+        err, same = rel_err(got, ref), bool(torch.equal(got, ref))
+        print(f"[kernel-i8] n={s.n} p={s.p} m={m} missing={s.has_missing}: "
+              f"rel err {err:.3g}, bit-equal {same}", flush=True)
+        if not err <= EXACT_TOL:
+            raise AssertionError(f"kernel 6 disagrees: {err} > {EXACT_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_kernel_i8(small, g, gen):
+    """Kernel 6 against its plain version on the kernel cases and at full
+    width, checked then timed; and against kernel 2 (its digit planes
+    quantize R to 21 bits)."""
+    worst = 0.0
+    for s in small:
+        s.with_dual_layout()
+        worst = max(worst, check_i8(s, gen))
+        s.words_t = None
+    for m in (1, 100):
+        rhs = rhs_on(g, m, gen)
+        a = kernels.xt_dots_T(g.words_t, rhs)
+        b = kernels.xt_dots_words_t(g.words_t, rhs, want_missing=False)[0]
+        sync()
+        print(f"[kernel-i8] {g.n} x {g.p} m={m}: kernel 6 vs kernel 2 rel "
+              f"err {rel_err(a, b):.3g} (R quantized to 21-bit digits)",
+              flush=True)
+    times = {}
+    for m in (1, 8, 100):
+        rhs = rhs_on(g, m, gen)
+        got = kernels.xt_dots_T(g.words_t, rhs)
+        ref = decode.xt_dots_T(g.words_t, rhs)
+        sync()
+        err, abs_err = rel_err(got, ref), float((got - ref).abs().max())
+        del got, ref
+        if not err <= EXACT_TOL:
+            raise AssertionError(f"kernel 6 disagrees at {g.n} x {g.p}, "
+                                 f"m={m}: {err} > {EXACT_TOL}")
+        ms, plain_ms, runs = interleaved(
+            lambda: kernels.xt_dots_T(g.words_t, rhs),
+            lambda: decode.xt_dots_T(g.words_t, rhs),
+            reps=20 if m == 1 else 10, plain_reps=2)
+        times[m] = (ms, plain_ms, err, abs_err)
+        b = score_bound(g, m, "int8", planes=3)
+        print(f"[kernel-i8] {g.n} x {g.p} m={m}: rel err {err:.3g}, max abs "
+              f"err {abs_err:.3g}; kernel {ms:.3f} ms (runs {runs[0]:.3f}, "
+              f"{runs[1]:.3f}), plain {plain_ms:.3f} ms (runs {runs[2]:.3f}, "
+              f"{runs[3]:.3f}), bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']}) per X'R pass", flush=True)
+    return dict(**errors(worst, times), ms=times[100][0],
+                plain_ms=times[100][1], m=100, ms_m1=times[1][0],
+                plain_ms_m1=times[1][1], ms_m8=times[8][0],
+                plain_ms_m8=times[8][1], **score_bound(g, 100, "int8", 3),
+                library_ms=None)
+
+
 def phase_probe(g):
     c = torch.tensor([SEED], dtype=torch.int32, device=g.device)
     got, ref = kernels.read_words(g.words, c), decode.read_words(g.words, c)
@@ -318,8 +455,13 @@ def phase_probe(g):
                   f"{r['hbm_roofline_fraction']:.3f} of the data sheet, "
                   f"{r['measured_roofline_fraction']:.3f} of the read ceiling",
                   flush=True)
+    library_ms = cuda_ms(lambda: torch.sum(g.words), 3)
+    print(f"[probe] torch.sum of the words {library_ms:.3f} ms", flush=True)
+    nbytes = g.words.numel() * 4
     return dict(launches=launches, max_abs_err=float((got - ref).abs().max()),
-                ms=ms, plain_ms=plain_ms, gbytes_per_s=roof / 1e9)
+                ms=ms, plain_ms=plain_ms, gbytes_per_s=roof / 1e9,
+                **bound(g.device, nbytes, g.words.numel(), "f32"),
+                library_ms=library_ms)
 
 
 def phase_parity(dev):
@@ -492,6 +634,117 @@ def phase_profile(g, y, card):
             raise AssertionError(f"the {what} trace shows no {kernel} time")
 
 
+def phase_lab(g, card):
+    """The kernel lab's entry points on the 10k x 1M genotypes, then its
+    sweep of kernels 1, 2 and 6 and kernels 4 and 5 against their plain
+    versions; returns per-kernel stats for the kernels line."""
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    res = lab.main(["--quick"], g=g, device=g.device)
+    res.update(lab.main(["--attrib"], g=g, device=g.device))
+    launches = dict(kernels.LAUNCHES)
+    print(f"[lab] launches in the lab run: {launches}", flush=True)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched by the lab: "
+                             f"{launches}")
+    if res["int4_probe"] != PROBE_VERDICTS:
+        raise AssertionError(f"probe verdicts {res['int4_probe']} differ "
+                             f"from the reference's {PROBE_VERDICTS}")
+    ing = res["int4_ingestion"]
+    print(f"[lab] probe verdicts as the reference's; ingestion i8 "
+          f"{ing['i8_us']:.3f} us, i4 {ing['i4_us']:.3f} us per carried "
+          f"call on {card}; attrib {res['attrib_m100']}", flush=True)
+
+    def quad(a, r):
+        return kernels.xt_dots_words(a, r, want_missing=False)[0]
+
+    def vt(a, r):
+        return kernels.xt_dots_words_t(a, r, want_missing=False, p=g.p)[0]
+
+    iters = lambda m: 25 if m <= 8 else 5                       # noqa: E731
+    sweeps = {"kernel 1": lab.sweep("kernel 1 quad", quad, g.words, g.n_pad,
+                                    iters=iters),
+              "kernel 2": lab.sweep("kernel 2 vt f32", vt, g.words_t,
+                                    g.n_pad, iters=iters),
+              "kernel 6": lab.sweep("kernel 6 vt int8", kernels.xt_dots_T,
+                                    g.words_t, g.n_pad, iters=iters)}
+    print(f"[lab] sweep on {card}, ms per pass, {g.n} x {g.p}:", flush=True)
+    print("[lab]     m " + "".join(f"{k:>10}" for k in sweeps), flush=True)
+    for m in lab.WIDTHS:
+        row = "".join(f"{t[m]:10.3f}" for t in sweeps.values())
+        fastest = min(sweeps, key=lambda k: sweeps[k][m])
+        print(f"[lab] {m:5d} {row}   fastest {fastest}", flush=True)
+    return dict(unpack=lab_unpack(g.device), dot=lab_dot(g.device),
+                launches=launches)
+
+
+def lab_unpack(dev):
+    """Kernel 4's unpack at the probe's shape: equal to plain, timed."""
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(
+        -2**31, 2**31, size=(32, 256)).astype(np.int32)).to(dev)
+    for bits in (4, 8):
+        if not torch.equal(kernels.unpack_words(x, bits),
+                           decode.unpack_words(x, bits)):
+            raise AssertionError(f"unpack_words({bits}) differs from plain")
+    ms = device_ms(lambda: kernels.unpack_words(x, 4), 200, "unpack_kernel")
+    plain_ms = device_ms(lambda: decode.unpack_words(x, 4), 200)
+    print(f"[lab] unpack_words (32, 256) int4 and int8: equal to plain; "
+          f"kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us of "
+          "device time per call (profiler)", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape=[32, 256],
+                **bound(dev, 32 * 256 * 4 * 9, 0, "f32"), library_ms=None)
+
+
+def lab_dot(dev):
+    """Kernel 4's probe dots and kernel 5's ingestion dot equal to plain;
+    kernel 5 timed alone at the lab's shape beside its plain version and
+    ``torch._int_mm`` on the unpacked int8 operand."""
+    probes = (((32, 256), (256, 128), 4, True),
+              ((32, 512), (8, 256), 4, False))
+    for xs, ys, bits, lhs in probes:
+        x = torch.arange(int(np.prod(xs)), dtype=torch.int32,
+                         device=dev).reshape(xs) % 3
+        y = torch.arange(int(np.prod(ys)), dtype=torch.int32,
+                         device=dev).reshape(ys) % 3
+        if not torch.equal(kernels.int_dot_packed(x, y, bits, lhs),
+                           decode.int_dot_packed(x, y, bits, lhs)):
+            raise AssertionError(f"probe dot {xs} x {ys} differs from plain")
+    M, K, N = lab.INGEST_SHAPE
+    out = {}
+    x8, y8 = lab.ingestion_operands(8, dev)
+    for bits in (8, 4):
+        x, y = (x8, y8) if bits == 8 else lab.ingestion_operands(bits, dev)
+        got = kernels.int_dot_packed(x, y, bits)
+        if not (torch.equal(got, decode.int_dot_packed(x, y, bits))
+                and int(got[::32 // bits].min()) == K
+                and int(got.sum()) == K * N * M * bits // 32):
+            raise AssertionError(f"ingestion dot ({bits} bits) is wrong")
+        ms = device_ms(lambda: kernels.int_dot_packed(x, y, bits), 200,
+                       "int_dot_kernel")
+        plain_ms = device_ms(lambda: decode.int_dot_packed(x, y, bits), 20)
+        out[bits] = (ms, plain_ms, x.numel() * 4)
+    a8 = decode.unpack_words(x8, 8).to(torch.int8)          # (M, K) int8
+    if not torch.equal(torch._int_mm(a8, y8),
+                       kernels.int_dot_packed(x8, y8, 8)):
+        raise AssertionError("torch._int_mm differs from the kernel")
+    library_ms = device_ms(lambda: torch._int_mm(a8, y8), 200)
+    for bits, (ms, plain_ms, nbytes) in out.items():
+        b = bound(dev, nbytes + K * N + 4 * M * N, 2 * M * K * N, "int8")
+        print(f"[lab] ingestion dot ({M}, {K}) x ({K}, {N}), big operand "
+              f"int{bits} ({nbytes / 1e6:.1f} MB): equal to plain; kernel "
+              f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us of device "
+              f"time per call (profiler), bound {b['bound_ms'] * 1e3:.3f} us "
+              f"({b['bound_by']})", flush=True)
+    print(f"[lab] torch._int_mm on the unpacked int8 operand "
+          f"{library_ms * 1e3:.3f} us of device time per call", flush=True)
+    ms, plain_ms, nbytes = out[8]
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, ms_i4=out[4][0],
+                plain_ms_i4=out[4][1], shape=[M, K, N],
+                **bound(dev, nbytes + K * N + 4 * M * N, 2 * M * K * N,
+                        "int8"),
+                library_ms=library_ms)
+
+
 def phase_missing(g, y, card, gen):
     """Kernel 2 with its missing plane at the cv width, then the cv, on
     10k x 1M genotypes with missing calls."""
@@ -503,10 +756,11 @@ def phase_missing(g, y, card, gen):
     return times[100]
 
 
-def main():
+def main(dev=None):
+    """Every phase on ``dev`` (default the first CUDA device)."""
     t_start = time.perf_counter()
     card = phase_device()
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", 0) if dev is None else dev
     phase_build()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     small = [genotypes(np.random.default_rng(1), N, P_KERNEL, True, dev)[0],
@@ -517,6 +771,7 @@ def main():
           f"packed) in {time.perf_counter() - t0:.1f} s", flush=True)
     k1 = phase_kernel(small, g, gen)
     k2 = phase_kernel_t(small, g, gen)
+    k6 = phase_kernel_i8(small, g, gen)
     del small
     k3 = phase_probe(g)
     card_g, cpu_g, y_par = phase_parity(dev)
@@ -526,6 +781,9 @@ def main():
     k1["launches"] = phase_fit(g, causal, y, card)
     k2["launches"] = phase_cv("cv", g, y, card, warm=CV_WARM)
     phase_profile(g, y, card)
+    labs = phase_lab(g, card)
+    k1.update(score_bound(g, 1, "f32"), library_ms=None)
+    k2.update(score_bound(g, 100, "f32"), library_ms=None)
     del g
     gm, causal_m, beta_m = genotypes(np.random.default_rng(SEED + 1), N, P,
                                      True, dev)
@@ -536,10 +794,15 @@ def main():
               max_abs_err=max(k2["max_abs_err"], abs_err))
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    k4 = dict(labs["unpack"], launches=labs["launches"]["unpack_words"])
+    k5 = dict(labs["dot"], launches=labs["launches"]["int_dot_packed"])
+    k6["launches"] = labs["launches"]["xt_dots_T"]
+    stats = {"xt_dots_words": k1, "xt_dots_words_t": k2, "read_words": k3,
+             "unpack_words": k4, "int_dot_packed": k5, "xt_dots_T": k6}
     print(json.dumps({"kernels": [
-        dict(name=name, **KERNELS[name], **stats)
-        for name, stats in (("xt_dots_words", k1), ("xt_dots_words_t", k2),
-                            ("read_words", k3))]}))
+        dict(name=name, **KERNELS[name], **st,
+             lab_launches=labs["launches"][name])
+        for name, st in stats.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

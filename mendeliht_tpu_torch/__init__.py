@@ -17,7 +17,10 @@ genotypes live on a CUDA device (``csrc/xt_dots.cu`` over the quad words,
 ``csrc/xt_dots_t.cu`` over the transposed dual layout), and through their
 plain PyTorch versions (``ops/decode.py``) on the CPU.  ``utils/profiling``
 measures the card's read ceiling through a third kernel
-(``csrc/read_probe.cu``) and the score kernels' share of it.
+(``csrc/read_probe.cu``) and the score kernels' share of it.  The kernel
+lab ``tools/kernel_lab5.py`` sweeps the score kernels across RHS widths
+beside an int8 tensor-core score (``csrc/xt_dots_i8.cu``) and probes the
+tensor cores with packed int8 / int4 operands (``csrc/int_probe.cu``).
 """
 
 from .genotype.snparray import PackedGenotypes

@@ -19,6 +19,10 @@ Decode algebra per crumb code c (hi = c>>1, lo = c&1):
 
 Standardized products are assembled outside the heavy pass:
     X_std' R = inv_sd ∘ (A + mu ∘ M - mu · colsum(R)),   A = Vraw'R, M = Miss'R
+
+The kernel lab's versions (``tools/kernel_lab5.py``): ``xt_dots_T``, A
+through three int8 digit planes of R with exact integer sums, and the
+narrow-integer probes ``unpack_words`` / ``int_dot_packed``.
 """
 
 from __future__ import annotations
@@ -121,6 +125,103 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
     return _xt_dots_rows(
         lambda lo, hi: t_rows_bytes(words_t[:, 4 * lo:4 * hi]),
         words_t.shape[1] // 4, rhs, want_missing, want_sq, p)
+
+
+def quantize_rhs_planes(rhs: torch.Tensor):
+    """f32 (n_pad, m) -> ((3m, n_pad) int8 digit planes [hi|mid|lo], (m,)
+    f32 per-column scale), bit for bit the JAX package's
+    ``pallas_kernels._quantize_rhs_planes``.
+
+    r ~= scale * (hi*16384 + mid*128 + lo), every digit in [-64, 64]; an
+    all-zero column gets scale 2^-20 and zero digits.  Rounding is half to
+    even, as ``jnp.round``.  A NaN/Inf column gives meaningless digits."""
+    rhs_t = rhs.t().to(torch.float32)                      # (m, n_pad)
+    mx = rhs_t.abs().amax(dim=1)
+    scale = torch.where(mx > 0, mx, torch.ones_like(mx)) / (1 << 20)
+    r = torch.round(rhs_t / scale[:, None]).to(torch.int32)
+    rh = torch.round(r.to(torch.float32) * (1.0 / 16384.0)).to(torch.int32)
+    rm = torch.round((r - rh * 16384).to(torch.float32) * (1.0 / 128.0)
+                     ).to(torch.int32)
+    rl = r - rh * 16384 - rm * 128
+    return torch.cat([rh, rm, rl], dim=0).to(torch.int8), scale
+
+
+def digit_dots_t(words_t: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Exact integer dots V'D of the decoded transposed words against int8
+    digit rows: words_t (nw, p_all) int32, planes (rows, 16*nw) int8 ->
+    (p_all, rows) float64 holding the int32 sums exactly.
+
+    Missing crumbs decode to 0.  Each product is at most 128 in magnitude,
+    so every partial sum is an integer below 2^53 and float64 keeps it
+    exact; chunked over SNP columns so no (p, n_pad) matrix is made."""
+    nw, p_all = words_t.shape
+    n4 = 4 * nw
+    d = planes.to(torch.float64).reshape(planes.shape[0], 4, n4)
+    out = torch.empty((p_all, planes.shape[0]), dtype=torch.float64,
+                      device=words_t.device)
+    chunk = max(1, 4 * _CHUNK_WORDS // max(n4, 1))
+    for lo in range(0, p_all, chunk):
+        hi = min(lo + chunk, p_all)
+        by = t_rows_bytes(words_t[:, lo:hi])                 # (c, n4) u8
+        acc = torch.zeros((hi - lo, planes.shape[0]), dtype=torch.float64,
+                          device=words_t.device)
+        for q in range(4):
+            crumbs = (by >> (2 * q)) & 3
+            val, _, _, _ = _plane_val_miss(crumbs, torch.float64, False)
+            acc += val @ d[:, q].T
+        out[lo:hi] = acc
+    return out
+
+
+def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The value dots A = V'R over the transposed words through int8 digit
+    planes of R: words_t (nw, p_all) int32, rhs (16*nw, m) f32 -> (p_all, m)
+    f32.  The contract of ``tools/kernel_lab5.py::xt_dots_T``: A only, no
+    NaN re-poisoning, missing crumbs count 0.  Each exact digit sum is
+    rounded to f32 as the int32 accumulator is, then combined as
+    ``(16384*hi + 128*mid + lo) * scale`` in that f32 order."""
+    planes, scale = quantize_rhs_planes(rhs)
+    m = scale.shape[0]
+    a = digit_dots_t(words_t, planes).to(torch.float32)
+    return (16384.0 * a[:, :m] + 128.0 * a[:, m:2 * m]
+            + a[:, 2 * m:]) * scale[None, :]
+
+
+def unpack_words(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """(r, c) int32 -> (32/bits * r, c) int32: each word split into its
+    ``bits``-wide fields, sign-extended, in ``pltpu.bitcast``'s word-major
+    order (output row ``k*i + j`` is field ``j`` of row ``i``, low field
+    first, k = 32/bits)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    k = 32 // bits
+    fields = [(x << (32 - bits * (j + 1))) >> (32 - bits) for j in range(k)]
+    return torch.stack(fields, dim=1).reshape(k * x.shape[0], x.shape[1])
+
+
+def check_contraction(ka: int, kb: int):
+    """Raise ``jax.lax.dot_general``'s TypeError for contracting dimensions
+    ``ka`` and ``kb`` that differ."""
+    if ka != kb:
+        raise TypeError("dot_general requires contracting dimensions to have "
+                        f"the same shape, got ({ka},) and ({kb},).")
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of integer matrices a (M, K) and b (K, N); the
+    contraction of ``jax.lax.dot_general`` with an int32 result, and its
+    shape error.  Through float64, exact while every sum is below 2^53."""
+    check_contraction(a.shape[1], b.shape[0])
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
+                   lhs_packed: bool = True) -> torch.Tensor:
+    """The lab's packed-operand dot: the ``bits``-wide fields of x_words
+    (``unpack_words``) against y cast to int8 (wrapping, as ``astype``),
+    as the left operand (``lhs_packed``) or the right one."""
+    xs, ys = unpack_words(x_words, bits), y.to(torch.int8)
+    return int_dot(xs, ys) if lhs_packed else int_dot(ys, xs)
 
 
 def read_words(words: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,8 @@ _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0}
+LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0,
+            "xt_dots_T": 0, "unpack_words": 0, "int_dot_packed": 0}
 
 # words, rhs, A, M, S pointers; three sizes and two flags; the stream
 _SCORE_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
@@ -246,4 +247,133 @@ def read_words(words: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                  ctypes.c_void_p))
     _launch("read_words", fn, words.device, words.data_ptr(), words.numel(),
             out.data_ptr())
+    return out
+
+
+def _digit_chunks(planes: torch.Tensor, m: int):
+    """(3m, n_pad) digit planes [hi|mid|lo] -> (chunks*rows, n_pad) int8 in
+    xt_dots_i8.cu's order: row d*nc + c of chunk i is digit d of column
+    i*nc + c, the other rows zero; returns it and the kernel's NT.  A chunk
+    has the fewest of 8, 32 or 64 rows (NT = 1, 4, 8) that holds all m
+    columns, at most 64 (nc = 21)."""
+    rows = 8 if m <= 2 else 32 if m <= 10 else 64
+    nc = rows // 3
+    chunks = -(-m // nc)
+    i, r = torch.meshgrid(torch.arange(chunks), torch.arange(rows),
+                          indexing="ij")
+    d, c = r // nc, i * nc + r % nc
+    src = torch.where((d < 3) & (c < m), d * m + c, torch.full_like(c, 3 * m))
+    padded = torch.cat([planes, planes.new_zeros((1, planes.shape[1]))])
+    return padded[src.reshape(-1).to(planes.device)], rows // 8
+
+
+def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Value dots A = V'R over the transposed per-SNP words through int8
+    digit planes of R: words_t (nw, p_all) int32 (``build_words_t``), rhs
+    (16*nw, m) float32 -> (p_all, m) float32.  The contract of
+    ``tools/kernel_lab5.py::xt_dots_T`` (A only; missing crumbs count 0);
+    the integer sums are exact, so the kernel equals its plain version."""
+    if words_t.dtype != torch.int32 or words_t.dim() != 2:
+        raise ValueError(f"words_t must be 2-D int32, got {words_t.dtype} "
+                         f"{tuple(words_t.shape)}")
+    if rhs.dim() != 2 or rhs.shape[0] != 16 * words_t.shape[0]:
+        raise ValueError(f"rhs {tuple(rhs.shape)} does not match words_t "
+                         f"{tuple(words_t.shape)}: need (16*nw, m)")
+    if rhs.device != words_t.device:
+        raise ValueError(f"words_t on {words_t.device}, rhs on {rhs.device}")
+    if words_t.device.type == "cpu":
+        return decode.xt_dots_T(words_t, rhs)
+    if words_t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {words_t.device}")
+    _check_card_tensor("words_t", words_t, torch.int32)
+    nw, p_all = words_t.shape
+    m = rhs.shape[1]
+    if nw % 4:
+        raise ValueError(f"words_t {tuple(words_t.shape)}: nw must be a "
+                         "multiple of 4 (16-byte digit loads)")
+    if 128 * 16 * nw >= 2**31 or max(p_all, m) >= 2**31:
+        raise ValueError(f"shape out of range: words_t "
+                         f"{tuple(words_t.shape)}, m={m} (the int32 digit "
+                         "sums are exact only below 2^31)")
+    planes, scale = decode.quantize_rhs_planes(rhs)
+    digits, nt = _digit_chunks(planes, m)
+    _check_card_tensor("digits", digits, torch.int8)
+    out = torch.empty((m, p_all), dtype=torch.float32, device=words_t.device)
+    fn = _entry("xt_dots_i8", "xt_dots_T",
+                (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+                + (ctypes.c_void_p,))
+    _launch("xt_dots_T", fn, words_t.device, words_t.data_ptr(),
+            digits.data_ptr(), scale.data_ptr(), out.data_ptr(), nw, p_all,
+            m, nt)
+    return out.t()
+
+
+def unpack_words(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """(r, c) int32 -> (32/bits * r, c) int32 sign-extended ``bits``-wide
+    fields in ``pltpu.bitcast``'s word-major order (``decode.unpack_words``):
+    the body ``k_bitcast`` of ``tools/kernel_lab5.py::probe_int4``."""
+    if x.dtype != torch.int32 or x.dim() != 2:
+        raise ValueError(f"x must be 2-D int32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if x.device.type == "cpu":
+        return decode.unpack_words(x, bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_card_tensor("x", x, torch.int32)
+    r, c = x.shape
+    out = torch.empty((32 // bits * r, c), dtype=torch.int32, device=x.device)
+    fn = _entry("int_probe", "unpack_words",
+                (ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) * 2
+                + (ctypes.c_int, ctypes.c_void_p))
+    _launch("unpack_words", fn, x.device, x.data_ptr(), out.data_ptr(), r, c,
+            bits)
+    return out
+
+
+def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
+                   lhs_packed: bool = True) -> torch.Tensor:
+    """Exact int32 dot with one packed operand: the ``bits``-wide fields of
+    x_words (``unpack_words``) against y cast to int8, as the left operand
+    (``lhs_packed``: (32/bits*r, c) . (c, N)) or the right one ((M, K) .
+    (32/bits*r, c)).  The bodies ``k_dot_i4_i8`` / ``k_dot_i8_weights_i4``
+    of ``tools/kernel_lab5.py::probe_int4`` and ``bench_int4_ingestion``'s
+    kernel.  Mismatched contracting dimensions raise dot_general's
+    TypeError before any launch."""
+    if x_words.dtype != torch.int32 or x_words.dim() != 2:
+        raise ValueError(f"x_words must be 2-D int32, got {x_words.dtype} "
+                         f"{tuple(x_words.shape)}")
+    if y.dim() != 2 or y.dtype.is_floating_point or y.dtype.is_complex:
+        raise ValueError(f"y must be a 2-D integer tensor, got {y.dtype} "
+                         f"{tuple(y.shape)}")
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if y.device != x_words.device:
+        raise ValueError(f"x_words on {x_words.device}, y on {y.device}")
+    if x_words.device.type == "cpu":
+        return decode.int_dot_packed(x_words, y, bits, lhs_packed)
+    if x_words.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x_words.device}")
+    _check_card_tensor("x_words", x_words, torch.int32)
+    rows, xc = 32 // bits * x_words.shape[0], x_words.shape[1]
+    if lhs_packed:
+        (M, K), (ky, N) = (rows, xc), y.shape
+        decode.check_contraction(K, ky)
+        y8 = y.to(torch.int8).t().contiguous()               # (N, K)
+    else:
+        (M, ky), (K, N) = y.shape, (rows, xc)
+        decode.check_contraction(ky, K)
+        y8 = y.to(torch.int8).contiguous()                   # (M, K)
+    if K % 32 or max(M, N, K) >= 2**31:
+        raise ValueError(f"contracting dimension {K} must be a multiple of "
+                         "32 (one MMA step), sizes below 2^31")
+    _check_card_tensor("y", y8, torch.int8)
+    out = torch.empty((M, N), dtype=torch.int32, device=x_words.device)
+    fn = _entry("int_probe", "int_dot_packed",
+                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6
+                + (ctypes.c_void_p,))
+    _launch("int_dot_packed", fn, x_words.device, x_words.data_ptr(),
+            y8.data_ptr(), out.data_ptr(), M, N, K, xc, bits,
+            int(lhs_packed))
     return out

@@ -3,15 +3,19 @@ package's ``utils/profiling.py``).
 
 - :func:`stream_bandwidth_kernel` — the card's measured read ceiling: the
   read-bandwidth probe kernel (``csrc/read_probe.cu``) over the packed words.
-- :func:`stream_bandwidth` — the same read through plain PyTorch ops.
+- :func:`stream_bandwidth` — the same read through plain PyTorch ops;
+  :func:`stream_bandwidth_rw` a read and a write of the words per pass.
 - :func:`kernel_roofline` — ms per X'R pass of a score kernel, its packed
   bytes per second, and its share of the data sheet and of the measured
   ceiling.
 - :func:`trace` — where a call's time goes on the card: wall time, device
   busy time and idle share, launches and host syncs, the heaviest kernels.
+- :func:`fit_report` — a fit's wall time by phase (build, init, solve,
+  finalize) and its iterations.
 
-Each measures a CUDA device with CUDA events or the profiler and raises
-where there is none: a CPU run gives no device number.
+Each device measurement uses CUDA events or the profiler and raises where
+there is no card: a CPU run gives no device number.  ``fit_report`` times on
+the host clock, after a synchronize on a card, on any device.
 """
 
 from __future__ import annotations
@@ -86,6 +90,21 @@ def stream_bandwidth(geno, iters: int = 50) -> float:
 
     return words.numel() * 4 / _seconds_per_call(step, c0, iters,
                                                  words.device)
+
+
+def stream_bandwidth_rw(geno, iters: int = 10) -> float:
+    """Combined read + write bandwidth (bytes/s) of plain PyTorch: each pass
+    writes a fresh ``words ^ y[0, 0]`` of the words' size, its first word
+    carried into the next pass, reported over twice the words' bytes (the
+    JAX package's ``stream_bandwidth_rw``)."""
+    words = geno.words
+    y0 = words ^ 123
+
+    def step(y):
+        return words ^ y[:1, :1]
+
+    return 2 * words.numel() * 4 / _seconds_per_call(step, y0, iters,
+                                                     words.device)
 
 
 def kernel_roofline(geno, m: int = 1, iters: int = 10, want_missing=None,
@@ -209,3 +228,41 @@ def summarize(events, wall_s: float, top: int = 8) -> dict:
         "sync_wait_ms": sync_us / 1e3,
         "kernels": [(name, us / 1e3, cnt) for name, (us, cnt) in heavy],
     }
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fit_report(y, x, z=None, **kwargs):
+    """Run ``fit_iht``'s phases with a host wall-clock time for each, after
+    a device synchronize (the JAX package's ``fit_report``).
+
+    Returns ({"build", "init", "solve", "finalize": seconds, "iterations",
+    "ms_per_iteration"}, the final solver state); ``kwargs`` go to
+    ``build_fit`` (k, d, l, tol, max_iter, min_iter, max_step)."""
+    from ..models.fit import build_fit
+    from ..models.initialize import init_state
+    from ..models.univariate import finalize_iht, run_segment
+
+    t = {}
+    t0 = time.perf_counter()
+    op, data, cfg, k = build_fit(y, x, z, **kwargs)
+    _sync(op.device)
+    t["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = init_state(op, data, cfg, [k], data.sample_mask[None, :])
+    _sync(op.device)
+    t["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = run_segment(op, data, cfg, st, cfg.max_iter - 1)
+    _sync(op.device)
+    t["solve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = finalize_iht(op, data, cfg, st)
+    _sync(op.device)
+    t["finalize"] = time.perf_counter() - t0
+    t["iterations"] = int(st.iteration)
+    t["ms_per_iteration"] = t["solve"] / max(st.iteration, 1) * 1e3
+    return t, st

@@ -4,7 +4,9 @@
   AST scan: jax may already sit in ``sys.modules`` of any process here).
 - A CPU tensor takes the plain PyTorch version and builds nothing.
 - On a CUDA card (marker ``cuda``), each hand-written kernel agrees with its
-  plain version, and the two score kernels with each other.
+  plain version, and the two score kernels with each other.  The int8
+  digit-plane score and the narrow-integer probes sum integers exactly, so
+  they equal their plain versions.
 """
 
 import ast
@@ -36,8 +38,10 @@ def _imported_roots(path):
 def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"ops/kernels.py", "ops/decode.py", "models/fit.py",
-            "models/cv.py", "utils/profiling.py"} <= names
-    for src in ("xt_dots.cu", "xt_dots_t.cu", "read_probe.cu"):
+            "models/cv.py", "utils/profiling.py",
+            "tools/kernel_lab5.py"} <= names
+    for src in ("xt_dots.cu", "xt_dots_t.cu", "read_probe.cu",
+                "xt_dots_i8.cu", "int_probe.cu"):
         assert (PKG / "csrc" / src).is_file()
 
 
@@ -78,6 +82,14 @@ def test_cpu_tensor_takes_plain_path_without_building(monkeypatch):
     c = torch.tensor([5], dtype=torch.int32)
     assert torch.equal(kernels.read_words(words, c),
                        decode.read_words(words, c))
+    wt = kernels.build_words_t(words, 37)
+    assert torch.equal(kernels.xt_dots_T(wt, rhs), decode.xt_dots_T(wt, rhs))
+    for bits in (4, 8):
+        assert torch.equal(kernels.unpack_words(words, bits),
+                           decode.unpack_words(words, bits))
+        y = torch.arange(words.shape[1] * 5, dtype=torch.int32).reshape(-1, 5)
+        assert torch.equal(kernels.int_dot_packed(words, y, bits),
+                           decode.int_dot_packed(words, y, bits))
     assert kernels.LAUNCHES == before
 
 
@@ -207,3 +219,88 @@ def test_read_probe_equals_plain_on_card(cuda_device, p):
             got = kernels.read_words(w, ct)
             assert torch.equal(got, decode.read_words(w, ct))
     assert kernels.LAUNCHES["read_words"] == before + 6
+
+
+def _lab_words_t(seed, n, p, device):
+    words, _ = _case(seed, n=n, p=p)
+    return kernels.build_words_t(words.to(device), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 10, 11, 100])
+def test_int8_score_kernel_equals_plain_on_card(cuda_device, m):
+    """The digit-plane score vs its plain version on the same card tensors,
+    at every chunking of the digit rows, with missing calls, p not a
+    multiple of the block's SNPs and a ragged last tile of sample words."""
+    wt = _lab_words_t(9, 2600, 4099, cuda_device)            # nw = 192
+    rhs = torch.randn((16 * wt.shape[0], m), device=cuda_device)
+    rhs[:, 0] *= 1e-20
+    if m > 2:
+        rhs[:, 2] = 0.0                                      # a zero column
+    before = kernels.LAUNCHES["xt_dots_T"]
+    got = kernels.xt_dots_T(wt, rhs)
+    ref = decode.xt_dots_T(wt, rhs)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (wt.shape[1], m)
+    assert torch.equal(got, ref)
+    assert kernels.LAUNCHES["xt_dots_T"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_unpack_kernel_equals_plain_on_card(cuda_device, bits):
+    rng = np.random.default_rng(bits)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(33, 257),
+                                      dtype=np.int64).astype(np.int32))
+    x = x.to(cuda_device)
+    before = kernels.LAUNCHES["unpack_words"]
+    assert torch.equal(kernels.unpack_words(x, bits),
+                       decode.unpack_words(x, bits))
+    assert kernels.LAUNCHES["unpack_words"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("lhs_packed", [True, False])
+@pytest.mark.parametrize("shape", [(8, 256, 512), (40, 96, 24)])
+def test_int_dot_kernel_equals_plain_on_card(cuda_device, bits, lhs_packed,
+                                             shape):
+    """Packed-operand dots, every field value and ragged M and N tiles:
+    (M, K, N) with the packed operand on either side."""
+    M, K, N = shape
+    f = 32 // bits
+    rng = np.random.default_rng(M + bits)
+    if lhs_packed:
+        xs, ys = (M // f, K), (K, N)
+    else:
+        xs, ys = (K // f, N), (M, K)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=xs, dtype=np.int64)
+                         .astype(np.int32)).to(cuda_device)
+    y = torch.from_numpy(rng.integers(-128, 128, size=ys, dtype=np.int64)
+                         .astype(np.int32)).to(cuda_device)
+    before = kernels.LAUNCHES["int_dot_packed"]
+    got = kernels.int_dot_packed(x, y, bits, lhs_packed=lhs_packed)
+    assert torch.equal(got, decode.int_dot_packed(x, y, bits, lhs_packed))
+    assert kernels.LAUNCHES["int_dot_packed"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ingestion_kernel_at_lab_shape_on_card(cuda_device, bits):
+    from mendeliht_tpu_torch.tools.kernel_lab5 import ingestion_operands
+
+    x, y = ingestion_operands(bits, cuda_device)
+    got = kernels.int_dot_packed(x, y, bits)
+    want = torch.zeros((8192, 8), dtype=torch.int32, device=cuda_device)
+    want[::32 // bits] = 2048
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int_dot_kernel_shape_error_before_launch(cuda_device):
+    x = torch.zeros((32, 256), dtype=torch.int32, device=cuda_device)
+    y = torch.zeros((128, 128), dtype=torch.int32, device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError, match=r"got \(256,\) and \(128,\)"):
+        kernels.int_dot_packed(x, y, 4)
+    assert kernels.LAUNCHES == before
