@@ -49,22 +49,36 @@ result line):
               and 5 equal to their plain versions at the lab's shapes and
               timed by profiler device time (CUDA events would time the
               host's launches), ``torch._int_mm``'s beside kernel 5's
-12. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
+12. kprobe    the round-3 kernel probe
+              (``mendeliht_tpu_torch.tools.kernel_probe``) on the same 10k x
+              1M genotypes: kernel 7 (``xt_i8_rounds``) equal to its plain
+              version for m in {1, 8, 64} at the probe's tp = 1024, 512 and
+              2048, and to kernel 6 on the transposed words, timed; kernels
+              8 and 9 (``stream_xor``,
+              ``decode_only``) equal to plain on the quad words at tp = 1024
+              (a ragged last tile) with a seed of 0 and one that wraps, timed;
+              then ``main(["1", "8", "64"])`` with every launch count set to
+              0 before and read after, each of the three kernels launched
+              and no variant failed
+13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernel 2 vs plain and
               timed at m=100 on them
-13. result    a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+14. result    a JSON line of the kernels, then ``{"ok": true, "device": ...}``
 
 Between phases 4 and 5, ``kernel-i8`` holds kernel 6 (``xt_dots_T``, the
 int8 digit-plane score) to its plain version, exactly, on the kernel cases'
-genotypes and at 10k x 1M for m in {1, 8, 100}, and times it there.
+genotypes and at 10k x 1M for m in {1, 8, 100}, and times it there; then
+kernel 7 to its plain version, exactly, on the round-3 words of the kernel
+cases at m in {1, 8, 64} (printed as ``[kprobe]``).
 
 Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
 (kernel 1), the cv (kernel 2), the read-ceiling measurement (kernel 3) and
-the lab run (kernels 4-6; ``lab_launches`` of every kernel).  Each entry's
+the lab run (kernels 4-6; ``lab_launches`` of every kernel) and the probe's
+run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
 ``bound_ms`` is the larger of its bytes over the data sheet's memory rate
-and its operations over the data sheet's rate for their type (f32 on the
-CUDA cores, int8 on the tensor cores), for this run's shapes.
+and its operations over the data sheet's rate for their type (f32 or int32
+on the CUDA cores, int8 on the tensor cores), for this run's shapes.
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -84,6 +98,7 @@ from mendeliht_tpu_torch.models import univariate
 from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.ops.linalg import PackedOp
 from mendeliht_tpu_torch.tools import kernel_lab5 as lab
+from mendeliht_tpu_torch.tools import kernel_probe as probe
 from mendeliht_tpu_torch.utils import profiling
 from mendeliht_tpu_torch.utils.simulate import simulate_packed_problem
 
@@ -98,10 +113,23 @@ SEED = 2026
 TOL = 2e-5         # the bound tests/test_pallas.py holds the Pallas kernels to
 CV_TOL = 1e-4      # cv mse, card vs CPU: f32 sums in another order
 EXACT_TOL = 1e-6   # kernel 6 vs plain: exact integer sums, the same f32 combine
-SOURCES = ("xt_dots", "xt_dots_t", "read_probe", "xt_dots_i8", "int_probe")
-# data-sheet rates of an H100 SXM (dense): f32 on the CUDA cores, int8 on
-# the tensor cores, operations per second
-PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+SOURCES = ("xt_dots", "xt_dots_t", "read_probe", "xt_dots_i8", "int_probe",
+           "kernel_probe")
+# peak rates of an H100 SXM (dense), operations per second: f32 on the CUDA
+# cores and int8 on the tensor cores from the data sheet; int32 from the
+# Hopper white paper, 64 INT32 lanes an SM x 132 SMs x 1.98 GHz boost
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12, "int32": 132 * 64 * 1.98e9}
+LAB_KERNELS = ("xt_dots_words", "xt_dots_words_t", "read_words", "xt_dots_T",
+               "unpack_words", "int_dot_packed")
+PROBE_KERNELS = ("xt_i8_rounds", "stream_xor", "decode_only")
+PROBE_WIDTHS = (1, 8, 64)            # the probe's default widths
+PROBE_TPS = (512, 2048)              # its v1tp512 and v1tp2048 row tiles
+WRAP_SEED = 2**31 - 3                # words + seed wraps in int32
+# integer operations a word that the functions of kernels 8 and 9 need: the
+# seed add and the xor; for the decode also h = (t >> 1) & 0x55555555 and its
+# 16 crumb values' sum popc(h) + popc(h & t), 6 more (kernel 9 itself does
+# the reference's 16 x (shift, and, add), which the bound does not charge)
+XOR_OPS = {"stream_xor": 2, "decode_only": 2 + 6}
 # the reference lab's verdicts (tools/kernel_lab5.py::probe_int4): its
 # int4 x int4 operands do not match, so that one is dot_general's error
 PROBE_VERDICTS = {
@@ -129,6 +157,15 @@ KERNELS = {
     "xt_dots_T": dict(
         route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots_i8.cu",
         replaces="tools/kernel_lab5.py:176"),
+    "xt_i8_rounds": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/kernel_probe.cu",
+        replaces="tools/kernel_probe.py:82"),
+    "stream_xor": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/kernel_probe.cu",
+        replaces="tools/kernel_probe.py:139"),
+    "decode_only": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/kernel_probe.cu",
+        replaces="tools/kernel_probe.py:165"),
 }
 
 
@@ -644,7 +681,7 @@ def phase_lab(g, card):
     res.update(lab.main(["--attrib"], g=g, device=g.device))
     launches = dict(kernels.LAUNCHES)
     print(f"[lab] launches in the lab run: {launches}", flush=True)
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in LAB_KERNELS) < 1:
         raise AssertionError(f"a kernel was not launched by the lab: "
                              f"{launches}")
     if res["int4_probe"] != PROBE_VERDICTS:
@@ -745,6 +782,132 @@ def lab_dot(dev):
                 library_ms=library_ms)
 
 
+def check_rounds(small, gen):
+    """Kernel 7 equal to its plain version on the round-3 words of each of
+    the genotypes ``small`` at each of the probe's widths."""
+    for s in small:
+        w3 = probe.round3_words(s)
+        for m in PROBE_WIDTHS:
+            rhs = rhs_on(s, m, gen)
+            got = kernels.xt_i8_rounds(w3, rhs)
+            ref = decode.xt_i8_rounds(w3, rhs)
+            sync()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"kernel 7 differs from plain at {s.n} x "
+                                     f"{s.p}, m={m}: {rel_err(got, ref)}")
+            print(f"[kprobe] n={s.n} p={s.p} m={m} missing={s.has_missing}: "
+                  "kernel 7 bit-equal to plain", flush=True)
+
+
+def probe_rounds(g, w3, gen):
+    """Kernel 7 at 10k x 1M: equal to plain and to kernel 6 on the
+    transposed words, at the default tp and the probe's other two, then
+    timed beside plain; per-width stats."""
+    out = {}
+    for m in PROBE_WIDTHS:
+        rhs = rhs_on(g, m, gen)
+        got = kernels.xt_i8_rounds(w3, rhs)
+        ref = decode.xt_i8_rounds(w3, rhs)
+        k6 = kernels.xt_dots_T(g.words_t, rhs)
+        sync()
+        same, same6 = torch.equal(got, ref), torch.equal(got, k6)
+        abs_err = float((got - ref).abs().max())
+        del got, k6
+        same_tp = {tp: torch.equal(kernels.xt_i8_rounds(w3, rhs, tp=tp), ref)
+                   for tp in PROBE_TPS}
+        del ref
+        if not (same and same6 and all(same_tp.values())):
+            raise AssertionError(f"kernel 7 at {g.n} x {g.p}, m={m}: equal "
+                                 f"to plain {same}, to kernel 6 {same6}, at "
+                                 f"other tp {same_tp}")
+        ms, plain_ms, runs = interleaved(
+            lambda: kernels.xt_i8_rounds(w3, rhs),
+            lambda: decode.xt_i8_rounds(w3, rhs),
+            reps=20 if m == 1 else 10, plain_reps=1)
+        b = score_bound(g, m, "int8", planes=3)
+        out[m] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **b)
+        print(f"[kprobe] kernel 7 {g.n} x {g.p} m={m}: bit-equal to plain "
+              f"(tp = {kernels.TP}, {PROBE_TPS[0]}, {PROBE_TPS[1]}) and "
+              f"to kernel 6; kernel {ms:.3f} ms (runs {runs[0]:.3f}, "
+              f"{runs[1]:.3f}), plain {plain_ms:.3f} ms (runs {runs[2]:.3f}, "
+              f"{runs[3]:.3f}), bound {b['bound_ms']:.3f} ms ({b['bound_by']})"
+              " per X'R pass", flush=True)
+    return out
+
+
+def probe_xor(g):
+    """Kernels 8 and 9 on the quad words at the probe's tp (a ragged last
+    tile): equal to plain with a seed of 0 and one that wraps, then timed;
+    kernel 9 also with a word-column tile that leaves a ragged column."""
+    words, tp = g.words, kernels.TP
+    p4, nw = words.shape
+    calls = {"stream_xor": (lambda s: kernels.stream_xor(words, s, tp),
+                            lambda s: decode.stream_xor(words, s, tp)),
+             "decode_only": (lambda s: kernels.decode_only(words, s, tp),
+                             lambda s: decode.decode_only(words, s, tp, nw))}
+    out = {}
+    for name, (kern, plain) in calls.items():
+        for seed in (0, WRAP_SEED):
+            st = torch.tensor([[seed]], dtype=torch.int32, device=g.device)
+            if not torch.equal(kern(st), plain(st)):
+                raise AssertionError(f"{name} differs from plain, seed {seed}")
+        ms, plain_ms, runs = interleaved(lambda: kern(st), lambda: plain(st),
+                                         reps=20, plain_reps=2)
+        b = bound(g.device, words.numel() * 4 + tp * nw * 4,
+                  XOR_OPS[name] * words.numel(), "int32")
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b,
+                         library_ms=None, tp=tp)
+        print(f"[kprobe] {name} ({p4}, {nw}) tp={tp} (last tile {p4 % tp} "
+              f"rows): equal to plain for seeds 0 and {WRAP_SEED}; kernel "
+              f"{ms:.3f} ms (runs {runs[0]:.3f}, {runs[1]:.3f}), "
+              f"{words.numel() * 4 / ms / 1e6:.1f} GB/s; plain "
+              f"{plain_ms:.3f} ms; bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']})", flush=True)
+    tw = 1000
+    if not torch.equal(kernels.decode_only(words, st, tp, tw),
+                       decode.decode_only(words, st, tp, tw)):
+        raise AssertionError(f"decode_only differs from plain at tw={tw}")
+    print(f"[kprobe] decode_only tw={tw} (last column tile {nw % tw}): equal "
+          "to plain", flush=True)
+    return out
+
+
+def phase_kprobe(g, card, gen):
+    """The round-3 kernel probe's kernels against their plain versions at
+    10k x 1M, then its entry point with the launches counted; returns
+    per-kernel stats for the kernels line."""
+    w3 = probe.round3_words(g)
+    if not torch.equal(w3, g.words_t.t()):
+        raise AssertionError("round3_words differs from words_t.T")
+    print(f"[kprobe] round3_words {g.n} x {g.p}: {tuple(w3.shape)}, equal to "
+          "words_t.T", flush=True)
+    rounds = probe_rounds(g, w3, gen)
+    del w3
+    xor = probe_xor(g)
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    res = probe.main([str(m) for m in PROBE_WIDTHS], g=g, device=g.device)
+    launches = dict(kernels.LAUNCHES)
+    print(f"[kprobe] launches in the probe run on {card}: {launches}",
+          flush=True)
+    if min(launches[k] for k in PROBE_KERNELS) < 1:
+        raise AssertionError(f"a kernel was not launched by the probe: "
+                             f"{launches}")
+    failed = {(m, v): t for m, vs in res["variants"].items()
+              for v, t in vs.items() if isinstance(t, str)}
+    if failed or not res["i8_rounds_rel_err"] < TOL:
+        raise AssertionError(f"the probe failed: {failed}, kernel 7 vs "
+                             f"kernel 1 {res['i8_rounds_rel_err']}")
+    top = rounds[PROBE_WIDTHS[-1]]
+    k7 = dict(top, m=PROBE_WIDTHS[-1], library_ms=None,
+              max_abs_err=max(r["max_abs_err"] for r in rounds.values()))
+    for m in PROBE_WIDTHS[:-1]:
+        k7.update({f"ms_m{m}": rounds[m]["ms"],
+                   f"plain_ms_m{m}": rounds[m]["plain_ms"],
+                   f"bound_ms_m{m}": rounds[m]["bound_ms"]})
+    return dict(xt_i8_rounds=k7, **xor), launches
+
+
 def phase_missing(g, y, card, gen):
     """Kernel 2 with its missing plane at the cv width, then the cv, on
     10k x 1M genotypes with missing calls."""
@@ -772,6 +935,7 @@ def main(dev=None):
     k1 = phase_kernel(small, g, gen)
     k2 = phase_kernel_t(small, g, gen)
     k6 = phase_kernel_i8(small, g, gen)
+    check_rounds(small, gen)
     del small
     k3 = phase_probe(g)
     card_g, cpu_g, y_par = phase_parity(dev)
@@ -782,6 +946,7 @@ def main(dev=None):
     k2["launches"] = phase_cv("cv", g, y, card, warm=CV_WARM)
     phase_profile(g, y, card)
     labs = phase_lab(g, card)
+    kprobe, probe_launches = phase_kprobe(g, card, gen)
     k1.update(score_bound(g, 1, "f32"), library_ms=None)
     k2.update(score_bound(g, 100, "f32"), library_ms=None)
     del g
@@ -799,9 +964,12 @@ def main(dev=None):
     k6["launches"] = labs["launches"]["xt_dots_T"]
     stats = {"xt_dots_words": k1, "xt_dots_words_t": k2, "read_words": k3,
              "unpack_words": k4, "int_dot_packed": k5, "xt_dots_T": k6}
+    for name, st in kprobe.items():
+        stats[name] = dict(st, launches=probe_launches[name])
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], **st,
-             lab_launches=labs["launches"][name])
+             lab_launches=labs["launches"][name],
+             probe_launches=probe_launches[name])
         for name, st in stats.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,7 @@
 // byte select (int8) or four nibble sign-extensions (int4); y's fragments
 // are single 32-bit loads.  No atomics: results repeat.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "i8_mma.cuh"
 
 namespace {
 
@@ -80,14 +79,7 @@ __device__ __forceinline__ uint32_t pack_fields(uint4 w, int j) {
   }
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using i8mma::mma_s8;
 
 // A fragment register: row `row`, K values k..k+3, four int8
 template <int BITS, bool LHS_PACKED>

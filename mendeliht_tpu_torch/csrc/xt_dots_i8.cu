@@ -33,47 +33,17 @@
 // (group g, lane t) needs words k0/4 + t and k0/4 + 4 + t of SNPs g and g+8,
 // and the same 8 words per SNP serve all four crumb planes, each with its
 // own shift, so every word is read once per block and decoded once.  A block
-// of 4 warps owns 128 SNPs (two 16-SNP tiles per warp, so each B register
-// feeds two MMAs) and one chunk of digit rows; consecutive blocks take the
-// chunks of the same SNPs, so the words of a chunk after the first come from
-// L2.  B is staged per tile of 32 sample words in shared memory,
-// [plane][row][sample] with a 144-byte row stride, so a 32-bit load is one B
-// register and the 32 lanes hit 32 banks.  The int32 accumulators go through
-// shared memory at the end, where each output gathers its three digit sums
-// and combines them with round-to-nearest f32 intrinsics (no contraction to
-// FMA, so the order is the plain version's).  No atomics: results repeat.
-// wgmma, TMA and a pipelined ring are later work.
+// owns 128 SNPs and one chunk of digit rows (the tiling, the B staging and
+// the exact combine are i8_mma.cuh's, shared with kernel_probe.cu);
+// consecutive blocks take the chunks of the same SNPs, so the words of a
+// chunk after the first come from L2.  No atomics: results repeat.  wgmma,
+// TMA and a pipelined ring are later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "i8_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMt = 2;                        // 16-SNP MMA tiles per warp
-constexpr int kSnps = kWarps * kMt * 16;      // SNPs per block
-constexpr int kKw = 32;                       // sample words per staged tile
-constexpr int kSteps = kKw / 8;               // K steps of 32 samples a tile
-constexpr int kRowBytes = 4 * kKw + 16;       // padded shared row of B
-
-template <int NT>
-struct Shared {
-  static constexpr int kRows = 8 * NT;
-  static constexpr int kB = 4 * kRows * kRowBytes;
-  static constexpr int kAccStride = kRows + 1;  // int32s per SNP, odd
-  static constexpr int kAcc = kSnps * kAccStride * 4;
-  static constexpr int kBytes = kB > kAcc ? kB : kAcc;
-};
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace i8mma;
 
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -83,7 +53,6 @@ xt_dots_i8_kernel(const uint32_t* __restrict__ words_t,
                   int nw, int p_all, int m, int chunks) {
   constexpr int kRows = Shared<NT>::kRows;
   constexpr int kNc = kRows / 3;                // columns per chunk
-  constexpr int kS = Shared<NT>::kAccStride;
   __shared__ __align__(16) unsigned char smem[Shared<NT>::kBytes];
 
   const int chunk = blockIdx.x % chunks;
@@ -154,11 +123,7 @@ xt_dots_i8_kernel(const uint32_t* __restrict__ words_t,
 #pragma unroll
       for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const uint32_t tv = wv[s][mt][r];
-          const uint32_t h = (tv >> 1) & 0x55555555u;
-          dv[mt][r] = h + (h & tv);
-        }
+        for (int r = 0; r < 4; ++r) dv[mt][r] = recode(wv[s][mt][r]);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         uint32_t a[kMt][4];
@@ -180,36 +145,9 @@ xt_dots_i8_kernel(const uint32_t* __restrict__ words_t,
     }
   }
 
-  // gather each SNP's digit sums in shared memory, then combine per output
-  __syncthreads();
-  int* acc_s = reinterpret_cast<int*>(smem);   // [SNP of the block][row]
-#pragma unroll
-  for (int mt = 0; mt < kMt; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int sl = (warp * kMt + mt) * 16 + g;
-      const int row = nt * 8 + 2 * t;
-      acc_s[sl * kS + row] = acc[mt][nt][0];
-      acc_s[sl * kS + row + 1] = acc[mt][nt][1];
-      acc_s[(sl + 8) * kS + row] = acc[mt][nt][2];
-      acc_s[(sl + 8) * kS + row + 1] = acc[mt][nt][3];
-    }
-  __syncthreads();
   const int c0 = chunk * kNc;
-  const int ncols = min(kNc, m - c0);
-  for (int i = threadIdx.x; i < kSnps * ncols; i += kThreads) {
-    const int sl = i % kSnps;
-    const int c = i / kSnps;
-    const long long snp = snp0 + sl;
-    if (snp >= p_all) continue;
-    const int* r = acc_s + sl * kS;
-    const float hi = __int2float_rn(r[c]);
-    const float mid = __int2float_rn(r[kNc + c]);
-    const float lo = __int2float_rn(r[2 * kNc + c]);
-    const float v = __fadd_rn(
-        __fadd_rn(__fmul_rn(16384.0f, hi), __fmul_rn(128.0f, mid)), lo);
-    out[static_cast<size_t>(c0 + c) * p_all + snp] = __fmul_rn(v, scale[c0 + c]);
-  }
+  write_scores<NT>(smem, acc, snp0, p_all, c0, min(kNc, m - c0), scale, out,
+                   p_all);
 }
 
 template <int NT>

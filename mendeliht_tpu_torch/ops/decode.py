@@ -23,6 +23,12 @@ Standardized products are assembled outside the heavy pass:
 The kernel lab's versions (``tools/kernel_lab5.py``): ``xt_dots_T``, A
 through three int8 digit planes of R with exact integer sums, and the
 narrow-integer probes ``unpack_words`` / ``int_dot_packed``.
+
+The round-3 kernel probe's versions (``tools/kernel_probe.py``): the same A
+over the retired row-major layout ``words (p, nw)`` in 16 decode rounds
+(``xt_i8_rounds``), which is ``words_t.T``: crumb ``s`` of byte ``b`` of word
+``(j, w)`` is sample ``s*4nw + 4w + b`` of SNP ``j``; and the streaming-read
+and decode-only probes ``stream_xor`` / ``decode_only``.
 """
 
 from __future__ import annotations
@@ -185,6 +191,127 @@ def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     a = digit_dots_t(words_t, planes).to(torch.float32)
     return (16384.0 * a[:, :m] + 128.0 * a[:, m:2 * m]
             + a[:, 2 * m:]) * scale[None, :]
+
+
+def rounds_restride(planes: torch.Tensor, nw: int, tw: int | None = None):
+    """(rows, n_pad = 16*nw) digit planes -> (16, rows, nw_pad) in the
+    round-3 probe's order: round ``r = 4b + s`` holds, at word ``w``, the
+    digit of sample ``s*4nw + 4w + b``; word columns past nw (to a multiple
+    of ``tw``, default nw) are zero.  ``tools/kernel_probe.py::
+    rounds_restride``."""
+    rows, n_pad = planes.shape
+    if n_pad != 16 * nw:
+        raise ValueError(f"planes {tuple(planes.shape)} do not hold 16*nw = "
+                         f"{16 * nw} samples")
+    tw = nw if tw is None else tw
+    nw_pad = -(-nw // tw) * tw
+    r = planes.reshape(rows, 4, nw, 4).permute(3, 1, 0, 2).reshape(16, rows, nw)
+    if nw_pad != nw:
+        r = torch.cat([r, r.new_zeros((16, rows, nw_pad - nw))], dim=2)
+    return r
+
+
+def _round_shifts():
+    """Bit offset of round r's crumb in a word: crumb s = r % 4 of byte
+    b = r // 4."""
+    return [2 * (r % 4) + 8 * (r // 4) for r in range(16)]
+
+
+def _recode(t: torch.Tensor) -> torch.Tensor:
+    """int32 words -> every crumb's value in {0, 1, 2} (missing -> 0),
+    h + (h & t) with h = (t >> 1) & 0x55555555, in wrapping int32."""
+    h = (t >> 1) & 0x55555555
+    return h + (h & t)
+
+
+def xt_i8_rounds(words: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The value dots A = V'R over the round-3 row-major words through int8
+    digit planes of R: words (p, nw) int32, rhs (16*nw, m) f32 -> (p, m)
+    f32.  The contract of ``tools/kernel_probe.py::xt_i8_rounds``: A only,
+    missing crumbs count 0, the result independent of its tiles.
+
+    Round r decodes one crumb of every word and dots it with round r of
+    :func:`rounds_restride`; the integer sums are exact in float64, rounded
+    to f32 and combined as ``(16384*hi + 128*mid + lo) * scale``, as
+    :func:`xt_dots_T`, so ``xt_i8_rounds(W, R)`` equals ``xt_dots_T(W.T,
+    R)`` bit for bit.  Chunked over SNP rows."""
+    p, nw = words.shape
+    planes, scale = quantize_rhs_planes(rhs)
+    m = scale.shape[0]
+    rr = rounds_restride(planes, nw).to(torch.float64)        # (16, 3m, nw)
+    acc = torch.empty((p, 3 * m), dtype=torch.float64, device=words.device)
+    chunk = max(1, _CHUNK_WORDS // max(nw, 1))
+    for lo in range(0, p, chunk):
+        w = _recode(words[lo:lo + chunk])
+        a = torch.zeros((w.shape[0], 3 * m), dtype=torch.float64,
+                        device=words.device)
+        for r, shift in enumerate(_round_shifts()):
+            a += ((w >> shift) & 3).to(torch.float64) @ rr[r].T
+        acc[lo:lo + chunk] = a
+    a = acc.to(torch.float32)
+    return (16384.0 * a[:, :m] + 128.0 * a[:, m:2 * m]
+            + a[:, 2 * m:]) * scale[None, :]
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR of x over its first dimension (a tree of halvings)."""
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, x.new_zeros((1, *x.shape[1:]))])
+        h = x.shape[0] // 2
+        x = x[:h] ^ x[h:]
+    return x[0]
+
+
+def _xor_tiles(words: torch.Tensor, seed: torch.Tensor, tp: int, tw: int,
+               f) -> torch.Tensor:
+    """(tp, tw) int32: the XOR over every (tp, tw) tile of ``f(words +
+    seed)`` (wrapping int32).  Rows and word columns past the array are
+    absent and contribute nothing, so a ragged last tile is defined.
+    Chunked over whole row tiles."""
+    p, nw = words.shape
+    s = seed.reshape(()).to(torch.int32)
+    ct = -(-nw // tw)
+    out = torch.zeros((tp, tw), dtype=torch.int32, device=words.device)
+    rows = max(1, 2 * _CHUNK_WORDS // max(tp * nw, 1)) * tp
+    for lo in range(0, p, rows):
+        v = f(words[lo:lo + rows] + s)
+        rt = -(-v.shape[0] // tp)
+        buf = torch.zeros((rt * tp, ct * tw), dtype=torch.int32,
+                          device=words.device)
+        buf[:v.shape[0], :nw] = v
+        tiles = buf.reshape(rt, tp, ct, tw).permute(0, 2, 1, 3)
+        out ^= _xor_reduce(tiles.reshape(rt * ct, tp, tw))
+    return out
+
+
+def stream_xor(words: torch.Tensor, seed: torch.Tensor, tp: int
+               ) -> torch.Tensor:
+    """The streaming-read probe: words (p, nw) int32, seed (1, 1) int32 ->
+    (tp, nw) int32, row r the XOR of ``words[i*tp + r] + seed`` over the
+    row tiles i (``tools/kernel_probe.py::stream_xor``).  Rows past p are
+    absent (the reference leaves them undefined on a ragged last tile)."""
+    return _xor_tiles(words, seed, tp, words.shape[1], lambda t: t)
+
+
+def decode_sums(t: torch.Tensor) -> torch.Tensor:
+    """Per int32 word, the sum of its 16 crumb values in the probe's round
+    order (``_kernel_decode_only``)."""
+    w = _recode(t)
+    acc = torch.zeros_like(t)
+    for shift in _round_shifts():
+        acc += (w >> shift) & 3
+    return acc
+
+
+def decode_only(words: torch.Tensor, seed: torch.Tensor, tp: int, tw: int
+                ) -> torch.Tensor:
+    """The decode-only probe: words (p, nw) int32, seed (1, 1) int32 ->
+    (tp, tw) int32, the XOR over every (tp, tw) tile of the 16-crumb value
+    sums of ``words + seed`` (``tools/kernel_probe.py::decode_only``).  Rows
+    and word columns past the array are absent; the reference's result
+    agrees where tp divides p and tw divides nw."""
+    return _xor_tiles(words, seed, tp, tw, decode_sums)
 
 
 def unpack_words(x: torch.Tensor, bits: int) -> torch.Tensor:

@@ -31,7 +31,10 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0,
-            "xt_dots_T": 0, "unpack_words": 0, "int_dot_packed": 0}
+            "xt_dots_T": 0, "unpack_words": 0, "int_dot_packed": 0,
+            "xt_i8_rounds": 0, "stream_xor": 0, "decode_only": 0}
+
+TP = 1024          # the round-3 probe's row tile (tools/kernel_probe.py)
 
 # words, rhs, A, M, S pointers; three sizes and two flags; the stream
 _SCORE_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
@@ -51,11 +54,13 @@ def _nvcc() -> str:
 
 def build_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into ``_build/<name>-<hash>.so`` unless that
-    file exists; the compiler's report (registers, spills) is kept beside it
-    as ``.log``.  Raises if nvcc is missing or fails."""
+    file exists (the hash covers the source, the shared ``csrc/*.cuh``
+    headers and the flags); the compiler's report (registers, spills) is kept
+    beside it as ``.log``.  Raises if nvcc is missing or fails."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _BUILD / f"{name}-{digest}.so"
     if out.is_file():
         return out
@@ -377,3 +382,115 @@ def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
             y8.data_ptr(), out.data_ptr(), M, N, K, xc, bits,
             int(lhs_packed))
     return out
+
+
+def _check_tile(name: str, v):
+    if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+        raise ValueError(f"{name} must be a positive int, got {v!r}")
+
+
+def xt_i8_rounds(words: torch.Tensor, rhs: torch.Tensor, tp: int = TP,
+                 tw: int | None = None) -> torch.Tensor:
+    """Value dots A = V'R over the round-3 row-major words through int8
+    digit planes of R: words (p, nw) int32 (``words_t.T``), rhs (16*nw, m)
+    float32 -> (p, m) float32.  The contract of ``tools/kernel_probe.py::
+    xt_i8_rounds``; equal bit for bit to ``xt_dots_T(words.T, rhs)``.
+
+    ``tp`` is the SNP rows a thread block takes.  ``tw`` (the reference's
+    word-column tile) is accepted only as None or nw: the exact integer sums
+    do not depend on it, and the kernel tiles the words itself.  An rhs of
+    another height than 16*nw (the quad words' (4*n4, m) included) raises
+    before any work."""
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"words must be 2-D int32, got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    p, nw = words.shape
+    if rhs.dim() != 2 or rhs.shape[0] != 16 * nw:
+        raise ValueError(f"rhs {tuple(rhs.shape)} does not match words "
+                         f"{tuple(words.shape)}: need (16*nw, m), the "
+                         "round-3 layout")
+    _check_tile("tp", tp)
+    if tw is not None and tw != nw:
+        raise ValueError(f"tw must be None or nw = {nw}, got {tw!r}")
+    if rhs.device != words.device:
+        raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
+    m = rhs.shape[1]
+    if 128 * 16 * nw >= 2**31 or max(p, m) >= 2**31:
+        raise ValueError(f"shape out of range: words {tuple(words.shape)}, "
+                         f"m={m} (the int32 digit sums are exact only below "
+                         "2^31)")
+    if words.device.type == "cpu":
+        return decode.xt_i8_rounds(words, rhs)
+    if words.device.type != "cuda":
+        raise ValueError(f"no kernel for device {words.device}")
+    _check_card_tensor("words", words, torch.int32)
+    if nw % 4:
+        raise ValueError(f"words {tuple(words.shape)}: nw must be a multiple "
+                         "of 4 (16-byte loads)")
+    planes, scale = decode.quantize_rhs_planes(rhs)
+    digits, nt = _digit_chunks(planes, m)
+    _check_card_tensor("digits", digits, torch.int8)
+    out = torch.empty((m, p), dtype=torch.float32, device=words.device)
+    fn = _entry("kernel_probe", "xt_i8_rounds",
+                (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                + (ctypes.c_void_p,))
+    _launch("xt_i8_rounds", fn, words.device, words.data_ptr(),
+            digits.data_ptr(), scale.data_ptr(), out.data_ptr(), p, nw, m, nt,
+            tp)
+    return out.t()
+
+
+def _check_seeded(words: torch.Tensor, seed: torch.Tensor, tp: int):
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"words must be 2-D int32, got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    if seed.shape != (1, 1) or seed.dtype != torch.int32:
+        raise ValueError(f"seed must be a (1, 1) int32 tensor, got "
+                         f"{seed.dtype} {tuple(seed.shape)}")
+    if seed.device != words.device:
+        raise ValueError(f"words on {words.device}, seed on {seed.device}")
+    _check_tile("tp", tp)
+
+
+def _xor_launch(name: str, words, seed, tp: int, tw: int):
+    """Launch ``stream_xor`` or ``decode_only`` into a (tp, tw) int32."""
+    if words.device.type != "cuda":
+        raise ValueError(f"no kernel for device {words.device}")
+    _check_card_tensor("words", words, torch.int32)
+    if tp * tw >= 2**31:
+        raise ValueError(f"output ({tp}, {tw}) out of range")
+    out = torch.empty((tp, tw), dtype=torch.int32, device=words.device)
+    seed = seed.contiguous()
+    fn = _entry("kernel_probe", "xor_tiles",
+                (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 2
+                + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    _launch(name, fn, words.device, words.data_ptr(), seed.data_ptr(),
+            out.data_ptr(), *words.shape, tp, tw, int(name == "decode_only"))
+    return out
+
+
+def stream_xor(words: torch.Tensor, seed: torch.Tensor,
+               tp: int = TP) -> torch.Tensor:
+    """The streaming-read probe: words (p, nw) int32, seed (1, 1) int32 on
+    the words' device -> (tp, nw) int32, row r the XOR of ``words[i*tp + r]
+    + seed`` (wrapping) over the row tiles i.  ``tools/kernel_probe.py::
+    stream_xor``; rows past p are absent (``decode.stream_xor``)."""
+    _check_seeded(words, seed, tp)
+    if words.device.type == "cpu":
+        return decode.stream_xor(words, seed, tp)
+    return _xor_launch("stream_xor", words, seed, tp, words.shape[1])
+
+
+def decode_only(words: torch.Tensor, seed: torch.Tensor, tp: int = TP,
+                tw: int | None = None) -> torch.Tensor:
+    """The decode-only probe: words (p, nw) int32, seed (1, 1) int32 on the
+    words' device -> (tp, tw) int32, the XOR over every (tp, tw) tile of the
+    16-crumb value sums of ``words + seed``.  ``tools/kernel_probe.py::
+    decode_only``; ``tw`` (default nw) is honoured, and rows and word
+    columns past the array are absent (``decode.decode_only``)."""
+    _check_seeded(words, seed, tp)
+    tw = words.shape[1] if tw is None else tw
+    _check_tile("tw", tw)
+    if words.device.type == "cpu":
+        return decode.decode_only(words, seed, tp, tw)
+    return _xor_launch("decode_only", words, seed, tp, tw)

@@ -5,8 +5,8 @@
 - A CPU tensor takes the plain PyTorch version and builds nothing.
 - On a CUDA card (marker ``cuda``), each hand-written kernel agrees with its
   plain version, and the two score kernels with each other.  The int8
-  digit-plane score and the narrow-integer probes sum integers exactly, so
-  they equal their plain versions.
+  digit-plane scores (kernels 6 and 7), the narrow-integer probes and the
+  round-3 probes sum integers exactly, so they equal their plain versions.
 """
 
 import ast
@@ -39,9 +39,10 @@ def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert {"ops/kernels.py", "ops/decode.py", "models/fit.py",
             "models/cv.py", "utils/profiling.py",
-            "tools/kernel_lab5.py"} <= names
+            "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
     for src in ("xt_dots.cu", "xt_dots_t.cu", "read_probe.cu",
-                "xt_dots_i8.cu", "int_probe.cu"):
+                "xt_dots_i8.cu", "int_probe.cu", "kernel_probe.cu",
+                "i8_mma.cuh"):
         assert (PKG / "csrc" / src).is_file()
 
 
@@ -90,6 +91,14 @@ def test_cpu_tensor_takes_plain_path_without_building(monkeypatch):
         y = torch.arange(words.shape[1] * 5, dtype=torch.int32).reshape(-1, 5)
         assert torch.equal(kernels.int_dot_packed(words, y, bits),
                            decode.int_dot_packed(words, y, bits))
+    w3 = wt.T.contiguous()
+    assert torch.equal(kernels.xt_i8_rounds(w3, rhs),
+                       decode.xt_i8_rounds(w3, rhs))
+    s = torch.tensor([[-9]], dtype=torch.int32)
+    assert torch.equal(kernels.stream_xor(words, s, tp=3),
+                       decode.stream_xor(words, s, 3))
+    assert torch.equal(kernels.decode_only(words, s, tp=3, tw=5),
+                       decode.decode_only(words, s, 3, 5))
     assert kernels.LAUNCHES == before
 
 
@@ -104,6 +113,27 @@ def test_wrapper_rejects_bad_inputs(bad):
         words, rhs = words.to("meta"), rhs.to("meta")
     with pytest.raises(ValueError):
         kernels.xt_dots_words(words, rhs, want_missing=True)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+def test_probe_wrappers_reject_bad_inputs(bad):
+    words, rhs = _case(2)
+    w3 = kernels.build_words_t(words, 37).T.contiguous()
+    seed = torch.zeros((1, 1), dtype=torch.int32)
+    if bad == "dtype":
+        words, w3, seed = words.to(torch.int64), w3.to(torch.int64), seed.long()
+    elif bad == "shape":
+        rhs, seed = rhs[1:], seed[0]
+    else:
+        words, w3, seed, rhs = (t.to("meta") for t in (words, w3, seed, rhs))
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError):
+        kernels.xt_i8_rounds(w3, rhs)
+    with pytest.raises(ValueError):
+        kernels.stream_xor(words, seed)
+    with pytest.raises(ValueError):
+        kernels.decode_only(words, seed)
+    assert kernels.LAUNCHES == before
 
 
 @pytest.fixture
@@ -304,3 +334,50 @@ def test_int_dot_kernel_shape_error_before_launch(cuda_device):
     with pytest.raises(TypeError, match=r"got \(256,\) and \(128,\)"):
         kernels.int_dot_packed(x, y, 4)
     assert kernels.LAUNCHES == before
+
+
+def _full_range(seed, shape):
+    """int32 words over the whole range: every crumb code, words + seed
+    wrapping."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    x.reshape(-1)[:4] = [-1, 0x7FFFFFFF, -2**31, 0x55555555]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_", [1, 2, 3, 8, 11, 64, 100])
+@pytest.mark.parametrize("tp", [128, 200, 512, 1024, 2048])
+def test_xt_i8_rounds_kernel_equals_plain_on_card(cuda_device, m_, tp):
+    """Kernel 7 against its plain version and kernel 6 on the transpose:
+    every digit-row chunking, a tp that is not a multiple of the sub-tile,
+    the probe's tp = 512 and 2048, p not a multiple of tp, every crumb code
+    and a ragged last word tile (nw = 164)."""
+    w3 = torch.from_numpy(_full_range(m_, (4099, 164))).to(cuda_device)
+    rhs = torch.randn((16 * w3.shape[1], m_), device=cuda_device)
+    rhs[:, 0] *= 1e-20
+    before = kernels.LAUNCHES["xt_i8_rounds"]
+    got = kernels.xt_i8_rounds(w3, rhs, tp=tp)
+    ref = decode.xt_i8_rounds(w3, rhs)
+    k6 = kernels.xt_dots_T(w3.T.contiguous(), rhs)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (4099, m_)
+    assert torch.equal(got, ref) and torch.equal(got, k6)
+    assert kernels.LAUNCHES["xt_i8_rounds"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,nw,tp,tw", [(1000, 2560, 64, None),
+                                        (4099, 40, 1024, 7),
+                                        (3, 5, 8, 16)])
+@pytest.mark.parametrize("seed", [0, 2**31 - 3])
+def test_xor_kernels_equal_plain_on_card(cuda_device, p, nw, tp, tw, seed):
+    x = torch.from_numpy(_full_range(p, (p, nw))).to(cuda_device)
+    s = torch.tensor([[seed]], dtype=torch.int32, device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(kernels.stream_xor(x, s, tp=tp),
+                       decode.stream_xor(x, s, tp))
+    assert torch.equal(kernels.decode_only(x, s, tp=tp, tw=tw),
+                       decode.decode_only(x, s, tp, tw or nw))
+    assert kernels.LAUNCHES["stream_xor"] == before["stream_xor"] + 1
+    assert kernels.LAUNCHES["decode_only"] == before["decode_only"] + 1
