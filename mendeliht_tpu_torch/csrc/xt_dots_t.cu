@@ -1,260 +1,613 @@
 // Fused 2-bit genotype decode + multi-RHS score X'R over the transposed
-// per-SNP words, for Hopper (sm_90a).
+// per-SNP words, through int8 digit planes of R on the tensor cores of
+// Hopper (sm_90a): warpgroup MMAs (wgmma) with the decoded words as the
+// register operand and the digit planes in shared memory.
 //
 // Replaces mendeliht_tpu/ops/pallas_kernels.py::_kernel_t (driven there by
-// _xt_dots_chunk_t / xt_dots_words_t; layout from build_words_t).  Same
-// contract, own design:
+// _xt_dots_chunk_t / xt_dots_words_t; layout from build_words_t) and
+// computes its function exactly:
 //
-//   words_t (nw = n4/4, p_all = 4*p4) words, read as uint32: word (w, j)
-//           holds bytes 4w..4w+3 of SNP j's crumb-transposed row, so crumb q
-//           of its byte b is sample q*n4 + 4w + b
-//   rhs     (m, n_pad = 4*n4) f32, row-major (one RHS column per row)
-//   out     A = V'R, M = Miss'R (optional), S = V^2'R (optional),
-//           each (m, p_all) f32, row-major
+//   words_t (nw, p_all) words, read as uint32: word (w, j) holds bytes
+//           4w..4w+3 of SNP j's crumb-transposed row, so crumb q of its byte
+//           b is sample q*n4 + 4w + b (n4 = 4*nw)
+//   digits  (passes, ksteps, 4, 2, rows/8, 8, 16) int8, ksteps = nw
+//           rounded up to 32, over 8: the digit planes of R (ops/decode.py::
+//           quantize_rhs_planes, |digit| <= 64) as laid out by the wrapper
+//           (kernels._digit_rows_t, _digit_stages_t): for each pass and K
+//           step of 32 samples, in each crumb plane q and K half, the rows'
+//           8-row x 16-byte core matrices, so that a K step is one copy.
+//           Plane q of a row holds samples q*n4 .., zero past n4; row
+//           24b + 8d + r of a pass is digit d (hi, mid, lo) of its column
+//           8b + r (for m <= 2 one 8-row group: row 2d + c, digit d of
+//           column c)
+//   scale   (m,) f32 per-column scale of the digits
+//   guard   (m,) f32, rhs.sum(0) * 0: NaN in a column whose R is not finite
+//   out     A = V'R, M = Miss'R (optional), S = V^2'R (optional), each
+//           (m, p_all) f32, row-major: comb(x) = (16384*x_hi + 128*x_mid +
+//           x_lo) * scale in that f32 order from the exact int32 sums x_*;
+//           A = comb(a) + guard, M = comb(m) + guard, S = (3*comb(a) -
+//           2*comb(h)) + guard, with H the hi-bit plane (V^2 = 3V - 2H)
 //
-// Decode per 32-bit word, 16 crumbs at once (decode algebra of
-// mendeliht_tpu/ops/decode.py): h = (t >> 1) & 0x55555555 is the hi bit of
-// every crumb, v = h + (h & t) value-codes every crumb into {0,1,2},
-// miss = lo & ~hi, and V^2 = 3V - 2H with H the hi-bit dot.
+// Decode per 32-bit word t, 16 crumbs at once: h = (t >> 1) & 0x55555555 is
+// every crumb's hi bit, v = h + (h & t) its value in {0,1,2} (missing -> 0),
+// and with lo = t & 0x55555555, lo - (lo & h) its missing indicator.  Crumb
+// plane q of each, (x >> 2q) & 0x03030303 (or 0x01010101), is four int8
+// values: samples q*n4 + 4w .. 4w+3 of one SNP, four consecutive K values of
+// one row of the MMA's A operand.
 //
-// Numerics: plain f32 FMAs on the CUDA cores, no quantization of R (the TPU
-// kernel splits R into three int8 digit planes and runs the decoded tile as
-// the int8 MXU's stationary weights; that blocking is not carried over).
-// Zero crumbs are multiplied like any other, so a NaN in an R column poisons
-// that column's outputs exactly as the f32 reference does.
-//
-// What bounds it on an H100: at m = 1 the pass is a GEMV over 2-bit data
-// (2.56 GB of words at 10k x 1M), bound by the bytes and by the issue of the
-// decode (a byte permute and a subtract per crumb).  At cv widths (m = 100)
-// it is bound by f32 FMAs, p*n*m of them per output.
-//
-// Design: the layout makes the SNP axis contiguous, so each thread owns four
-// adjacent SNP columns and walks the sample words w: one 16-byte load brings
-// the four SNPs' words, consecutive threads read consecutive addresses
-// (512 coalesced bytes per warp), and no cross-thread reduction is needed.
-// A block of 128 threads (512 SNPs) stages R tiles of MC columns x 4 crumb
-// planes x 4*kTw samples in shared memory, laid out [plane][sample][column]:
-// every thread reads the same R values at the same time (a broadcast, no
-// bank conflict), as 16-byte loads, and each R value feeds four SNPs.  Each
-// word is decoded once for all MC columns of a chunk (MC = 1 for a single
-// column, else 8: chunks of 16 were only 1% faster at m = 100 on an H100);
-// a crumb becomes a float by a byte permute into the mantissa of 2^23 and
-// one subtract.
-// Accumulators stay in registers (4 SNPs x MC columns x up to 3 outputs)
-// for one tile of 4*kTs = 512 samples, then are added into the thread's own
-// outputs in device memory: a two-level sum, so the f32 rounding grows with
-// sqrt(512 + n/512) rather than with sqrt(n), and no extra registers hold
-// the running totals (the output slab of the resident blocks stays in L2).
+// What bounds it on an H100 at 10k x 1M (nw = 640):
+//   m = 1:   the 2.56 GB of words, 0.76 ms at 3.35 TB/s; the digit MMAs are
+//            3 of the 8 rows an n8 instruction takes, and the decode is
+//            about 11 integer operations a word (0.42 ms at the int32 rate).
+//   m = 100: 3 digit planes x 2*n_pad*p*m int8 operations per output, 6.1e12
+//            for A (3.1 ms at the 1,979 TOP/s data sheet), twice that with M.
+// Design, against each:
+//   - One pass over the words per call.  A block owns an SNP tile (128 SNPs,
+//     a warpgroup each, or 64 SNPs when the two warpgroups split the rows)
+//     and walks its sample words once: every word is read from device
+//     memory once and decoded once by each warpgroup that takes its SNPs
+//     (once, or twice when the rows are split), straight into wgmma's A
+//     fragments, which then serve every digit row of every column and the M
+//     and H planes.  The accumulators of all rows stay in registers (column
+//     groups of 8 times planes at most 14 a warpgroup, 168 a thread), so one
+//     pass holds m <= 112 for A or A and M (split rows past 104 and 56), 64
+//     with M and H.  Wider R takes passes over 128-SNP tiles (104, 56 or 32
+//     columns each), each over all the words: there the MMA work, m times
+//     the words, outweighs the re-read.
+//   - The tensor cores: wgmma.mma_async m64nNk32 s8 x s8 -> s32 with A (the
+//     decoded words, 64 SNPs) in registers and B (the digit rows, K-major)
+//     in shared memory as 8-row x 16-byte core matrices, no swizzle: N = 48
+//     (two column groups) a instruction, 24 for an odd last group, 8 for
+//     m <= 2.  Two A buffers where the registers allow, so one K step's MMAs
+//     run while the next one decodes.  The accumulators are written by the
+//     MMAs alone (an item starts at scale-d 0), which leaves ptxas nothing
+//     to drain them for.  The integer sums are exact while 128 * n_pad <
+//     2^31 (the wrapper checks), so the kernel equals its plain version bit
+//     for bit.
+//   - Asynchronous copies in a ring of 3..8 stages (as many as fit), each
+//     of 1, 2 or 4 K steps: the digits by one bulk copy (cp.async.bulk, the
+//     async proxy that wgmma reads by, completing on an mbarrier), the
+//     words tile (8 sample words x the tile's SNPs a K step) by cp.async.
+//     The copies run stages - 2 ahead, so the last MMAs of a stage may still
+//     read it while the next runs, and the ring runs on across the block's
+//     work items.
+//   - No tail wave: a persistent grid of as many blocks as are resident on
+//     the card, each taking work items (SNP tile, pass) in turn.
+//   - m = 1 is a bytes problem: 4 K steps a stage and 3 stages leave room
+//     for several resident blocks, which keep the words in flight.
+//   - What the MMAs wait on besides: each stage's own instructions (waits,
+//     barrier, copies, decode, descriptors) on the SM's 8 warps.  So the
+//     ring and load positions are counters (no division a stage) and a
+//     descriptor is one 32-bit add to a precomputed word.
 // No atomics: results repeat run to run.  Padding is inert: samples past n
-// are code 0 with R = 0 there, and SNP columns past p are zero words that
-// the caller slices off.
+// are code 0 with zero digits, words past nw and SNPs past p_all read as 0,
+// and SNP columns past p are zero words the caller slices off.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;        // threads per block, 4 SNPs each
-constexpr int kTw = 32;              // sample words per shared R tile
-constexpr int kTs = 4 * kTw;         // samples per crumb plane of a tile
+constexpr int kWarpgroups = 2;
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kMaxStages = 8;
+constexpr int kMaxGroups = 14;         // column groups x planes a warpgroup
 
-// 0x4B000000 is 2^23 as a float; its low mantissa byte replaced by a crumb
-// x in {0..3} is 2^23 + x exactly, so subtracting 2^23 gives float(x).
-__device__ __forceinline__ float crumb_byte(uint32_t planes, int b) {
-  return __uint_as_float(__byte_perm(planes, 0x4B000000u, 0x7540u + b)) -
-         8388608.0f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The MC column values of one sample from a [sample][column] tile row.
-template <int MC>
-__device__ __forceinline__ void load_r(const float* src, float (&r)[MC]) {
-  if constexpr (MC % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < MC; c += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(src + c);
-      r[c] = f.x;
-      r[c + 1] = f.y;
-      r[c + 2] = f.z;
-      r[c + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < MC; ++c) r[c] = src[c];
+// 16 bytes global -> shared, zero-filled when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle, of the B operand: start
+// address >> 4 (bits 0-13) and leading byte offset >> 4 (between the two
+// core matrices along K, bits 16-29) in the low word `lo`; the stride byte
+// offset (between 8-row groups) of 128 bytes in the high word.  Shared
+// addresses stay below 256 KB, so an offset >> 4 added to `lo` moves the
+// start address alone.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t lo) {
+  return (static_cast<uint64_t>(128 >> 4) << 32) | lo;
+}
+
+// wait until at most stages - 3 copy groups are pending (an immediate)
+__device__ __forceinline__ void wait_stages(int stages) {
+  switch (stages) {
+    case 3: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 7: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
   }
 }
 
-// Stores (first tile) or adds one tile's partial sums of 4 SNPs x nc
-// columns into the thread's outputs at out + o + c*p_all.
-template <int MC>
-__device__ __forceinline__ void flush(float* out, size_t o, int p_all, int nc,
-                                      const float (&acc)[4][MC], bool first) {
-#pragma unroll
-  for (int c = 0; c < MC; ++c) {
-    if (c >= nc) break;
-    float4* dst =
-        reinterpret_cast<float4*>(out + o + static_cast<size_t>(c) * p_all);
-    float4 v = make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
-    if (!first) {
-      const float4 t = *dst;
-      v.x += t.x;
-      v.y += t.y;
-      v.z += t.z;
-      v.w += t.w;
-    }
-    *dst = v;
-  }
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+// r stays live, in its register, up to here: an A fragment that an
+// in-flight MMA still reads
+__device__ __forceinline__ void keep(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
 }
 
-template <int MC, bool MISS, bool SQ>
-__global__ void __launch_bounds__(kThreads)
-xt_dots_t_kernel(const uint4* __restrict__ words_t,
-                 const float* __restrict__ rhs, float* __restrict__ A,
-                 float* __restrict__ M, float* __restrict__ S, int nw,
-                 int p_all, int m) {
-  __shared__ __align__(16) float tile[4 * kTs * MC];  // [plane][sample][col]
-  const int quads = p_all / 4;                       // uint4 per words_t row
-  const int col = blockIdx.x * kThreads + threadIdx.x;  // SNPs 4col..4col+3
-  const bool col_ok = col < quads;
-  const uint4* wcol = words_t + (col_ok ? col : 0);
-  const int n4 = 4 * nw;
-  const size_t n_pad = 4 * static_cast<size_t>(n4);
+// D (64 x N s32, the warpgroup's fragment d[N/2]) = A (64 x 32 s8, four
+// registers a thread) x B (32 x N s8 at desc), + D when acc != 0
+template <int N>
+__device__ __forceinline__ void wgmma(int* d, const uint32_t (&a)[4],
+                                      uint64_t desc, int acc);
 
-  for (int c0 = 0; c0 < m; c0 += MC) {
-    const int nc = min(MC, m - c0);
-    const size_t o = static_cast<size_t>(c0) * p_all + 4 * col;
-    for (int w0 = 0; w0 < nw; w0 += kTw) {
-      const int tw = min(kTw, nw - w0);
-      __syncthreads();                       // previous tile fully consumed
-      for (int i = threadIdx.x; i < 4 * kTs * MC; i += kThreads) {
-        const int j = i % kTs;               // sample in the tile's plane
-        const int q = (i / kTs) % 4;
-        const int c = i / (4 * kTs);
-        float r = 0.f;
-        if (c < nc && j < 4 * tw)
-          r = rhs[static_cast<size_t>(c0 + c) * n_pad +
-                  static_cast<size_t>(q) * n4 + 4 * w0 + j];
-        tile[(q * kTs + j) * MC + c] = r;
+template <>
+__device__ __forceinline__ void wgmma<8>(int* d, const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<24>(int* d, const uint32_t (&a)[4],
+                                          uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<48>(int* d, const uint32_t (&a)[4],
+                                          uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// (16384*hi + 128*mid + lo) * scale, round to nearest at every step, no
+// contraction: the plain version's f32 order
+__device__ __forceinline__ float comb(int hi, int mid, int lo, float scale) {
+  const float v = __fadd_rn(__fadd_rn(__fmul_rn(16384.0f, __int2float_rn(hi)),
+                                      __fmul_rn(128.0f, __int2float_rn(mid))),
+                            __int2float_rn(lo));
+  return __fmul_rn(v, scale);
+}
+
+struct Args {
+  const uint32_t* words;
+  const int8_t* digits;
+  const float* scale;
+  const float* guard;
+  float* A;
+  float* M;
+  float* S;
+  int nw, ksteps, p_all, m;
+  int split;        // 1: the two warpgroups split the rows of 64 SNPs
+  int tiles, items; // SNP tiles; work items = tiles * passes
+  int rows;         // digit rows a pass (a multiple of 8)
+  int cols;         // columns a pass
+  int stages;       // stages in the ring (3..8)
+};
+
+// K steps of 32 samples a stage: several for the narrow widths, so that a
+// barrier and a bulk copy serve more words
+template <int NG>
+__host__ __device__ constexpr int stage_steps() {
+  return NG == 0 ? 4 : NG <= 2 ? 2 : 1;
+}
+
+// One block: two warpgroups, a ring of `stages` stages in dynamic shared
+// memory, each [digits: KS K steps x 4 planes x 2 K halves x rows/8 core
+// matrices of 128 bytes, one bulk copy][words: 8*KS x (snps + 8) uint32,
+// the row padded against bank conflicts].  NG column groups of 8 a
+// warpgroup (NG = 0: m <= 2, one 8-row group); planes A, M (MISS), H (SQ).
+template <int NG, bool MISS, bool SQ>
+__global__ void __launch_bounds__(kThreads, 1)
+xt_dots_t_kernel(const Args args) {
+  constexpr int kP = 1 + MISS + SQ;
+  constexpr int kBlk = NG == 0 ? 1 : 3 * NG;   // n8 blocks a plane
+  constexpr int kAcc = 4 * kBlk;               // registers a plane
+  constexpr int kS = stage_steps<NG>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];  // digits landed
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int snps = args.split ? 64 : 128;      // SNPs of a tile
+  const int wstride = snps + 8;                // words row stride (uint32)
+  const int step_bytes = args.rows * 128;      // digits of one K step
+  const int dig_bytes = kS * step_bytes;
+  const int stage_bytes = dig_bytes + 8 * kS * wstride * 4;
+  const int rg = args.rows / 8;
+  const int kstages = args.ksteps / kS;        // stages an item
+  const uint32_t smem0 = smem_addr(smem);
+  // the descriptors' low word at the ring's start (LBO: rg core matrices)
+  const uint32_t desc0 = ((smem0 & 0x3FFFF) >> 4) | ((rg * 128 >> 4) << 16);
+
+  // this warpgroup's SNP offset in the tile and first row group of a pass
+  const int snp_off = args.split ? 0 : 64 * wg;
+  const int grp0 = args.split ? NG * wg : 0;
+  const int my_items =
+      args.items > static_cast<int>(blockIdx.x)
+          ? (args.items - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+          : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < args.stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&full[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // issue the copies of the next stage to load (the load pointer: item
+  // ordinal li, stage ls of it, ring slot lslot), then advance it: the
+  // digits by one bulk copy (the async proxy, which wgmma reads by;
+  // completes on full[slot]), the words by cp.async (read by plain loads;
+  // completes with the thread's copy group, one a stage)
+  const int qshift = args.split ? 4 : 5;       // log2 of snps / 4
+  int li = 0, ls = 0, lslot = 0;
+  const int8_t* lsrc = nullptr;                // digits of (li, 0)
+  const uint32_t* lwords = nullptr;            // words (0, snp0) of li
+  long long lsnps = 0;                         // SNPs of li's tile left
+  auto load_next = [&]() {
+    if (li < my_items) {
+      if (ls == 0) {
+        const int item = blockIdx.x + li * gridDim.x;
+        const int tile = item % args.tiles;
+        const long long snp0 = static_cast<long long>(tile) * snps;
+        lsrc = args.digits +
+               static_cast<size_t>(item / args.tiles) * args.ksteps * step_bytes;
+        lwords = args.words + snp0;
+        lsnps = args.p_all - snp0;
       }
-      __syncthreads();
-      if (!col_ok) continue;
+      const uint32_t st = smem0 + lslot * stage_bytes;
+      if (tid == 0) {
+        const uint32_t bar = smem_addr(&full[lslot]);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%2], [%3], %1, [%0];\n" ::"r"(bar),
+            "r"(dig_bytes), "r"(st),
+            "l"(lsrc + static_cast<size_t>(ls) * dig_bytes)
+            : "memory");
+      }
+      const uint32_t wst = st + dig_bytes;
+      const int w0 = ls * kS * 8;
+      for (int i = tid; i < (8 * kS) << qshift; i += kThreads) {
+        const int r = i >> qshift, c = i & ((1 << qshift) - 1);
+        const bool ok = w0 + r < args.nw && 4 * c < lsnps;
+        cp_async16(wst + (r * wstride + 4 * c) * 4,
+                   ok ? lwords + static_cast<size_t>(w0 + r) * args.p_all + 4 * c
+                      : args.words,
+                   ok);
+      }
+      if (++ls == kstages) {
+        ls = 0;
+        ++li;
+      }
+      if (++lslot == args.stages) lslot = 0;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-      float acc_a[4][MC];
-      float acc_m[4][MC];
-      float acc_h[4][MC];  // hi-bit dots H; S = 3A - 2H after the last tile
+  // the accumulators are written by the MMAs alone: an item's first K step
+  // starts them at A x B (scale-d 0), so no other definition meets the
+  // in-flight ones where the loop closes
+  int acc[kP][kAcc];
+
+  // the last K step's MMAs of a stage may still read its digits while the
+  // next stage runs: the copies run stages - 2 ahead
+  for (int f = 0; f < args.stages - 2; ++f) load_next();
+
+  // A fragments: two buffers where the registers allow (at most about 200
+  // with the accumulators), else one, and the MMAs drain every K step
+  constexpr int kBuf = kP * kAcc + 32 * kP <= 200 ? 2 : 1;
+  uint32_t fv[kBuf][4][4], fm[kBuf][4][4], fh[kBuf][4][4];
+  const int sl = snp_off + 16 * warp + g;
+
+  // K step s of the words at ws into A buffer bs: rows g, g+8 of the
+  // warp's 16 SNPs; K 4t..4t+3 (word t of the K step) and 16+4t.. (word
+  // 4+t)
+  auto decode = [&](const uint32_t* ws, int s, int bs) {
+    const uint32_t* wk = ws + 8 * s * wstride;
+    uint32_t x[4];
+    x[0] = wk[t * wstride + sl];
+    x[1] = wk[t * wstride + sl + 8];
+    x[2] = wk[(4 + t) * wstride + sl];
+    x[3] = wk[(4 + t) * wstride + sl + 8];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t h = (x[r] >> 1) & 0x55555555u;
+      const uint32_t v = h + (h & x[r]);
+      const uint32_t lo = x[r] & 0x55555555u;
+      const uint32_t ms = lo - (lo & h);
 #pragma unroll
-        for (int c = 0; c < MC; ++c) {
-          acc_a[k][c] = 0.f;
-          acc_m[k][c] = 0.f;
-          acc_h[k][c] = 0.f;
-        }
-      for (int jw = 0; jw < tw; ++jw) {
-        const uint4 t4 = __ldg(wcol + static_cast<size_t>(w0 + jw) * quads);
-        const uint32_t t[4] = {t4.x, t4.y, t4.z, t4.w};
-        uint32_t v[4], h[4], ms[4];
+      for (int q = 0; q < 4; ++q) {
+        fv[bs][q][r] = (v >> (2 * q)) & 0x03030303u;
+        if (MISS) fm[bs][q][r] = (ms >> (2 * q)) & 0x01010101u;
+        if (SQ) fh[bs][q][r] = (h >> (2 * q)) & 0x01010101u;
+      }
+    }
+  };
+
+  // the MMAs of K step s of the stage in ring slot `in` from A buffer bs;
+  // `first`: the item's first K step, which starts the accumulators
+  auto multiply = [&](int in, int s, bool first, int bs) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          h[k] = (t[k] >> 1) & 0x55555555u;
-          v[k] = h[k] + (h[k] & t[k]);
-          ms[k] = (t[k] & 0x55555555u) & ~h[k];
-        }
+    for (int q = 0; q < 4; ++q) {
+      const int acc_on = !(first && q == 0);
+      // K half 0 of plane q of K step s; this warpgroup's row groups
+      const uint32_t base = desc0 + (in * stage_bytes + s * step_bytes) / 16 +
+                            q * rg * 16 + grp0 * 24;
+      if constexpr (NG == 0) {
+        const uint64_t d = smem_desc(base);
+        wgmma<8>(acc[0], fv[bs][q], d, acc_on);
+        if constexpr (MISS) wgmma<8>(acc[1], fm[bs][q], d, acc_on);
+        if constexpr (SQ) wgmma<8>(acc[kP - 1], fh[bs][q], d, acc_on);
+      } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          uint32_t vq[4], mq[4], hq[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            vq[k] = (v[k] >> (2 * q)) & 0x03030303u;
-            mq[k] = (ms[k] >> (2 * q)) & 0x01010101u;
-            hq[k] = (h[k] >> (2 * q)) & 0x01010101u;
-          }
-          const float* rq = tile + (q * kTs + 4 * jw) * MC;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            float r[MC];
-            load_r<MC>(rq + b * MC, r);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float fv = crumb_byte(vq[k], b);
-#pragma unroll
-              for (int c = 0; c < MC; ++c)
-                acc_a[k][c] = fmaf(fv, r[c], acc_a[k][c]);
-              if (MISS) {
-                const float fm = crumb_byte(mq[k], b);
-#pragma unroll
-                for (int c = 0; c < MC; ++c)
-                  acc_m[k][c] = fmaf(fm, r[c], acc_m[k][c]);
-              }
-              if (SQ) {
-                const float fh = crumb_byte(hq[k], b);
-#pragma unroll
-                for (int c = 0; c < MC; ++c)
-                  acc_h[k][c] = fmaf(fh, r[c], acc_h[k][c]);
-              }
-            }
+        for (int b = 0; b < NG; b += 2) {
+          const uint64_t d = smem_desc(base + b * 24);
+          if (b + 1 < NG) {                  // two groups: n48
+            wgmma<48>(acc[0] + 12 * b, fv[bs][q], d, acc_on);
+            if constexpr (MISS) wgmma<48>(acc[1] + 12 * b, fm[bs][q], d, acc_on);
+            if constexpr (SQ) wgmma<48>(acc[kP - 1] + 12 * b, fh[bs][q], d, acc_on);
+          } else {                           // the last of an odd NG: n24
+            wgmma<24>(acc[0] + 12 * b, fv[bs][q], d, acc_on);
+            if constexpr (MISS) wgmma<24>(acc[1] + 12 * b, fm[bs][q], d, acc_on);
+            if constexpr (SQ) wgmma<24>(acc[kP - 1] + 12 * b, fh[bs][q], d, acc_on);
           }
         }
       }
-      flush<MC>(A, o, p_all, nc, acc_a, w0 == 0);
-      if (MISS) flush<MC>(M, o, p_all, nc, acc_m, w0 == 0);
-      if (SQ) flush<MC>(S, o, p_all, nc, acc_h, w0 == 0);
     }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the MMAs read the A registers asynchronously: a buffer is free, and
+    // kept live to here, once its MMAs have completed.  With two buffers
+    // these MMAs stay in flight while the next step decodes.
+    if constexpr (kBuf == 2)
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    else
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        keep(fv[bs ^ (kBuf - 1)][q][r]);
+        if (MISS) keep(fm[bs ^ (kBuf - 1)][q][r]);
+        if (SQ) keep(fh[bs ^ (kBuf - 1)][q][r]);
+      }
+  };
 
-    // S holds the summed H so far: turn the thread's own entries into S
-    if (!SQ || !col_ok) continue;
-    for (int c = 0; c < nc; ++c) {
-      const size_t oc = o + static_cast<size_t>(c) * p_all;
-      const float4 a = *reinterpret_cast<const float4*>(A + oc);
-      float4* s = reinterpret_cast<float4*>(S + oc);
-      const float4 h = *s;
-      *s = make_float4(3.f * a.x - 2.f * h.x, 3.f * a.y - 2.f * h.y,
-                       3.f * a.z - 2.f * h.z, 3.f * a.w - 2.f * h.w);
+  // stage ks of an item (f, counting the block's stages); ODD = ks & 1,
+  // which with kS odd picks the buffer of each K step (that of K step
+  // f*kS + s is its parity; kstages is even when kS is odd)
+  int slot = 0;                                // the ring slot of stage f
+  uint32_t parity = 0;                         // and its barrier's phase
+  auto stage = [&](int ks, auto odd) {
+    constexpr int kOdd = decltype(odd)::value;
+    // stage f has landed (this thread's words, every digit), and stage f-2
+    // is consumed by every thread
+    wait_stages(args.stages);
+    const uint32_t bar = smem_addr(&full[slot]);
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    __syncthreads();
+    load_next();
+
+    const uint32_t* ws =
+        reinterpret_cast<const uint32_t*>(smem + slot * stage_bytes + dig_bytes);
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const int bs = kBuf == 2 ? (s + kOdd * kS) & 1 : 0;
+      decode(ws, s, bs);
+      multiply(slot, s, s == 0 && ks == 0, bs);
+    }
+    if (++slot == args.stages) {
+      slot = 0;
+      parity ^= 1;
+    }
+  };
+
+  // item it of this block: its stages (pairs, so that the A buffer of each
+  // K step is known at compile time), then the combine
+  for (int it = 0; it < my_items; ++it) {
+    int ks = 0;
+    for (; ks + 1 < kstages; ks += 2) {
+      stage(ks, Int<0>{});
+      stage(ks + 1, Int<1>{});
+    }
+    if (ks < kstages) stage(ks, Int<0>{});        // kstages odd: kS even
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    const int item = blockIdx.x + it * gridDim.x;
+    const int tile = item % args.tiles;
+    const int col0 = (item / args.tiles) * args.cols;   // the pass's first
+    const long long snp_a =
+        static_cast<long long>(tile) * snps + snp_off + 16 * warp + g;
+    const size_t ld = args.p_all;
+    if constexpr (NG == 0) {
+      // rows 2t, 2t+1 of the group hold digit t of columns 0, 1: lane t = 0
+      // gathers the mid and lo digits from lanes t+1, t+2
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int hv[kP], mv[kP], lv[kP];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          hv[p] = acc[p][e];
+          mv[p] = __shfl_down_sync(0xffffffffu, acc[p][e], 1);
+          lv[p] = __shfl_down_sync(0xffffffffu, acc[p][e], 2);
+        }
+        const int c = col0 + (e & 1);                 // col0 = 0: one pass
+        const long long snp = snp_a + 8 * (e >> 1);
+        if (t != 0 || c >= args.m || snp >= args.p_all) continue;
+        const float sc = args.scale[c], gd = args.guard[c];
+        const float a = comb(hv[0], mv[0], lv[0], sc);
+        args.A[c * ld + snp] = __fadd_rn(a, gd);
+        if (MISS) args.M[c * ld + snp] = __fadd_rn(comb(hv[1], mv[1], lv[1], sc), gd);
+        if (SQ) {
+          const float h = comb(hv[kP - 1], mv[kP - 1], lv[kP - 1], sc);
+          args.S[c * ld + snp] =
+              __fadd_rn(__fsub_rn(__fmul_rn(3.0f, a), __fmul_rn(2.0f, h)), gd);
+        }
+      }
+    } else {
+      // n8 blocks 3b, 3b+1, 3b+2 hold the hi, mid, lo digits of columns
+      // 8b .. 8b+7 of the warpgroup's groups: entry e of a block is SNP
+      // g + 8*(e >> 1), column 2t + (e & 1)
+#pragma unroll
+      for (int b = 0; b < NG; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = col0 + (grp0 + b) * 8 + 2 * t + (e & 1);
+          const long long snp = snp_a + 8 * (e >> 1);
+          if (c >= args.m || snp >= args.p_all) continue;
+          const float sc = args.scale[c], gd = args.guard[c];
+          const int i0 = 12 * b + e;
+          const float a = comb(acc[0][i0], acc[0][i0 + 4], acc[0][i0 + 8], sc);
+          args.A[c * ld + snp] = __fadd_rn(a, gd);
+          if (MISS)
+            args.M[c * ld + snp] = __fadd_rn(
+                comb(acc[1][i0], acc[1][i0 + 4], acc[1][i0 + 8], sc), gd);
+          if (SQ) {
+            const float h = comb(acc[kP - 1][i0], acc[kP - 1][i0 + 4],
+                                 acc[kP - 1][i0 + 8], sc);
+            args.S[c * ld + snp] = __fadd_rn(
+                __fsub_rn(__fmul_rn(3.0f, a), __fmul_rn(2.0f, h)), gd);
+          }
+        }
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int MC, bool MISS, bool SQ>
-void launch(const uint4* w, const float* r, float* A, float* M, float* S,
-            int nw, int p_all, int m, cudaStream_t stream) {
-  const dim3 grid((p_all / 4 + kThreads - 1) / kThreads);
-  xt_dots_t_kernel<MC, MISS, SQ><<<grid, kThreads, 0, stream>>>(
-      w, r, A, M, S, nw, p_all, m);
+template <int NG, bool MISS, bool SQ>
+int launch(Args a, cudaStream_t stream) {
+  auto kern = xt_dots_t_kernel<NG, MISS, SQ>;
+  constexpr int kS = stage_steps<NG>();
+  // shared memory a block: the narrow widths leave room for three blocks
+  // an SM
+  constexpr int kBudget = (NG <= 2 ? 72 : 220) * 1024;
+  const int stage_bytes =
+      kS * (a.rows * 128 + 8 * ((a.split ? 64 : 128) + 8) * 4);
+  a.stages = kBudget / stage_bytes;
+  a.stages = a.stages < 3 ? 3 : a.stages > kMaxStages ? kMaxStages : a.stages;
+  const int smem = a.stages * stage_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const int grid = static_cast<int>(a.items < resident ? a.items : resident);
+  kern<<<grid, kThreads, smem, stream>>>(a);
+  return 0;
 }
 
-template <int MC>
-void launch_any(const uint4* w, const float* r, float* A, float* M, float* S,
-                int nw, int p_all, int m, bool miss, bool sq,
-                cudaStream_t stream) {
-  if (miss && sq)
-    launch<MC, true, true>(w, r, A, M, S, nw, p_all, m, stream);
-  else if (miss)
-    launch<MC, true, false>(w, r, A, M, S, nw, p_all, m, stream);
-  else if (sq)
-    launch<MC, false, true>(w, r, A, M, S, nw, p_all, m, stream);
-  else
-    launch<MC, false, false>(w, r, A, M, S, nw, p_all, m, stream);
+template <int NG>
+int launch_planes(const Args& a, bool miss, bool sq, cudaStream_t st) {
+  constexpr int kP2 = 2 * NG <= kMaxGroups;      // every NG takes one plane
+  constexpr int kP3 = 3 * NG <= kMaxGroups;
+  const int planes = 1 + miss + sq;
+  if (planes == 1) return launch<NG, false, false>(a, st);
+  if constexpr (kP2) {
+    if (planes == 2 && miss) return launch<NG, true, false>(a, st);
+    if (planes == 2) return launch<NG, false, true>(a, st);
+  }
+  if constexpr (kP3) {
+    if (planes == 3) return launch<NG, true, true>(a, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  p_all must be a multiple of 4
-// and every pointer 16-byte aligned (the wrapper checks both).  M / S may be
-// null when not wanted.  Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() so a refused launch is seen by the caller.
-extern "C" int xt_dots_words_t(const void* words_t, const void* rhs, void* A,
+// Plain C entry point (loaded with ctypes).  ng (column groups of 8 a
+// warpgroup and pass: 0 for m <= 2, else 1, 2, 4, 7 or 13, with ng times
+// the planes at most 14), split and passes as the wrapper laid out
+// `digits` (kernels._digit_rows_t); every pointer 16-byte aligned and
+// p_all a multiple of 4 (the wrapper checks).  M / S may be null when not
+// wanted.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() so a refused launch is seen by the caller.
+extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
+                               const void* scale, const void* guard, void* A,
                                void* M, void* S, int nw, int p_all, int m,
-                               int want_missing, int want_sq, void* stream) {
-  if (p_all > 0 && m > 0) {
-    const auto* w = static_cast<const uint4*>(words_t);
-    const auto* r = static_cast<const float*>(rhs);
-    auto* a = static_cast<float*>(A);
-    auto* mm = static_cast<float*>(M);
-    auto* s = static_cast<float*>(S);
+                               int want_missing, int want_sq, int ng,
+                               int split, int passes, void* stream) {
+  if (p_all > 0 && m > 0 && nw > 0) {
+    Args a{};
+    a.words = static_cast<const uint32_t*>(words_t);
+    a.digits = static_cast<const int8_t*>(digits);
+    a.scale = static_cast<const float*>(scale);
+    a.guard = static_cast<const float*>(guard);
+    a.A = static_cast<float*>(A);
+    a.M = static_cast<float*>(M);
+    a.S = static_cast<float*>(S);
+    a.nw = nw;
+    a.ksteps = 4 * ((nw + 31) / 32);           // K steps of 8 words
+    a.p_all = p_all;
+    a.m = m;
+    a.split = split;
+    const int snps = split ? 64 : 128;
+    a.tiles = (p_all + snps - 1) / snps;
+    const long long items = static_cast<long long>(a.tiles) * passes;
+    if (items > 0x7fffffffLL || (ng == 0 && split))
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.items = static_cast<int>(items);
+    a.rows = ng == 0 ? 8 : 24 * ng * (split ? 2 : 1);
+    a.cols = ng == 0 ? 2 : 8 * ng * (split ? 2 : 1);
     auto st = static_cast<cudaStream_t>(stream);
-    if (m == 1)
-      launch_any<1>(w, r, a, mm, s, nw, p_all, m, want_missing, want_sq, st);
-    else
-      launch_any<8>(w, r, a, mm, s, nw, p_all, m, want_missing, want_sq, st);
+    const bool miss = want_missing != 0, sq = want_sq != 0;
+    int err;
+    switch (ng) {
+      case 0: err = launch_planes<0>(a, miss, sq, st); break;
+      case 1: err = launch_planes<1>(a, miss, sq, st); break;
+      case 2: err = launch_planes<2>(a, miss, sq, st); break;
+      case 4: err = launch_planes<4>(a, miss, sq, st); break;
+      case 7: err = launch_planes<7>(a, miss, sq, st); break;
+      case 13: err = launch_planes<13>(a, miss, sq, st); break;
+      default: err = static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

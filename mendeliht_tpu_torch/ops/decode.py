@@ -20,6 +20,11 @@ Decode algebra per crumb code c (hi = c>>1, lo = c&1):
 Standardized products are assembled outside the heavy pass:
     X_std' R = inv_sd ∘ (A + mu ∘ M - mu · colsum(R)),   A = Vraw'R, M = Miss'R
 
+The transposed score ``xt_dots_words_t`` is the JAX package's digit-plane
+function: R split into three int8 digit planes, exact integer sums of the
+decoded value, missing and hi-bit planes against them, an f32 combine and a
+NaN guard.  The quad-word score ``xt_dots_words`` multiplies R unquantised.
+
 The kernel lab's versions (``tools/kernel_lab5.py``): ``xt_dots_T``, A
 through three int8 digit planes of R with exact integer sums, and the
 narrow-integer probes ``unpack_words`` / ``int_dot_packed``.
@@ -120,19 +125,6 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
                          words.shape[0], rhs, want_missing, want_sq, p)
 
 
-def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
-                    want_missing: bool, want_sq: bool = False,
-                    p: int | None = None):
-    """``xt_dots_words`` over the transposed per-SNP words: words_t
-    (nw = n4/4, 4*p4) int32, rhs (16*nw, m).  Same outputs, the contract of
-    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t`` (a NaN in an rhs
-    column is NaN in that output column).  Chunked over SNP columns, each
-    chunk viewed back as byte rows."""
-    return _xt_dots_rows(
-        lambda lo, hi: t_rows_bytes(words_t[:, 4 * lo:4 * hi]),
-        words_t.shape[1] // 4, rhs, want_missing, want_sq, p)
-
-
 def quantize_rhs_planes(rhs: torch.Tensor):
     """f32 (n_pad, m) -> ((3m, n_pad) int8 digit planes [hi|mid|lo], (m,)
     f32 per-column scale), bit for bit the JAX package's
@@ -152,31 +144,90 @@ def quantize_rhs_planes(rhs: torch.Tensor):
     return torch.cat([rh, rm, rl], dim=0).to(torch.int8), scale
 
 
-def digit_dots_t(words_t: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
-    """Exact integer dots V'D of the decoded transposed words against int8
-    digit rows: words_t (nw, p_all) int32, planes (rows, 16*nw) int8 ->
-    (p_all, rows) float64 holding the int32 sums exactly.
+def digit_sums_t(words_t: torch.Tensor, planes: torch.Tensor, *,
+                 want_missing: bool = False, want_sq: bool = False):
+    """Exact integer dots of the decoded transposed words against int8 digit
+    rows: words_t (nw, p_all) int32, planes (rows, 16*nw) int8 -> (V'D,
+    Miss'D or None, H'D or None), each (p_all, rows) float64 holding the
+    int32 sums exactly: V the crumb values (missing -> 0), Miss the missing
+    indicators, H the hi bits (``V^2 = 3V - 2H``).
 
-    Missing crumbs decode to 0.  Each product is at most 128 in magnitude,
-    so every partial sum is an integer below 2^53 and float64 keeps it
-    exact; chunked over SNP columns so no (p, n_pad) matrix is made."""
+    Each product is at most 128 in magnitude, so every partial sum is an
+    integer below 2^53 and float64 keeps it exact; chunked over SNP columns
+    so no (p, n_pad) matrix is made."""
     nw, p_all = words_t.shape
     n4 = 4 * nw
-    d = planes.to(torch.float64).reshape(planes.shape[0], 4, n4)
-    out = torch.empty((p_all, planes.shape[0]), dtype=torch.float64,
-                      device=words_t.device)
+    rows = planes.shape[0]
+    d = planes.to(torch.float64).reshape(rows, 4, n4)
+    kw = dict(dtype=torch.float64, device=words_t.device)
+    wanted = (True, want_missing, want_sq)
+    outs = [torch.empty((p_all, rows), **kw) if w else None for w in wanted]
     chunk = max(1, 4 * _CHUNK_WORDS // max(n4, 1))
     for lo in range(0, p_all, chunk):
         hi = min(lo + chunk, p_all)
         by = t_rows_bytes(words_t[:, lo:hi])                 # (c, n4) u8
-        acc = torch.zeros((hi - lo, planes.shape[0]), dtype=torch.float64,
-                          device=words_t.device)
+        acc = [torch.zeros((hi - lo, rows), **kw) if w else None
+               for w in wanted]
         for q in range(4):
             crumbs = (by >> (2 * q)) & 3
-            val, _, _, _ = _plane_val_miss(crumbs, torch.float64, False)
-            acc += val @ d[:, q].T
-        out[lo:hi] = acc
-    return out
+            val, miss, hi_f, _ = _plane_val_miss(crumbs, torch.float64,
+                                                 want_missing)
+            dq = d[:, q].T
+            for a, x in zip(acc, (val, miss, hi_f)):
+                if a is not None:
+                    a += x @ dq
+        for o, a in zip(outs, acc):
+            if o is not None:
+                o[lo:hi] = a
+    return tuple(outs)
+
+
+def digit_dots_t(words_t: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """The value sums V'D of :func:`digit_sums_t`: (p_all, rows) float64."""
+    return digit_sums_t(words_t, planes)[0]
+
+
+def combine_digits(sums: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(p, 3m) exact digit sums [hi|mid|lo] -> (p, m) f32 scores: each sum
+    rounded to f32 as the int32 accumulator is, then ``(16384*hi + 128*mid
+    + lo) * scale`` in that f32 order (one rounding a step)."""
+    m = scale.shape[0]
+    a = sums.to(torch.float32)
+    return (16384.0 * a[:, :m] + 128.0 * a[:, m:2 * m]
+            + a[:, 2 * m:]) * scale[None, :]
+
+
+def nan_guard(rhs: torch.Tensor) -> torch.Tensor:
+    """(m,) f32 ``rhs.sum(0) * 0``: NaN where a column is not finite (its
+    digits are meaningless), else 0, added to every output of the digit
+    scores so a failed column stays failed."""
+    return (rhs.sum(dim=0) * 0.0).to(torch.float32)
+
+
+def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
+                    want_missing: bool, want_sq: bool = False,
+                    p: int | None = None):
+    """Raw-plane dots over the transposed per-SNP words through int8 digit
+    planes of R: words_t (nw = n4/4, p_all) int32, rhs (16*nw, m) float.
+    Returns (A, M, S) like :func:`xt_dots_words`, f32: the function of
+    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t``.
+
+    R is split into three int8 digit planes (:func:`quantize_rhs_planes`);
+    the value, missing and hi-bit sums against them are exact
+    (:func:`digit_sums_t`) and combined in f32 (:func:`combine_digits`);
+    ``S = 3A - 2H``; every output adds :func:`nan_guard`, so a NaN or Inf
+    in an rhs column is NaN in that output column and nowhere else.
+    ``p`` slices off the quad-padding SNP columns (default: keep them;
+    they are zero)."""
+    planes, scale = quantize_rhs_planes(rhs)
+    guard = nan_guard(rhs)[None, :]
+    a, mm, h = digit_sums_t(words_t, planes, want_missing=want_missing,
+                            want_sq=want_sq)
+    A = combine_digits(a, scale)
+    M = combine_digits(mm, scale) if want_missing else None
+    S = 3.0 * A - 2.0 * combine_digits(h, scale) if want_sq else None
+    p_out = A.shape[0] if p is None else p
+    return tuple(None if o is None else (o + guard)[:p_out] for o in (A, M, S))
 
 
 def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -187,10 +238,7 @@ def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     rounded to f32 as the int32 accumulator is, then combined as
     ``(16384*hi + 128*mid + lo) * scale`` in that f32 order."""
     planes, scale = quantize_rhs_planes(rhs)
-    m = scale.shape[0]
-    a = digit_dots_t(words_t, planes).to(torch.float32)
-    return (16384.0 * a[:, :m] + 128.0 * a[:, m:2 * m]
-            + a[:, 2 * m:]) * scale[None, :]
+    return combine_digits(digit_dots_t(words_t, planes), scale)
 
 
 def rounds_restride(planes: torch.Tensor, nw: int, tw: int | None = None):
@@ -248,9 +296,7 @@ def xt_i8_rounds(words: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         for r, shift in enumerate(_round_shifts()):
             a += ((w >> shift) & 3).to(torch.float64) @ rr[r].T
         acc[lo:lo + chunk] = a
-    a = acc.to(torch.float32)
-    return (16384.0 * a[:, :m] + 128.0 * a[:, m:2 * m]
-            + a[:, 2 * m:]) * scale[None, :]
+    return combine_digits(acc, scale)
 
 
 def _xor_reduce(x: torch.Tensor) -> torch.Tensor:

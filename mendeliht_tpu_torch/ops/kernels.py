@@ -189,14 +189,89 @@ def build_words_t(words: torch.Tensor, p: int,
     return out
 
 
+# column groups of 8 a warpgroup that csrc/xt_dots_t.cu is built for, and
+# the most groups x output planes a warpgroup's registers hold
+_NG_T = (1, 2, 4, 7, 13)
+_NG_PLANES_T = 14
+
+
+def score_plan_t(m: int, planes: int):
+    """(ng, split, passes) of the transposed score kernel for m columns and
+    ``planes`` output planes (1 + want_missing + want_sq): m <= 2 takes one
+    8-row digit group (ng = 0); else ng column groups of 8 a warpgroup, the
+    fewest of ``_NG_T`` that hold the columns, with the two warpgroups of a
+    block on 128 SNPs (split False) or, where one warpgroup's registers do
+    not hold the columns, splitting the groups of 64 SNPs (split True, at
+    most 7 groups each, so three stages of digits fit shared memory); wider
+    R takes passes of the most groups on 128 SNPs."""
+    if m <= 2:
+        return 0, False, 1
+    groups = -(-m // 8)
+    cap = _NG_PLANES_T // planes
+    fit = lambda g: min(x for x in _NG_T if x >= g)          # noqa: E731
+    if groups <= cap:
+        return fit(groups), False, 1
+    if groups <= 2 * min(cap, 7):
+        return fit(-(-groups // 2)), True, 1
+    ng = max(x for x in _NG_T if x <= cap)
+    return ng, False, -(-groups // ng)
+
+
+@functools.lru_cache(maxsize=64)
+def _digit_source_t(m: int, ng: int, split: bool, passes: int, device):
+    """For each digit row of the kernel's order, the row of the (3m, n_pad)
+    digit planes it holds, or 3m for a zero row (``_digit_rows_t``)."""
+    r = torch.arange(8 if ng == 0 else 24 * ng * (2 if split else 1))
+    if ng == 0:
+        d, c, cols = r // 2, r % 2, 2
+    else:
+        d, c, cols = (r % 24) // 8, (r // 24) * 8 + r % 8, len(r) // 3
+    col = torch.arange(passes)[:, None] * cols + c
+    src = torch.where((d < 3) & (col < m), d * m + col, 3 * m).reshape(-1)
+    return src.to(device)
+
+
+def _digit_rows_t(planes: torch.Tensor, nw: int, ng: int, split: bool,
+                  passes: int) -> torch.Tensor:
+    """(3m, 16*nw) digit planes [hi|mid|lo] -> (passes*rows, 4, k4) int8 in
+    xt_dots_t.cu's order: plane q of a row its samples q*4nw .. with zeros
+    after; row 24b + 8d + r of a pass is digit d of the pass's column 8b + r
+    (ng = 0: 8 rows, row 2d + c digit d of column c); rows of no column are
+    zero.  k4 = 4*nw rounded up to 128 (K steps of 32 samples, a multiple
+    of 4)."""
+    n4 = 4 * nw
+    k4 = 128 * -(-nw // 32)
+    src = _digit_source_t(planes.shape[0] // 3, ng, split, passes,
+                          planes.device)
+    padded = torch.cat([planes, planes.new_zeros((1, planes.shape[1]))])
+    out = planes.new_zeros((len(src), 4, k4))
+    out[:, :, :n4] = padded[src].view(-1, 4, n4)
+    return out
+
+
+def _digit_stages_t(rows_t: torch.Tensor, passes: int) -> torch.Tensor:
+    """``_digit_rows_t``'s (passes*rows, 4, k4) -> the kernel's shared-memory
+    image of each K step, (passes, k4/32, 4, 2, rows/8, 8, 16) int8: for
+    pass, K step, plane q and K half, the 8-row x 16-byte core matrices of
+    the rows, so one K step of one pass is one contiguous copy."""
+    r, _, k4 = rows_t.shape
+    v = rows_t.view(passes, r // passes // 8, 8, 4, k4 // 32, 2, 16)
+    return v.permute(0, 4, 3, 5, 1, 2, 6).contiguous()
+
+
 def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
                     want_missing: bool, want_sq: bool = False,
                     p: int | None = None):
-    """Fused decode + multi-RHS dots over the transposed per-SNP words.
+    """Fused decode + multi-RHS dots over the transposed per-SNP words
+    through int8 digit planes of R.
 
     words_t (nw = n4/4, 4*p4) int32 (``build_words_t``); rhs (16*nw, m)
-    float32.  Returns (A, M, S) like ``xt_dots_words``.  The contract of
-    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t``."""
+    float.  Returns (A, M, S) like ``xt_dots_words``, f32.  The function of
+    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t``: its integer sums
+    are exact while 128 * 16*nw < 2^31, and past that the wrapper raises
+    before any work, on either device.  The digit planes and their layout
+    are torch ops here, as XLA runs them around the Pallas call; the kernel
+    equals its plain version (``decode.xt_dots_words_t``) bit for bit."""
     if words_t.dtype != torch.int32 or words_t.dim() != 2:
         raise ValueError(f"words_t must be 2-D int32, got {words_t.dtype} "
                          f"{tuple(words_t.shape)}")
@@ -206,6 +281,12 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
     if rhs.dim() != 2 or rhs.shape[0] != 16 * words_t.shape[0]:
         raise ValueError(f"rhs {tuple(rhs.shape)} does not match words_t "
                          f"{tuple(words_t.shape)}: need (16*nw, m)")
+    nw, p_all = words_t.shape
+    m = rhs.shape[1]
+    if 128 * 16 * nw >= 2**31 or max(p_all, m) >= 2**31:
+        raise ValueError(f"shape out of range: words_t "
+                         f"{tuple(words_t.shape)}, m={m} (the int32 digit "
+                         "sums are exact only below 2^31)")
     if rhs.device != words_t.device:
         raise ValueError(f"words_t on {words_t.device}, rhs on {rhs.device}")
     if words_t.device.type == "cpu":
@@ -214,18 +295,23 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
     if words_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {words_t.device}")
     _check_card_tensor("words_t", words_t, torch.int32)
-    nw, p_all = words_t.shape
-    m = rhs.shape[1]
-    if max(nw, p_all, m) >= 2**31:
-        raise ValueError(f"shape out of range: words_t "
-                         f"{tuple(words_t.shape)}, m={m}")
-    rhs_t = rhs.t().contiguous()                             # (m, n_pad)
-    _check_card_tensor("rhs", rhs_t, torch.float32)
+    planes, scale = decode.quantize_rhs_planes(rhs)
+    guard = decode.nan_guard(rhs)
+    ng, split, passes = score_plan_t(m, 1 + want_missing + want_sq)
+    digits = _digit_stages_t(_digit_rows_t(planes, nw, ng, split, passes),
+                             passes)
+    for name, t, dtype in (("digits", digits, torch.int8),
+                           ("scale", scale, torch.float32),
+                           ("guard", guard, torch.float32)):
+        _check_card_tensor(name, t, dtype)
     A, M, S = _outputs(m, p_all, want_missing, want_sq, words_t.device)
-    fn = _entry("xt_dots_t", "xt_dots_words_t", _SCORE_ARGS)
+    fn = _entry("xt_dots_t", "xt_dots_words_t",
+                (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
+                + (ctypes.c_void_p,))
     _launch("xt_dots_words_t", fn, words_t.device, words_t.data_ptr(),
-            rhs_t.data_ptr(), *_ptrs(A, M, S), nw, p_all, m,
-            int(want_missing), int(want_sq))
+            digits.data_ptr(), scale.data_ptr(), guard.data_ptr(),
+            *_ptrs(A, M, S), nw, p_all, m, int(want_missing), int(want_sq),
+            ng, int(split), passes)
     return _cut(A, M, S, p)
 
 

@@ -5,8 +5,10 @@
 - A CPU tensor takes the plain PyTorch version and builds nothing.
 - On a CUDA card (marker ``cuda``), each hand-written kernel agrees with its
   plain version, and the two score kernels with each other.  The int8
-  digit-plane scores (kernels 6 and 7), the narrow-integer probes and the
-  round-3 probes sum integers exactly, so they equal their plain versions.
+  digit-plane scores (kernels 2, 6 and 7), the narrow-integer probes and the
+  round-3 probes sum integers exactly, so they equal their plain versions;
+  kernel 2's A equals kernel 6's, and kernels 2 and 1 (f32, unquantised R)
+  agree within 2e-5.
 """
 
 import ast
@@ -171,12 +173,21 @@ def test_kernel_matches_plain_on_card(cuda_device, m):
     assert kernels.LAUNCHES["xt_dots_words"] == before + 4
 
 
+def _same(a, b):
+    """Bit for bit, NaN where NaN."""
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 13, 100])
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 37, 100, 300, 1000])
 def test_transposed_kernel_matches_plain_and_quad_on_card(cuda_device, m):
-    """Transposed-layout kernel vs its plain version and vs the quad-word
-    kernel on the same card tensors: every output plane, p not a multiple
-    of 4, a NaN column."""
+    """Transposed-layout kernel (int8 digit planes) vs its plain version bit
+    for bit, its A vs kernel 6 bit for bit and vs the quad-word kernel
+    within 2e-5, on the same card tensors: every output plane, p not a
+    multiple of 4, a NaN column, and widths that run every digit-row
+    grouping (one or two column groups of 8, 7 and 13 a warpgroup, split
+    rows, several passes) and a ragged last group; one launch a call."""
     words, rhs = _case(4, n=1000, p=4099, m=m)
     rhs[5, m - 1] = float("nan")
     words, rhs = words.to(cuda_device), rhs.to(cuda_device)
@@ -195,21 +206,24 @@ def test_transposed_kernel_matches_plain_and_quad_on_card(cuda_device, m):
                     continue
                 assert g.shape == (4099, m)
                 assert torch.isnan(g[:, m - 1]).all()
-                for other in (r, q):
-                    a, b = g[:, :m - 1], other[:, :m - 1]
-                    if m > 1:
-                        scale = b.abs().max().clamp(min=1.0)
-                        assert float((a - b).abs().max() / scale) < 2e-5
+                assert _same(g, r)
+                if m > 1:
+                    a, b = g[:, :m - 1], q[:, :m - 1]
+                    scale = b.abs().max().clamp(min=1.0)
+                    assert float((a - b).abs().max() / scale) < 2e-5
     assert kernels.LAUNCHES["xt_dots_words_t"] == before["xt_dots_words_t"] + 4
     assert kernels.LAUNCHES["xt_dots_words"] == before["xt_dots_words"] + 4
+    a = kernels.xt_dots_words_t(words_t, rhs, want_missing=False, p=4099)[0]
+    assert _same(a[:, :m - 1], kernels.xt_dots_T(words_t, rhs)[:4099, :m - 1])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 8, 100])
 def test_score_kernels_hold_bound_at_large_n(cuda_device, m):
-    """Both score kernels against the plain version where each SNP sums
-    200,000 samples, for every output plane: the f32 rounding of a long sum
-    stays inside the 2e-5 bound."""
+    """Both score kernels where each SNP sums 200,000 samples, for every
+    output plane: the quad-word kernel's f32 rounding of a long sum stays
+    inside the 2e-5 bound of the plain version, and the transposed kernel's
+    exact integer sums equal its plain version bit for bit."""
     n, p = 200_000, 67
     words, rhs = _case(7, n=n, p=p, m=m)
     words, rhs = words.to(cuda_device), rhs.to(cuda_device)
@@ -218,14 +232,19 @@ def test_score_kernels_hold_bound_at_large_n(cuda_device, m):
         for want_sq in (False, True):
             kw = dict(want_missing=want_missing, want_sq=want_sq, p=p)
             ref = decode.xt_dots_words(words, rhs, **kw)
-            for got in (kernels.xt_dots_words(words, rhs, **kw),
-                        kernels.xt_dots_words_t(words_t, rhs, **kw)):
-                torch.cuda.synchronize()
-                for g, r in zip(got, ref):
-                    if r is None:
-                        continue
-                    err = (g - r).abs().max() / r.abs().max().clamp(min=1.0)
-                    assert float(err) < 2e-5
+            got = kernels.xt_dots_words(words, rhs, **kw)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                if r is None:
+                    continue
+                err = (g - r).abs().max() / r.abs().max().clamp(min=1.0)
+                assert float(err) < 2e-5
+            got = kernels.xt_dots_words_t(words_t, rhs, **kw)
+            ref = decode.xt_dots_words_t(words_t, rhs, **kw)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert (g is None) == (r is None)
+                assert g is None or _same(g, r)
 
 
 @pytest.mark.cuda
