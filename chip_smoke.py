@@ -7,24 +7,25 @@ Phases, one or more lines each; any failure raises (non-zero exit, no
 result line):
 
 1. device     name, ``nvidia-smi`` name and power limit; TF32 off
-2. build      the six CUDA sources of ``mendeliht_tpu_torch/csrc``, one
+2. build      the five CUDA sources of ``mendeliht_tpu_torch/csrc``, one
               nvcc each, all started together; ptxas register/spill lines,
-              and kernel 2's registers, spills and shared memory summed up
-3. kernel     kernel 1 (``xt_dots_words``, quad words) vs its plain PyTorch
-              version on the card: n=10k x p=65,536 and n=200k x p=4,096
-              (long per-SNP sums), both with missing genotypes, at m in
-              {1, 8, 100} for every output combination, a NaN column; at
-              10k x 1M kernel and plain at m in {1, 8, 100}, each checked
-              (relative and absolute error) and timed
-4. kernel-t   kernel 2 (``xt_dots_words_t``, transposed dual layout, int8
-              digit planes on the tensor cores): the same cases against its
-              plain version bit for bit, ``build_words_t`` on the card equal
-              to the CPU and its time at 10k x 1M; at 10k x 1M for m in
-              {1, 8, 100} its A equal to kernel 6's and (m in {1, 100})
-              within 2e-5 of kernel 1's, then kernel and plain
-              bit for bit and timed beside the int8 bound (3 digit planes a
-              wanted output) and the share of it; after the lab, its m=100
-              time against kernel 6's in the same run (no slower); at the
+              and the registers, spills and shared memory of kernels 1 and
+              2 (``xt_dots_t.cu``, one body, two layouts) summed up
+3. kernel     kernel 1 (``xt_dots_words``, quad words, int8 digit planes on
+              the tensor cores) vs its plain PyTorch version on the card,
+              bit for bit: n=10k x p=65,536 and n=200k x p=4,096 (long
+              per-SNP sums), both with missing genotypes, at m in {1, 8,
+              100} for every output combination, a NaN column; at 10k x 1M
+              kernel and plain at m in {1, 8, 100}, each checked and timed
+              beside the int8 bound (3 digit planes a wanted output)
+4. kernel-t   kernel 2 (``xt_dots_words_t``, transposed dual layout, the
+              same function): the same cases against its plain version bit
+              for bit, ``build_words_t`` on the card equal to the CPU and
+              its time at 10k x 1M; at 10k x 1M for m in {1, 8, 100} its A
+              equal to kernel 6's and its A and M equal to kernel 1's, then
+              kernel and plain bit for bit and timed beside the int8 bound
+              and the share of it; after the lab, the m=100 times of kernels
+              1 and 2 against kernel 6's in the same run (no slower); at the
               end of the run (after every profile phase, so that no other
               profiler session runs before one) the kernel launches of one call
 5. probe      kernel 3 (``read_words``) equal to its plain version on the
@@ -33,19 +34,25 @@ result line):
               at m in {1, 100}
 6. parity     the same port fit (n=2,000, p=20,000, k=10) on the card and on
               the CPU: same support, iteration counts within one (the
-              card's score takes R through 21-bit digits)
+              card's score takes R through 21-bit digits, the CPU operator
+              runs the f32 function, as the JAX package's does off the TPU)
 7. cv-parity  the same ``cv_iht`` (2,000 x 20,000, path 1:10, q=3, fixed
               folds) on the card and on the CPU: mse within 1e-4, same best k
 8. fit        ``fit_iht`` at 10k x 1M, k=10 (the JAX package's headline
               size) through ``PackedOp`` (quad words, kernel 1) and through
               the genotypes (dual layout, kernel 2), cold then FIT_WARM warm
-              runs each: same support, iterations within one (21-bit
-              digits against f32 at the tolerance), logl within 1e-5,
-              causal recovery, the warm median and range
+              runs each: identical support, iterations and logl (the two
+              kernels compute one function), causal recovery, the warm
+              median and range
 9. cv         ``cv_iht`` at 10k x 1M, path 1:20, q=5 (B=100 tasks, every
               score pass at m=100) on its default path, cold then CV_WARM
               warm runs on the same folds: finite mse, best k, iterations
-              from the solver state, kernel-2 launches, peak memory
+              from the solver state, kernel-2 launches, peak memory; then
+   cv-quad    the same cv through ``PackedOp`` of the genotypes without
+              ``words_t`` (kernel 1, as every cv past the dual-layout
+              budget runs), cold then CVQ_WARM warm runs: mse equal to the
+              dual cv's bit for bit, best k 10, kernel-1 launches and no
+              kernel-2 launch, the warm median and range
 10. profile   ``profiling.trace`` over one warm cv and one warm dual fit:
               wall, device busy and idle share, launches, syncs, the
               heaviest device kernels
@@ -71,10 +78,16 @@ result line):
               0 before and read after, each of the three kernels launched
               and no variant failed
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
-              score with its missing plane), after kernel 2 vs plain bit for
-              bit and timed at m=100 on them beside its bound (6 planes);
-              then ``profiling.trace`` of one warm cv on them
-14. result    a JSON line of the kernels, then ``{"ok": true, "device": ...}``
+              score with its missing plane), after kernels 2 and 1 vs plain
+              bit for bit and equal to each other, timed at m=100 on them
+              beside their bound (6 planes); then ``profiling.trace`` of
+              one warm cv on them
+14. budget    past the 3 GiB dual-layout budget, after every other genotype
+              is freed: 51,200 x 1,000,000 random quad words made on the card
+              (12.8 GB, every crumb code), ``build_words_t`` of them (timed),
+              kernels 1 and 2 at m in {1, 100} with the missing plane equal
+              bit for bit and timed in turns beside their bound
+15. result    a JSON line of the kernels, then ``{"ok": true, "device": ...}``
 
 Between phases 4 and 5, ``kernel-i8`` holds kernel 6 (``xt_dots_T``, the
 int8 digit-plane score) to its plain version, exactly, on the kernel cases'
@@ -84,8 +97,9 @@ cases at m in {1, 8, 64} (printed as ``[kprobe]``).
 
 Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
-(kernel 1), the cv (kernel 2), the read-ceiling measurement (kernel 3) and
-the lab run (kernels 4-6; ``lab_launches`` of every kernel) and the probe's
+(kernel 1; ``cv_launches`` from the cv-quad run), the cv (kernel 2), the
+read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
+``lab_launches`` of every kernel) and the probe's
 run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
 ``bound_ms`` is the larger of its bytes over the data sheet's memory rate
 and its operations over the data sheet's rate for their type (f32 or int32
@@ -100,6 +114,7 @@ import json
 import re
 import subprocess
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -119,13 +134,13 @@ P_KERNEL = 65_536                        # SNPs of the kernel-vs-plain cases
 N_DEEP, P_DEEP = 200_000, 4_096          # long per-SNP sums
 N_PARITY, P_PARITY = 2_000, 20_000       # the card-vs-CPU fit and cv
 CV_PATH, CV_Q = list(range(1, 21)), 5    # the reference-shaped cv grid
-FIT_WARM, CV_WARM = 10, 5                # warm runs after the cold one
+FIT_WARM, CV_WARM, CVQ_WARM = 10, 5, 3   # warm runs after the cold one
+N_BIG = 51_200                           # past the budget: 12.8 GB of words
 CV_MAX_ITER = 100                        # cv_iht's default
 SEED = 2026
-TOL = 2e-5         # the bound tests/test_pallas.py holds the Pallas kernels to
 CV_TOL = 1e-4      # cv mse, card vs CPU: f32 sums in another order
 EXACT_TOL = 1e-6   # kernel 6 vs plain: exact integer sums, the same f32 combine
-SOURCES = ("xt_dots", "xt_dots_t", "read_probe", "xt_dots_i8", "int_probe",
+SOURCES = ("xt_dots_t", "read_probe", "xt_dots_i8", "int_probe",
            "kernel_probe")
 # peak rates of an H100 SXM (dense), operations per second: f32 on the CUDA
 # cores and int8 on the tensor cores from the data sheet; int32 from the
@@ -152,7 +167,7 @@ PROBE_VERDICTS = {
     "dot_i8_lhs_i4_rhs": "ok"}
 KERNELS = {
     "xt_dots_words": dict(
-        route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots.cu",
+        route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots_t.cu",
         replaces="mendeliht_tpu/ops/pallas_kernels.py:157"),
     "xt_dots_words_t": dict(
         route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots_t.cu",
@@ -283,20 +298,29 @@ def phase_build():
                 print(f"[build] {lib.stem}: {ln.strip()}", flush=True)
     log = next(lib for lib in libs if lib.stem.startswith("xt_dots_t-"))
     text = log.with_suffix(".log").read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-    spills = [int(b) for b in re.findall(r"(\d+) bytes spill", text)]
     smem = sorted(set(re.findall(r"(\d+) bytes smem", text)))
-    print(f"[build] kernel 2 (xt_dots_t.cu): {len(regs)} instantiations, "
-          f"registers {min(regs)}-{max(regs)} a thread, spill bytes "
-          f"{max(spills, default=0)} at most, static shared memory {smem} "
-          "bytes (the stage ring is dynamic: 3-8 stages, sized at launch)",
-          flush=True)
+    # each instantiation's block of the log; the layout is its last
+    # template argument (QUAD)
+    found = {"1": [], "0": []}
+    for block in text.split("Compiling entry function '")[1:]:
+        quad = re.search(r"Lb([01])EEEv", block.split("'", 1)[0]).group(1)
+        found[quad].append((
+            int(re.search(r"Used (\d+) registers", block).group(1)),
+            max(map(int, re.findall(r"(\d+) bytes spill", block)),
+                default=0)))
+    for kernel, quad in (("1 (quad words)", "1"), ("2 (transposed)", "0")):
+        regs = [r for r, _ in found[quad]]
+        print(f"[build] kernel {kernel}, xt_dots_t.cu: {len(regs)} "
+              f"instantiations, registers {min(regs)}-{max(regs)} a thread, "
+              f"spill bytes {max(b for _, b in found[quad])} at most, static "
+              f"shared memory {smem} bytes (the stage ring is dynamic: 3-8 "
+              "stages, sized at launch)", flush=True)
 
 
-def check_cases(name, kernel, plain, arr, g, gen, exact=False):
+def check_cases(name, kernel, plain, arr, g, gen):
     """Kernel vs plain on the same card tensors at m in {1, 8, 100} for
-    every output combination, then a NaN column; ``exact``: bit for bit
-    (else within TOL); returns the worst error."""
+    every output combination, then a NaN column, bit for bit; returns the
+    worst relative error (0)."""
     worst = 0.0
     for m in (1, 8, 100):
         rhs = rhs_on(g, m, gen)
@@ -311,7 +335,7 @@ def check_cases(name, kernel, plain, arr, g, gen, exact=False):
                 print(f"[{name}] n={g.n} p={g.p} m={m} missing={want_missing} "
                       f"sq={want_sq}: rel err {err:.3g}, bit-equal {equal}",
                       flush=True)
-                if not (equal if exact else err < TOL):
+                if not equal:
                     raise AssertionError(f"{name} disagrees: {err}")
                 worst = max(worst, err)
     rhs = rhs_on(g, 8, gen)
@@ -322,19 +346,19 @@ def check_cases(name, kernel, plain, arr, g, gen, exact=False):
         if not (torch.isnan(out[:, 3]).all()
                 and torch.isfinite(out[:, [0, 1, 2, 4, 5, 6, 7]]).all()):
             raise AssertionError(f"{name}: NaN not confined to column 3")
-    if exact and not all(same(a, b) for a, b in zip(got, ref)):
+    if not all(same(a, b) for a, b in zip(got, ref)):
         raise AssertionError(f"{name}: the NaN case differs from plain")
     print(f"[{name}] NaN in column 3: kernel and plain NaN there, finite "
-          f"elsewhere{', bit-equal' if exact else ''}", flush=True)
+          "elsewhere, bit-equal", flush=True)
     return worst
 
 
 def time_widths(name, kernel, plain, arr, g, gen, widths=(1, 8, 100),
-                exact=False, bound_of=None):
+                bound_of=None):
     """Kernel vs plain on ``g`` at each width, with the outputs the score
-    pass of a fit or cv asks for: first checked against each other (bit for
-    bit if ``exact``, else within TOL), then timed, beside ``bound_of(m)``
-    where given; returns {m: (kernel ms, plain ms, rel err, abs err)}."""
+    pass of a fit or cv asks for: first checked against each other bit for
+    bit, then timed, beside ``bound_of(m)`` where given; returns {m:
+    (kernel ms, plain ms, rel err, abs err)}."""
     times = {}
     for m in widths:
         rhs = rhs_on(g, m, gen)
@@ -346,7 +370,7 @@ def time_widths(name, kernel, plain, arr, g, gen, widths=(1, 8, 100),
         abs_err = max(float((a - b).abs().max()) for a, b in pairs)
         equal = all(same(a, b) for a, b in pairs)
         del got, ref, pairs
-        if not (equal if exact else err < TOL):
+        if not equal:
             raise AssertionError(f"{name} disagrees at {g.n} x {g.p}, m={m}: "
                                  f"{err}, bit-equal {equal}")
         ms, plain_ms, runs = interleaved(
@@ -373,19 +397,35 @@ def errors(worst, times):
                 max_rel_err=max(worst, *(t[2] for t in times.values())))
 
 
+def width_stats(times, widths, bound_of):
+    """The kernels line's per-width fields: ms, plain ms and bound at each
+    of ``widths`` (``times`` as ``time_widths`` returns them)."""
+    out = {}
+    for m in widths:
+        out.update({f"ms_m{m}": times[m][0], f"plain_ms_m{m}": times[m][1],
+                    f"bound_ms_m{m}": bound_of(m)["bound_ms"]})
+    return out
+
+
 def phase_kernel(small, g, gen):
+    """Kernel 1 bit for bit against its plain version on the kernel cases
+    and at 10k x 1M (m = 1, 8, 100), timed beside its int8 bound; the
+    kernels line's entry leads with m = 1, the quad-word fit's width."""
     worst = max(check_cases("kernel", kernels.xt_dots_words,
                             decode.xt_dots_words, s.words, s, gen)
                 for s in small)
+    bound_of = int8_bound_of(g, missing=False)
     times = time_widths("kernel", kernels.xt_dots_words,
-                        decode.xt_dots_words, g.words, g, gen)
+                        decode.xt_dots_words, g.words, g, gen,
+                        bound_of=bound_of)
     return dict(**errors(worst, times), ms=times[1][0], plain_ms=times[1][1],
-                m=1)
+                m=1, **width_stats(times, (8, 100), bound_of))
 
 
-def score_planes(missing, sq=False):
-    """Digit planes of kernel 2's work: 3 a wanted output (A, M, S)."""
-    return 3 * (1 + missing + sq)
+def int8_bound_of(g, missing):
+    """The ``bound_of`` of a score kernel (1 or 2) on ``g``: its int8 bound
+    at width m, 3 digit planes a wanted output (A, and M if ``missing``)."""
+    return lambda m: score_bound(g, m, "int8", 3 * (1 + missing))
 
 
 def wrapper_launches(g, gen):
@@ -407,10 +447,25 @@ def wrapper_launches(g, gen):
                   "torch ops and the kernel)", flush=True)
 
 
+def check_layouts(name, g, m, gen):
+    """Kernels 1 and 2 on the same genotypes (``words`` and ``words_t``) at
+    width m with the missing plane: every output equal bit for bit."""
+    rhs = rhs_on(g, m, gen)
+    kw = dict(want_missing=True, want_sq=False, p=g.p)
+    quad = kernels.xt_dots_words(g.words, rhs, **kw)
+    dual = kernels.xt_dots_words_t(g.words_t, rhs, **kw)
+    sync()
+    equal = all(same(a, b) for a, b in zip(quad, dual) if a is not None)
+    print(f"[{name}] {g.n} x {g.p} m={m} missing={g.has_missing}: kernel 1 "
+          f"A and M equal to kernel 2's {equal}", flush=True)
+    if not equal:
+        raise AssertionError(f"kernels 1 and 2 differ at m={m}")
+
+
 def phase_kernel_t(small, g, gen):
     """Kernel 2 bit for bit against its plain version on the kernel cases
     and at 10k x 1M (m = 1, 8, 100), timed beside its int8 bound; its A
-    equal to kernel 6's and within TOL of kernel 1's."""
+    equal to kernel 6's and its A and M to kernel 1's."""
     g65 = small[0]
     wt_cpu = kernels.build_words_t(g65.words.cpu(), g65.p)
     g65.with_dual_layout()
@@ -423,7 +478,7 @@ def phase_kernel_t(small, g, gen):
         s.with_dual_layout()
         worst = max(worst, check_cases("kernel-t", kernels.xt_dots_words_t,
                                        decode.xt_dots_words_t, s.words_t, s,
-                                       gen, exact=True))
+                                       gen))
         s.words_t = None
 
     sync()
@@ -439,27 +494,19 @@ def phase_kernel_t(small, g, gen):
         a = kernels.xt_dots_words_t(g.words_t, rhs, **kw)[0]
         k6 = kernels.xt_dots_T(g.words_t, rhs)[:g.p]
         equal6 = same(a, k6)
-        del k6
-        line = f"[kernel-t] {g.n} x {g.p} m={m}: A equal to kernel 6 {equal6}"
-        if m != 8:
-            e = rel_err(a, kernels.xt_dots_words(g.words, rhs, **kw)[0])
-            line += f"; vs kernel 1 rel err {e:.3g}"
-            if not e < TOL:
-                raise AssertionError(f"kernels 2 and 1 disagree: {e}")
-        print(line, flush=True)
+        del a, k6
+        print(f"[kernel-t] {g.n} x {g.p} m={m}: A equal to kernel 6 {equal6}",
+              flush=True)
         if not equal6:
             raise AssertionError(f"kernel 2's A differs from kernel 6, m={m}")
+        check_layouts("kernel-t", g, m, gen)
+    bound_of = int8_bound_of(g, missing=False)
     times = time_widths(
         "kernel-t", kernels.xt_dots_words_t, decode.xt_dots_words_t,
-        g.words_t, g, gen, exact=True,
-        bound_of=lambda m: score_bound(g, m, "int8", score_planes(False)))
-    out = dict(**errors(worst, times), ms=times[100][0],
-               plain_ms=times[100][1], m=100)
-    for m in (1, 8):
-        out.update({f"ms_m{m}": times[m][0], f"plain_ms_m{m}": times[m][1],
-                    f"bound_ms_m{m}": score_bound(
-                        g, m, "int8", score_planes(False))["bound_ms"]})
-    return out
+        g.words_t, g, gen, bound_of=bound_of)
+    return dict(**errors(worst, times), ms=times[100][0],
+                plain_ms=times[100][1], m=100,
+                **width_stats(times, (1, 8), bound_of))
 
 
 def bound(device, nbytes, ops, kind):
@@ -650,14 +697,14 @@ def phase_fit(g, causal, y, card):
               f"{warm.max():.4f} s, each the same result; launches "
               f"{launches[mine]} ({mine}) per fit", flush=True)
     (sq, iq, lq, launches), (sd, idu, ld, _) = res["quad"], res["dual"]
-    # the dual layout's scores take R through 21-bit digits, the quad
-    # words' f32: a scaled change that sits at the tolerance may end one
-    # fit an iteration before the other (ROADMAP Queue 3); the support and
-    # logl must agree all the same
-    if sq != sd or abs(iq - idu) > 1 or not abs(lq - ld) <= 1e-5 * abs(lq):
-        raise AssertionError("quad and dual fits disagree")
-    print(f"[fit] quad and dual: same support, {iq} and {idu} iterations, "
-          f"logl {lq} vs {ld}", flush=True)
+    # kernels 1 and 2 compute one function bit for bit, so the two fits
+    # are one fit
+    if (sq, iq, lq) != (sd, idu, ld):
+        raise AssertionError(f"quad and dual fits differ: {iq} and {idu} "
+                             f"iterations, logl {lq} and {ld}, same support "
+                             f"{sq == sd}")
+    print(f"[fit] quad and dual: identical, support of {len(sq)}, {iq} "
+          f"iterations, logl {lq}", flush=True)
     return launches
 
 
@@ -678,53 +725,79 @@ def solver_states():
         univariate.run_iht = run_iht
 
 
-def run_cv(g, y):
-    """cv_iht on its default path: (mse, wall s, kernel-2 launches, the
-    final solver state)."""
-    kernels.LAUNCHES["xt_dots_words_t"] = 0
+def run_cv(x, y):
+    """cv_iht on its default path: (mse, wall s, the launches of every
+    kernel, counted from 0, the final solver state)."""
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
     with solver_states() as states:
         t0 = time.perf_counter()
-        mse = cv_iht(y, g, path=CV_PATH, q=CV_Q, verbose=False,
+        mse = cv_iht(y, x, path=CV_PATH, q=CV_Q, verbose=False,
                      max_iter=CV_MAX_ITER, rng=np.random.default_rng(SEED))
         wall = time.perf_counter() - t0
-    return mse, wall, kernels.LAUNCHES["xt_dots_words_t"], states[-1]
+    return mse, wall, dict(kernels.LAUNCHES), states[-1]
 
 
-def phase_cv(name, g, y, card, warm):
-    """cv_iht at the full width, cold then ``warm`` warm runs on the same
-    folds; returns kernel 2's launches in the last run."""
+def phase_cv(name, x, y, card, warm, kernel="xt_dots_words_t"):
+    """cv_iht at the full width on ``x`` (genotypes or an operator), cold
+    then ``warm`` warm runs on the same folds, every score pass through
+    ``kernel`` (kernel 2, or kernel 1 for the quad words) and none through
+    the other; returns its launches in the last run and the mse."""
+    other = ({"xt_dots_words", "xt_dots_words_t"} - {kernel}).pop()
+    k = "kernel-2" if kernel == "xt_dots_words_t" else "kernel-1"
+    missing = (x.geno if isinstance(x, PackedOp) else x).has_missing
     out = []
     torch.cuda.reset_peak_memory_stats()
     for run in range(1 + warm):
-        mse, wall, launches, st = run_cv(g, y)
+        mse, wall, counts, st = run_cv(x, y)
+        launches = counts[kernel]
         iters, iteration = st.iters.cpu().numpy(), st.iteration
         del st                  # its (B, p) arrays would raise the next peak
         done = int((iters < CV_MAX_ITER).sum())
         best = CV_PATH[int(np.argmin(mse))]
         out.append((mse, wall))
         if (not np.all(np.isfinite(mse)) or done != len(iters)
-                or launches < iteration + 1 or not 8 <= best <= 14):
+                or launches < iteration + 1 or counts[other] != 0
+                or not 8 <= best <= 14):
             raise AssertionError(f"{name} failed its checks: best k {best}, "
                                  f"{done}/{len(iters)} converged, "
-                                 f"{launches} launches")
+                                 f"{launches} {k} launches, "
+                                 f"{counts[other]} of {other}")
         if run and not np.array_equal(mse, out[0][0]):
             raise AssertionError(f"{name}: a warm run differs from the cold")
         if run == 0:
-            print(f"[{name}] cold cv_iht {N} x {P} missing={g.has_missing} "
+            print(f"[{name}] cold cv_iht {N} x {P} missing={missing} "
                   f"path 1:{CV_PATH[-1]} q={CV_Q}: {wall:.4f} s on {card}; "
                   f"{done}/{len(iters)} tasks converged, the last at "
                   f"iteration {iters.max()} ({iteration} iterations "
-                  f"run); kernel-2 launches {launches}; best k {best}",
+                  f"run); {k} launches {launches}; best k {best}",
                   flush=True)
             mse_s = np.array2string(mse, precision=6, max_line_width=400)
             print(f"[{name}] mse {mse_s}", flush=True)
     walls = np.array([w for _, w in out[1:]])
     print(f"[{name}] {warm} warm cvs: median {np.median(walls):.4f} s, range "
           f"{walls.min():.4f}-{walls.max():.4f} s, the same mse as the cold "
-          f"run; kernel-2 launches {launches} per cv", flush=True)
+          f"run; {k} launches {launches} per cv", flush=True)
     peak = torch.cuda.max_memory_allocated()
     print(f"[{name}] peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)", flush=True)
+    return launches, out[0][0]
+
+
+def phase_cv_quad(g, y, card, dual_mse):
+    """The cv of phase cv through the quad words (kernel 1), as every cv
+    past the dual-layout budget runs: mse equal to the dual cv's bit for
+    bit, best k 10; returns kernel 1's launches in the last run."""
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    launches, mse = phase_cv("cv-quad", quad, y, card, CVQ_WARM,
+                             kernel="xt_dots_words")
+    best = CV_PATH[int(np.argmin(mse))]
+    equal = np.array_equal(mse, dual_mse)
+    print(f"[cv-quad] mse equal to the dual cv's bit for bit {equal}; best k "
+          f"{best}", flush=True)
+    if not equal or best != 10 or launches < 2:
+        raise AssertionError(f"the quad-word cv differs: equal {equal}, best "
+                             f"k {best}, {launches} kernel-1 launches")
     return launches
 
 
@@ -975,7 +1048,7 @@ def phase_kprobe(g, card, gen):
                              f"{launches}")
     failed = {(m, v): t for m, vs in res["variants"].items()
               for v, t in vs.items() if isinstance(t, str)}
-    if failed or not res["i8_rounds_rel_err"] < TOL:
+    if failed or res["i8_rounds_rel_err"] != 0.0:
         raise AssertionError(f"the probe failed: {failed}, kernel 7 vs "
                              f"kernel 1 {res['i8_rounds_rel_err']}")
     top = rounds[PROBE_WIDTHS[-1]]
@@ -989,18 +1062,72 @@ def phase_kprobe(g, card, gen):
 
 
 def phase_missing(g, y, card, gen):
-    """Kernel 2 with its missing plane at the cv width, then the cv, on
-    10k x 1M genotypes with missing calls."""
+    """Kernels 2 and 1 with their missing plane at the cv width, each bit
+    for bit against plain and equal to each other, then the cv, on 10k x 1M
+    genotypes with missing calls; returns each kernel's (ms, plain ms, rel
+    err, abs err, bound ms) at m = 100."""
     g.with_dual_layout()
-    times = time_widths(
-        "cv-miss", kernels.xt_dots_words_t, decode.xt_dots_words_t,
-        g.words_t, g, gen, widths=(100,), exact=True,
-        bound_of=lambda m: score_bound(g, m, "int8", score_planes(True)))
+    bound_of = int8_bound_of(g, missing=True)
+    out = {}
+    for name, kern, plain, arr in (
+            ("xt_dots_words_t", kernels.xt_dots_words_t,
+             decode.xt_dots_words_t, g.words_t),
+            ("xt_dots_words", kernels.xt_dots_words, decode.xt_dots_words,
+             g.words)):
+        times = time_widths(f"cv-miss {name}", kern, plain, arr, g, gen,
+                            widths=(100,), bound_of=bound_of)
+        out[name] = (*times[100], bound_of(100)["bound_ms"])
+    check_layouts("cv-miss", g, 100, gen)
     phase_cv("cv-miss", g, y, card, warm=1)
     phase_profile(g, y, card,
                   calls=(("cv-miss", "xt_dots_t", lambda: run_cv(g, y)),))
-    return (*times[100],
-            score_bound(g, 100, "int8", score_planes(True))["bound_ms"])
+    return out
+
+
+def phase_budget(dev, card):
+    """Past the dual-layout budget: 51,200 x 1,000,000 random quad words
+    made on the card (12.8 GB; every byte value, so every crumb code),
+    their transposed words, and kernels 1 and 2 at m = 1 and 100 with the
+    missing plane, equal bit for bit, timed in turns (kernel 2, kernel 1,
+    kernel 1, kernel 2) beside their bound; returns per-kernel fields for
+    the kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p4, n4 = P // 4, N_BIG // 4
+    words = torch.randint(0, 256, (p4, 4 * n4), dtype=torch.uint8,
+                          device=dev, generator=gen).view(torch.int32)
+    sync()
+    t0 = time.perf_counter()
+    words_t = kernels.build_words_t(words, P)
+    sync()
+    relayout = time.perf_counter() - t0
+    # the fields of genotypes that the checks and bounds read
+    g = types.SimpleNamespace(words=words, words_t=words_t, n=N_BIG,
+                              n_pad=N_BIG, p=P, device=dev, has_missing=True)
+    print(f"[budget] {N_BIG} x {P}: {words.numel() * 4 / 1e9:.1f} GB of quad "
+          f"words made on the card; build_words_t {relayout * 1e3:.1f} ms on "
+          f"{card}", flush=True)
+    out = {"xt_dots_words": {}, "xt_dots_words_t": {}}
+    for m in (1, 100):
+        check_layouts("budget", g, m, gen)
+        rhs = rhs_on(g, m, gen)
+        kw = dict(want_missing=True, p=P)
+        reps = 10 if m == 1 else 3
+        k1 = lambda: kernels.xt_dots_words(words, rhs, **kw)      # noqa: E731
+        k2 = lambda: kernels.xt_dots_words_t(words_t, rhs, **kw)  # noqa: E731
+        runs2 = [cuda_ms(k2, reps)]
+        runs1 = [cuda_ms(k1, reps), cuda_ms(k1, reps)]
+        runs2.append(cuda_ms(k2, reps))
+        b = int8_bound_of(g, missing=True)(m)
+        key = f"n{N_BIG}_m{m}_missing"
+        for name, runs in (("xt_dots_words", runs1),
+                           ("xt_dots_words_t", runs2)):
+            ms = sum(runs) / 2
+            out[name].update({f"ms_{key}": ms, f"bound_ms_{key}": b["bound_ms"]})
+            print(f"[budget] {name} {N_BIG} x {P} m={m} missing=True: "
+                  f"{ms:.3f} ms (runs {runs[0]:.3f}, {runs[1]:.3f}), bound "
+                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}), "
+                  f"{b['bound_ms'] / ms:.3f} of it", flush=True)
+    return out
 
 
 def main(dev=None):
@@ -1027,27 +1154,34 @@ def main(dev=None):
     del card_g, cpu_g
     y = phenotype(g, causal, beta, 7)
     k1["launches"] = phase_fit(g, causal, y, card)
-    k2["launches"] = phase_cv("cv", g, y, card, warm=CV_WARM)
+    k2["launches"], dual_mse = phase_cv("cv", g, y, card, warm=CV_WARM)
+    k1["cv_launches"] = phase_cv_quad(g, y, card, dual_mse)
     phase_profile(g, y, card)
     labs = phase_lab(g, card)
     kprobe, probe_launches = phase_kprobe(g, card, gen)
-    k1.update(score_bound(g, 1, "f32"), library_ms=None)
-    k2.update(score_bound(g, 100, "int8", score_planes(False)),
-              library_ms=None)
-    print(f"[kernel-t] m=100: kernel 2 {k2['ms']:.3f} ms, kernel 6 "
-          f"{k6['ms']:.3f} ms in this run", flush=True)
-    if not k2["ms"] <= k6["ms"]:
-        raise AssertionError("kernel 2 is slower than kernel 6 at m = 100")
+    k1.update(int8_bound_of(g, missing=False)(1), library_ms=None)
+    k2.update(int8_bound_of(g, missing=False)(100), library_ms=None)
+    print(f"[kernel-t] m=100: kernel 1 {k1['ms_m100']:.3f} ms, kernel 2 "
+          f"{k2['ms']:.3f} ms, kernel 6 {k6['ms']:.3f} ms in this run",
+          flush=True)
+    for name, ms in (("kernel 1", k1["ms_m100"]), ("kernel 2", k2["ms"])):
+        if not ms <= k6["ms"]:
+            raise AssertionError(f"{name} is slower than kernel 6 at m = 100")
     del g
     gm, causal_m, beta_m = genotypes(np.random.default_rng(SEED + 1), N, P,
                                      True, dev)
-    ms, plain_ms, err, abs_err, bound_ms = phase_missing(
-        gm, phenotype(gm, causal_m, beta_m, 8), card, gen)
+    miss = phase_missing(gm, phenotype(gm, causal_m, beta_m, 8), card, gen)
     wrapper_launches(gm, gen)
-    k2.update(ms_m100_missing=ms, plain_ms_m100_missing=plain_ms,
-              bound_ms_m100_missing=bound_ms,
-              max_rel_err=max(k2["max_rel_err"], err),
-              max_abs_err=max(k2["max_abs_err"], abs_err))
+    for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
+        ms, plain_ms, err, abs_err, bound_ms = miss[name]
+        st.update(ms_m100_missing=ms, plain_ms_m100_missing=plain_ms,
+                  bound_ms_m100_missing=bound_ms,
+                  max_rel_err=max(st["max_rel_err"], err),
+                  max_abs_err=max(st["max_abs_err"], abs_err))
+    del gm
+    torch.cuda.empty_cache()
+    for name, fields in phase_budget(dev, card).items():
+        (k1 if name == "xt_dots_words" else k2).update(fields)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     k4 = dict(labs["unpack"], launches=labs["launches"]["unpack_words"])

@@ -13,9 +13,11 @@ cross-validation
   - ``iht_run_many_models(y, x, z, path=...)``   (:232)
 
 whose full-width score X'R runs through hand-written CUDA kernels when the
-genotypes live on a CUDA device (``csrc/xt_dots.cu`` over the quad words,
-``csrc/xt_dots_t.cu`` over the transposed dual layout), and through their
-plain PyTorch versions (``ops/decode.py``) on the CPU.  ``utils/profiling``
+genotypes live on a CUDA device (``csrc/xt_dots_t.cu``, one kernel body
+over the quad words or the transposed dual layout, the JAX kernels'
+digit-plane function), and on the CPU through the f32 function
+``ops/decode.py::xt_dots``, as the JAX package's operator runs off the
+TPU; the kernels' plain versions are in ``ops/decode.py``.  ``utils/profiling``
 measures the card's read ceiling through a third kernel
 (``csrc/read_probe.cu``) and the score kernels' share of it.  The kernel
 lab ``tools/kernel_lab5.py`` sweeps the score kernels across RHS widths

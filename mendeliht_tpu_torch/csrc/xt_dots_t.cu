@@ -1,15 +1,25 @@
-// Fused 2-bit genotype decode + multi-RHS score X'R over the transposed
-// per-SNP words, through int8 digit planes of R on the tensor cores of
-// Hopper (sm_90a): warpgroup MMAs (wgmma) with the decoded words as the
-// register operand and the digit planes in shared memory.
+// Fused 2-bit genotype decode + multi-RHS score X'R, through int8 digit
+// planes of R on the tensor cores of Hopper (sm_90a): warpgroup MMAs (wgmma)
+// with the decoded words as the register operand and the digit planes in
+// shared memory.  One kernel body, two word layouts (template QUAD):
 //
-// Replaces mendeliht_tpu/ops/pallas_kernels.py::_kernel_t (driven there by
-// _xt_dots_chunk_t / xt_dots_words_t; layout from build_words_t) and
-// computes its function exactly:
+//   kernel 2 (QUAD false, entry xt_dots_words_t): the transposed per-SNP
+//     words; replaces mendeliht_tpu/ops/pallas_kernels.py::_kernel_t
+//     (driven there by _xt_dots_chunk_t / xt_dots_words_t; layout from
+//     build_words_t)
+//   kernel 1 (QUAD true, entry xt_dots_words): the quad words; replaces
+//     pallas_kernels.py::_kernel (driven by _xt_dots_chunk / xt_dots_words)
+//
+// Each computes its Pallas kernel's function exactly, and the two equal
+// each other bit for bit on the same genotypes:
 //
 //   words_t (nw, p_all) words, read as uint32: word (w, j) holds bytes
 //           4w..4w+3 of SNP j's crumb-transposed row, so crumb q of its byte
 //           b is sample q*n4 + 4w + b (n4 = 4*nw)
+//   words   (p_all/4, n4) quad words (kernel 1), read as uint32: byte k of
+//           word (i, c) is byte c of SNP 4i+k, so crumb q of it is sample
+//           q*n4 + c.  The four quad words (i, 4w..4w+3) hold, byte k of
+//           each in turn, exactly words_t (w, 4i+k): a 4x4 byte transpose
 //   digits  (passes, ksteps, 4, 2, rows/8, 8, 16) int8, ksteps = nw
 //           rounded up to 32, over 8: the digit planes of R (ops/decode.py::
 //           quantize_rhs_planes, |digit| <= 64) as laid out by the wrapper
@@ -33,7 +43,14 @@
 // and with lo = t & 0x55555555, lo - (lo & h) its missing indicator.  Crumb
 // plane q of each, (x >> 2q) & 0x03030303 (or 0x01010101), is four int8
 // values: samples q*n4 + 4w .. 4w+3 of one SNP, four consecutive K values of
-// one row of the MMA's A operand.
+// one row of the MMA's A operand.  Kernel 1 first forms these transposed
+// words from the quad words: its MMA rows are permuted so that a thread's
+// rows g and g+8 are SNPs 2g and 2g+1 of its warp's 16, two bytes of one
+// quad row.  The thread reads two 16-byte runs of that row (K 4t.. and
+// 16+4t.. of the K step) and gathers its four transposed words with 8 byte
+// permutes (prmt) a K step, about 2 integer operations a word beside the
+// decode's 11; the rest of the kernel is kernel 2's, and the store writes
+// each accumulator row to its SNP through the same permutation.
 //
 // What bounds it on an H100 at 10k x 1M (nw = 640):
 //   m = 1:   the 2.56 GB of words, 0.76 ms at 3.35 TB/s; the digit MMAs are
@@ -67,7 +84,9 @@
 //   - Asynchronous copies in a ring of 3..8 stages (as many as fit), each
 //     of 1, 2 or 4 K steps: the digits by one bulk copy (cp.async.bulk, the
 //     async proxy that wgmma reads by, completing on an mbarrier), the
-//     words tile (8 sample words x the tile's SNPs a K step) by cp.async.
+//     words tile by cp.async: 8 sample words x the tile's SNPs a K step
+//     (kernel 2), or the tile's quad rows x 32 words a K step (kernel 1),
+//     the same bytes.
 //     The copies run stages - 2 ahead, so the last MMAs of a stage may still
 //     read it while the next runs, and the ring runs on across the block's
 //     work items.
@@ -218,18 +237,40 @@ __host__ __device__ constexpr int stage_steps() {
   return NG == 0 ? 4 : NG <= 2 ? 2 : 1;
 }
 
+// bytes of a stage's words tile of `snps` SNPs and ks K steps: 8*ks
+// transposed-word rows of snps + 8 words (padded: a warp's reads of one
+// fragment register span 4 rows), or snps/4 quad rows of 32*ks words (not
+// padded: a quarter-warp's 16-byte reads all fall in one row)
+template <bool QUAD>
+__host__ __device__ constexpr int words_bytes(int snps, int ks) {
+  return QUAD ? 32 * ks * snps : 32 * ks * (snps + 8);
+}
+
+// the four transposed words of SNPs 4i+k and 4i+k+1 (k = 0 or 2, `sel`
+// 0x5140 or 0x7362) in four consecutive quad words u of quad row i: byte j
+// of each is byte k (k+1) of u[j]
+__device__ __forceinline__ void gather(const uint4& u, uint32_t sel,
+                                       uint32_t& even, uint32_t& odd) {
+  const uint32_t a = __byte_perm(u.x, u.y, sel);   // x_k y_k x_k+1 y_k+1
+  const uint32_t b = __byte_perm(u.z, u.w, sel);   // z_k w_k z_k+1 w_k+1
+  even = __byte_perm(a, b, 0x5410);
+  odd = __byte_perm(a, b, 0x7632);
+}
+
 // One block: two warpgroups, a ring of `stages` stages in dynamic shared
 // memory, each [digits: KS K steps x 4 planes x 2 K halves x rows/8 core
-// matrices of 128 bytes, one bulk copy][words: 8*KS x (snps + 8) uint32,
-// the row padded against bank conflicts].  NG column groups of 8 a
-// warpgroup (NG = 0: m <= 2, one 8-row group); planes A, M (MISS), H (SQ).
-template <int NG, bool MISS, bool SQ>
+// matrices of 128 bytes, one bulk copy][words: words_bytes<QUAD>].  NG
+// column groups of 8 a warpgroup (NG = 0: m <= 2, one 8-row group); planes
+// A, M (MISS), H (SQ); QUAD: the quad words (kernel 1), else the transposed
+// words (kernel 2).
+template <int NG, bool MISS, bool SQ, bool QUAD>
 __global__ void __launch_bounds__(kThreads, 1)
 xt_dots_t_kernel(const Args args) {
   constexpr int kP = 1 + MISS + SQ;
   constexpr int kBlk = NG == 0 ? 1 : 3 * NG;   // n8 blocks a plane
   constexpr int kAcc = 4 * kBlk;               // registers a plane
   constexpr int kS = stage_steps<NG>();
+  constexpr int kQRow = 32 * kS;               // a quad row's words a stage
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];  // digits landed
 
@@ -239,10 +280,11 @@ xt_dots_t_kernel(const Args args) {
   const int g = (tid % 32) / 4;
   const int t = tid % 4;
   const int snps = args.split ? 64 : 128;      // SNPs of a tile
-  const int wstride = snps + 8;                // words row stride (uint32)
+  const int wstride = snps + 8;                // words_t row stride (uint32)
+  const int n4 = 4 * args.nw;                  // quad words a row
   const int step_bytes = args.rows * 128;      // digits of one K step
   const int dig_bytes = kS * step_bytes;
-  const int stage_bytes = dig_bytes + 8 * kS * wstride * 4;
+  const int stage_bytes = dig_bytes + words_bytes<QUAD>(snps, kS);
   const int rg = args.rows / 8;
   const int kstages = args.ksteps / kS;        // stages an item
   const uint32_t smem0 = smem_addr(smem);
@@ -274,7 +316,8 @@ xt_dots_t_kernel(const Args args) {
   const int qshift = args.split ? 4 : 5;       // log2 of snps / 4
   int li = 0, ls = 0, lslot = 0;
   const int8_t* lsrc = nullptr;                // digits of (li, 0)
-  const uint32_t* lwords = nullptr;            // words (0, snp0) of li
+  const uint32_t* lwords = nullptr;            // li's tile: words_t (0,
+                                               // snp0) or quad row snp0/4
   long long lsnps = 0;                         // SNPs of li's tile left
   auto load_next = [&]() {
     if (li < my_items) {
@@ -284,7 +327,7 @@ xt_dots_t_kernel(const Args args) {
         const long long snp0 = static_cast<long long>(tile) * snps;
         lsrc = args.digits +
                static_cast<size_t>(item / args.tiles) * args.ksteps * step_bytes;
-        lwords = args.words + snp0;
+        lwords = args.words + (QUAD ? snp0 / 4 * n4 : snp0);
         lsnps = args.p_all - snp0;
       }
       const uint32_t st = smem0 + lslot * stage_bytes;
@@ -299,14 +342,29 @@ xt_dots_t_kernel(const Args args) {
             : "memory");
       }
       const uint32_t wst = st + dig_bytes;
-      const int w0 = ls * kS * 8;
-      for (int i = tid; i < (8 * kS) << qshift; i += kThreads) {
-        const int r = i >> qshift, c = i & ((1 << qshift) - 1);
-        const bool ok = w0 + r < args.nw && 4 * c < lsnps;
-        cp_async16(wst + (r * wstride + 4 * c) * 4,
-                   ok ? lwords + static_cast<size_t>(w0 + r) * args.p_all + 4 * c
-                      : args.words,
-                   ok);
+      if constexpr (QUAD) {
+        // quad row r, 16-byte chunk c (words c0 + 4c ..) of the stage
+        const int c0 = ls * kQRow;
+        constexpr int kC = kQRow / 4;          // chunks a row: 8, 16 or 32
+        for (int i = tid; i < kC << qshift; i += kThreads) {
+          const int r = i / kC, c = i % kC;
+          const bool ok = 4 * r < lsnps && c0 + 4 * c < n4;
+          cp_async16(wst + (r * kQRow + 4 * c) * 4,
+                     ok ? lwords + static_cast<size_t>(r) * n4 + c0 + 4 * c
+                        : args.words,
+                     ok);
+        }
+      } else {
+        const int w0 = ls * kS * 8;
+        for (int i = tid; i < (8 * kS) << qshift; i += kThreads) {
+          const int r = i >> qshift, c = i & ((1 << qshift) - 1);
+          const bool ok = w0 + r < args.nw && 4 * c < lsnps;
+          cp_async16(wst + (r * wstride + 4 * c) * 4,
+                     ok ? lwords + static_cast<size_t>(w0 + r) * args.p_all +
+                              4 * c
+                        : args.words,
+                     ok);
+        }
       }
       if (++ls == kstages) {
         ls = 0;
@@ -331,17 +389,27 @@ xt_dots_t_kernel(const Args args) {
   constexpr int kBuf = kP * kAcc + 32 * kP <= 200 ? 2 : 1;
   uint32_t fv[kBuf][4][4], fm[kBuf][4][4], fh[kBuf][4][4];
   const int sl = snp_off + 16 * warp + g;
+  // kernel 1: the thread's quad row in the tile and the byte pair it takes
+  const int qrow = snp_off / 4 + 4 * warp + g / 2;
+  const uint32_t sel = g & 1 ? 0x7362u : 0x5140u;
 
   // K step s of the words at ws into A buffer bs: rows g, g+8 of the
-  // warp's 16 SNPs; K 4t..4t+3 (word t of the K step) and 16+4t.. (word
-  // 4+t)
+  // warp's 16 SNPs (kernel 2: SNPs g, g+8; kernel 1: SNPs 2g, 2g+1); K
+  // 4t..4t+3 (word t of the K step) and 16+4t.. (word 4+t)
   auto decode = [&](const uint32_t* ws, int s, int bs) {
-    const uint32_t* wk = ws + 8 * s * wstride;
     uint32_t x[4];
-    x[0] = wk[t * wstride + sl];
-    x[1] = wk[t * wstride + sl + 8];
-    x[2] = wk[(4 + t) * wstride + sl];
-    x[3] = wk[(4 + t) * wstride + sl + 8];
+    if constexpr (QUAD) {
+      const uint4* wk =
+          reinterpret_cast<const uint4*>(ws + qrow * kQRow + 32 * s + 4 * t);
+      gather(wk[0], sel, x[0], x[1]);
+      gather(wk[4], sel, x[2], x[3]);
+    } else {
+      const uint32_t* wk = ws + 8 * s * wstride;
+      x[0] = wk[t * wstride + sl];
+      x[1] = wk[t * wstride + sl + 8];
+      x[2] = wk[(4 + t) * wstride + sl];
+      x[3] = wk[(4 + t) * wstride + sl + 8];
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const uint32_t h = (x[r] >> 1) & 0x55555555u;
@@ -456,8 +524,10 @@ xt_dots_t_kernel(const Args args) {
     const int item = blockIdx.x + it * gridDim.x;
     const int tile = item % args.tiles;
     const int col0 = (item / args.tiles) * args.cols;   // the pass's first
-    const long long snp_a =
-        static_cast<long long>(tile) * snps + snp_off + 16 * warp + g;
+    // the SNPs of accumulator rows g and g+8: snp_a and snp_a + rstep
+    constexpr int rstep = QUAD ? 1 : 8;
+    const long long snp_a = static_cast<long long>(tile) * snps + snp_off +
+                            16 * warp + (QUAD ? 2 * g : g);
     const size_t ld = args.p_all;
     if constexpr (NG == 0) {
       // rows 2t, 2t+1 of the group hold digit t of columns 0, 1: lane t = 0
@@ -472,7 +542,7 @@ xt_dots_t_kernel(const Args args) {
           lv[p] = __shfl_down_sync(0xffffffffu, acc[p][e], 2);
         }
         const int c = col0 + (e & 1);                 // col0 = 0: one pass
-        const long long snp = snp_a + 8 * (e >> 1);
+        const long long snp = snp_a + rstep * (e >> 1);
         if (t != 0 || c >= args.m || snp >= args.p_all) continue;
         const float sc = args.scale[c], gd = args.guard[c];
         const float a = comb(hv[0], mv[0], lv[0], sc);
@@ -487,13 +557,13 @@ xt_dots_t_kernel(const Args args) {
     } else {
       // n8 blocks 3b, 3b+1, 3b+2 hold the hi, mid, lo digits of columns
       // 8b .. 8b+7 of the warpgroup's groups: entry e of a block is SNP
-      // g + 8*(e >> 1), column 2t + (e & 1)
+      // snp_a + rstep*(e >> 1), column 2t + (e & 1)
 #pragma unroll
       for (int b = 0; b < NG; ++b)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = col0 + (grp0 + b) * 8 + 2 * t + (e & 1);
-          const long long snp = snp_a + 8 * (e >> 1);
+          const long long snp = snp_a + rstep * (e >> 1);
           if (c >= args.m || snp >= args.p_all) continue;
           const float sc = args.scale[c], gd = args.guard[c];
           const int i0 = 12 * b + e;
@@ -514,15 +584,15 @@ xt_dots_t_kernel(const Args args) {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int NG, bool MISS, bool SQ>
+template <int NG, bool MISS, bool SQ, bool QUAD>
 int launch(Args a, cudaStream_t stream) {
-  auto kern = xt_dots_t_kernel<NG, MISS, SQ>;
+  auto kern = xt_dots_t_kernel<NG, MISS, SQ, QUAD>;
   constexpr int kS = stage_steps<NG>();
   // shared memory a block: the narrow widths leave room for three blocks
   // an SM
   constexpr int kBudget = (NG <= 2 ? 72 : 220) * 1024;
   const int stage_bytes =
-      kS * (a.rows * 128 + 8 * ((a.split ? 64 : 128) + 8) * 4);
+      kS * a.rows * 128 + words_bytes<QUAD>(a.split ? 64 : 128, kS);
   a.stages = kBudget / stage_bytes;
   a.stages = a.stages < 3 ? 3 : a.stages > kMaxStages ? kMaxStages : a.stages;
   const int smem = a.stages * stage_bytes;
@@ -543,39 +613,31 @@ int launch(Args a, cudaStream_t stream) {
   return 0;
 }
 
-template <int NG>
+template <int NG, bool QUAD>
 int launch_planes(const Args& a, bool miss, bool sq, cudaStream_t st) {
   constexpr int kP2 = 2 * NG <= kMaxGroups;      // every NG takes one plane
   constexpr int kP3 = 3 * NG <= kMaxGroups;
   const int planes = 1 + miss + sq;
-  if (planes == 1) return launch<NG, false, false>(a, st);
+  if (planes == 1) return launch<NG, false, false, QUAD>(a, st);
   if constexpr (kP2) {
-    if (planes == 2 && miss) return launch<NG, true, false>(a, st);
-    if (planes == 2) return launch<NG, false, true>(a, st);
+    if (planes == 2 && miss) return launch<NG, true, false, QUAD>(a, st);
+    if (planes == 2) return launch<NG, false, true, QUAD>(a, st);
   }
   if constexpr (kP3) {
-    if (planes == 3) return launch<NG, true, true>(a, st);
+    if (planes == 3) return launch<NG, true, true, QUAD>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes).  ng (column groups of 8 a
-// warpgroup and pass: 0 for m <= 2, else 1, 2, 4, 7 or 13, with ng times
-// the planes at most 14), split and passes as the wrapper laid out
-// `digits` (kernels._digit_rows_t); every pointer 16-byte aligned and
-// p_all a multiple of 4 (the wrapper checks).  M / S may be null when not
-// wanted.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() so a refused launch is seen by the caller.
-extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
-                               const void* scale, const void* guard, void* A,
-                               void* M, void* S, int nw, int p_all, int m,
-                               int want_missing, int want_sq, int ng,
-                               int split, int passes, void* stream) {
+// the two entry points' shared body: QUAD as in xt_dots_t_kernel
+template <bool QUAD>
+int run(const void* words, const void* digits, const void* scale,
+        const void* guard, void* A, void* M, void* S, int nw, int p_all,
+        int m, int want_missing, int want_sq, int ng, int split, int passes,
+        void* stream) {
   if (p_all > 0 && m > 0 && nw > 0) {
     Args a{};
-    a.words = static_cast<const uint32_t*>(words_t);
+    a.words = static_cast<const uint32_t*>(words);
     a.digits = static_cast<const int8_t*>(digits);
     a.scale = static_cast<const float*>(scale);
     a.guard = static_cast<const float*>(guard);
@@ -590,7 +652,8 @@ extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
     const int snps = split ? 64 : 128;
     a.tiles = (p_all + snps - 1) / snps;
     const long long items = static_cast<long long>(a.tiles) * passes;
-    if (items > 0x7fffffffLL || (ng == 0 && split))
+    if (items > 0x7fffffffLL || (ng == 0 && split) || p_all % 4 ||
+        (QUAD && 4LL * nw >= 0x80000000LL))
       return static_cast<int>(cudaErrorInvalidValue);
     a.items = static_cast<int>(items);
     a.rows = ng == 0 ? 8 : 24 * ng * (split ? 2 : 1);
@@ -599,15 +662,44 @@ extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
     const bool miss = want_missing != 0, sq = want_sq != 0;
     int err;
     switch (ng) {
-      case 0: err = launch_planes<0>(a, miss, sq, st); break;
-      case 1: err = launch_planes<1>(a, miss, sq, st); break;
-      case 2: err = launch_planes<2>(a, miss, sq, st); break;
-      case 4: err = launch_planes<4>(a, miss, sq, st); break;
-      case 7: err = launch_planes<7>(a, miss, sq, st); break;
-      case 13: err = launch_planes<13>(a, miss, sq, st); break;
+      case 0: err = launch_planes<0, QUAD>(a, miss, sq, st); break;
+      case 1: err = launch_planes<1, QUAD>(a, miss, sq, st); break;
+      case 2: err = launch_planes<2, QUAD>(a, miss, sq, st); break;
+      case 4: err = launch_planes<4, QUAD>(a, miss, sq, st); break;
+      case 7: err = launch_planes<7, QUAD>(a, miss, sq, st); break;
+      case 13: err = launch_planes<13, QUAD>(a, miss, sq, st); break;
       default: err = static_cast<int>(cudaErrorInvalidValue);
     }
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes), one a layout: kernel 2 over
+// words_t (nw, p_all), kernel 1 over the quad words (p_all/4, 4*nw).  ng
+// (column groups of 8 a warpgroup and pass: 0 for m <= 2, else 1, 2, 4, 7
+// or 13, with ng times the planes at most 14), split and passes as the
+// wrapper laid out `digits` (kernels._digit_rows_t, the same for both
+// layouts); every pointer 16-byte aligned and p_all a multiple of 4 (the
+// wrapper checks).  M / S may be null when not wanted.  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() so a
+// refused launch is seen by the caller.
+extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
+                               const void* scale, const void* guard, void* A,
+                               void* M, void* S, int nw, int p_all, int m,
+                               int want_missing, int want_sq, int ng,
+                               int split, int passes, void* stream) {
+  return run<false>(words_t, digits, scale, guard, A, M, S, nw, p_all, m,
+                    want_missing, want_sq, ng, split, passes, stream);
+}
+
+extern "C" int xt_dots_words(const void* words, const void* digits,
+                             const void* scale, const void* guard, void* A,
+                             void* M, void* S, int nw, int p_all, int m,
+                             int want_missing, int want_sq, int ng, int split,
+                             int passes, void* stream) {
+  return run<true>(words, digits, scale, guard, A, M, S, nw, p_all, m,
+                   want_missing, want_sq, ng, split, passes, stream);
 }

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import glm
-from .fit import _NOT_PORTED, build_fit, check_not_ported
+from .fit import _NOT_PORTED, build_fit, check_dtype, check_not_ported
 from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
 from .univariate import (cv_fused, finalize_iht, predict_deviance, run_iht,
@@ -27,9 +27,8 @@ from .univariate import (cv_fused, finalize_iht, predict_deviance, run_iht,
 
 _CV_NOT_PORTED = {
     **{name: _NOT_PORTED[name] for name in (
-        "est_r", "group", "weight", "zkeep", "debias", "init_beta",
-        "checkpoint_dir")},
-    "checkpoint_every": ((20,), "Queue 1 item 12 (checkpointing)"),
+        "est_r", "group", "weight", "zkeep", "debias", "init_beta")},
+    "checkpoint_dir": ((None,), "Queue 1 item 12 (checkpointing)"),
 }
 _PATH_NOT_PORTED = {name: _NOT_PORTED[name] for name in (
     "est_r", "group", "weight", "use_maf", "debias")}
@@ -55,7 +54,8 @@ def meanloss(fitloss, q, folds):
 
 
 def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, folds=None,
-           verbose=True, max_iter=100, min_iter=5, rng=None,
+           verbose=True, max_iter=100, min_iter=5, memory_efficient=True,
+           dtype=torch.float32, rng=None, checkpoint_every=20,
            show_progress=False, **not_ported):
     """q-fold cross validation over a path of sparsity levels; returns the
     vector of fold-size-weighted holdout deviances per k (reference
@@ -65,8 +65,11 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, folds=None,
     device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
     Generator).  Only the resident Normal/identity path is ported; the JAX
     package's other arguments raise NotImplementedError naming the ROADMAP
-    item that ports them."""
+    item that ports them.  As in the JAX package, ``memory_efficient`` is
+    accepted and ignored, and so is ``checkpoint_every`` without a
+    ``checkpoint_dir``; ``dtype`` must be float32."""
     check_not_ported("cv_iht", not_ported, _CV_NOT_PORTED)
+    check_dtype("cv_iht", dtype)
     y_arr = np.asarray(y)
     if y_arr.ndim == 2 and y_arr.shape[0] > 1 and y_arr.shape[1] > 1:
         raise NotImplementedError("multivariate cv_iht is not ported yet: "
@@ -144,11 +147,12 @@ def _cv_progress(op, data, cfg, ks, train, test, step=5):
 
 def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
                         verbose=True, parallel=True, max_iter=100,
-                        **not_ported):
+                        dtype=torch.float32, **not_ported):
     """Fit every k in ``path`` on the full data (no holdout) and return the
     loglikelihoods (reference src/cross_validation.jl:232-277).  All models
-    run as one batch of tasks."""
+    run as one batch of tasks; ``dtype`` must be float32."""
     check_not_ported("iht_run_many_models", not_ported, _PATH_NOT_PORTED)
+    check_dtype("iht_run_many_models", dtype)
     if not parallel:
         warnings.warn(
             "iht_run_many_models(parallel=False) is ignored: all path models "

@@ -30,8 +30,22 @@ _NOT_PORTED = {
     "debias": ((False,), "Queue 1 item 9 (debias)"),
     "init_beta": ((False,), "Queue 1 item 9 (init_beta)"),
     "io": ((None,), "Queue 1 item 9 (teed progress lines)"),
-    "checkpoint_dir": ((None,), "Queue 1 item 12 (checkpointing)"),
 }
+
+
+def check_dtype(fn: str, dtype):
+    """Accept the float32 ``dtype`` the JAX package defaults to (as
+    ``torch.float32``, ``np.float32``, ``jnp.float32`` or "float32"); any
+    other raises NotImplementedError, since float64 fits are not ported."""
+    if dtype is torch.float32:
+        return
+    try:
+        if np.dtype(dtype) == np.float32:
+            return
+    except TypeError:
+        pass
+    raise NotImplementedError(f"{fn}(dtype={dtype!r}) is not ported yet: "
+                              "ROADMAP Queue 1 item 2 (float64 fits)")
 
 
 def check_not_ported(fn: str, kwargs: dict, table: dict):
@@ -110,15 +124,23 @@ def build_fit(y, x, z=None, *, k=10, d=None, l=None, tol=1e-4, max_iter=200,
 
 
 def fit_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
-            max_iter=200, min_iter=5, max_step=3, **not_ported):
+            max_iter=200, min_iter=5, max_step=3, memory_efficient=True,
+            dtype=torch.float32, checkpoint_dir=None, checkpoint_every=20,
+            **not_ported):
     """Fit one IHT model at sparsity k (reference src/fit.jl:60-118).
 
     ``x`` is a PackedGenotypes (standardization and mean imputation applied
     on the fly); the fit runs on its device.  y (n,) and z (n, q) or None
     (intercept only) are host arrays.  Only the Normal family with the
     identity link is ported; the JAX package's other arguments raise
-    NotImplementedError naming the ROADMAP item that ports them."""
+    NotImplementedError naming the ROADMAP item that ports them.
+
+    As in the JAX package, ``memory_efficient`` is accepted and ignored,
+    and so are ``checkpoint_dir`` / ``checkpoint_every``, which only its
+    streamed fits use (every fit here is resident); ``dtype`` must be
+    float32 (:func:`check_dtype`)."""
     check_not_ported("fit_iht", not_ported, _NOT_PORTED)
+    check_dtype("fit_iht", dtype)
     d = d if d is not None else glm.Normal()
     op, data, cfg, k = build_fit(y, x, z, k=k, d=d, l=l, tol=tol,
                                  max_iter=max_iter, min_iter=min_iter,

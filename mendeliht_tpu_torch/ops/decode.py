@@ -20,10 +20,15 @@ Decode algebra per crumb code c (hi = c>>1, lo = c&1):
 Standardized products are assembled outside the heavy pass:
     X_std' R = inv_sd ∘ (A + mu ∘ M - mu · colsum(R)),   A = Vraw'R, M = Miss'R
 
-The transposed score ``xt_dots_words_t`` is the JAX package's digit-plane
-function: R split into three int8 digit planes, exact integer sums of the
-decoded value, missing and hi-bit planes against them, an f32 combine and a
-NaN guard.  The quad-word score ``xt_dots_words`` multiplies R unquantised.
+The two score kernels' plain versions, ``xt_dots_words`` over the quad
+words and ``xt_dots_words_t`` over the transposed words, are the JAX
+package's digit-plane function (``pallas_kernels.xt_dots_words`` and
+``.xt_dots_words_t``): R split into three int8 digit planes, exact integer
+sums of the decoded value, missing and hi-bit planes against them, an f32
+combine and a NaN guard.  On the same genotypes the two are equal bit for
+bit.  ``xt_dots`` is the f32 function with R unquantised, the counterpart
+of the JAX package's ``decode.xt_dots``, which its operator runs off the
+TPU; the port's operator runs it on the CPU.
 
 The kernel lab's versions (``tools/kernel_lab5.py``): ``xt_dots_T``, A
 through three int8 digit planes of R with exact integer sums, and the
@@ -40,8 +45,9 @@ from __future__ import annotations
 
 import torch
 
-# quad rows x n4 words decoded per chunk of the plain score: bounds the
-# decoded float temporaries to ~32 MB each whatever the matrix size
+# quad rows x n4 words decoded per chunk of the plain scores: bounds the
+# decoded float temporaries to ~32 MB (f32) or ~64 MB (float64) each
+# whatever the matrix size
 _CHUNK_WORDS = 1 << 21
 
 
@@ -71,49 +77,29 @@ def t_rows_bytes(words_t: torch.Tensor) -> torch.Tensor:
     return words_t.T.contiguous().view(torch.uint8).reshape(c, 4 * nw)
 
 
-def _xt_dots_rows(row_bytes, p4: int, rhs: torch.Tensor, want_missing: bool,
-                  want_sq: bool, p: int | None):
-    """Raw-plane dots of 4*p4 SNP byte rows against ``rhs`` (4*n4, m), chunk
-    by chunk: ``row_bytes(lo, hi)`` gives the (4*(hi-lo), n4) uint8 rows of
-    SNPs 4*lo..4*hi-1, so no (p, n_pad) float matrix is ever materialized."""
-    n4 = rhs.shape[0] // 4
-    m = rhs.shape[1]
-    p_out = 4 * p4 if p is None else p
-    planes = rhs.reshape(4, n4, m)
-    dtype = rhs.dtype
-    kw = dict(dtype=dtype, device=rhs.device)
-    A = torch.empty((4 * p4, m), **kw)
-    M = torch.empty((4 * p4, m), **kw) if want_missing else None
-    S = torch.empty((4 * p4, m), **kw) if want_sq else None
-    chunk = max(1, _CHUNK_WORDS // max(n4, 1))
-    for lo in range(0, p4, chunk):
-        hi = min(lo + chunk, p4)
-        by = row_bytes(lo, hi)                               # (4c, n4) u8
-        rows = slice(4 * lo, 4 * hi)
-        a = torch.zeros((4 * (hi - lo), m), **kw)
-        mm = torch.zeros_like(a) if want_missing else None
-        ss = torch.zeros_like(a) if want_sq else None
-        for s in range(4):
-            crumbs = (by >> (2 * s)) & 3
-            val, miss, hi_f, hl_f = _plane_val_miss(crumbs, dtype, want_missing)
-            a += val @ planes[s]
-            if want_missing:
-                mm += miss @ planes[s]
-            if want_sq:
-                ss += (hi_f + 3.0 * hl_f) @ planes[s]
-        A[rows] = a
-        if want_missing:
-            M[rows] = mm
-        if want_sq:
-            S[rows] = ss
-    return (A[:p_out], M[:p_out] if want_missing else None,
-            S[:p_out] if want_sq else None)
+def quad_rows(words: torch.Tensor):
+    """The ``row_bytes`` of the quad words (p4, n4): SNPs lo..hi-1, lo and
+    hi multiples of 4, as (hi - lo, n4) uint8 byte rows."""
+    return lambda lo, hi: quad_rows_bytes(words[lo // 4:hi // 4])
 
 
-def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
-                  want_missing: bool, want_sq: bool = False,
-                  p: int | None = None):
-    """Raw-plane dots of the whole packed matrix against ``rhs``.
+def t_rows(words_t: torch.Tensor):
+    """The ``row_bytes`` of the transposed words (nw, p_all): SNP columns
+    lo..hi-1 as (hi - lo, 4*nw) uint8 byte rows."""
+    return lambda lo, hi: t_rows_bytes(words_t[:, lo:hi])
+
+
+def _chunk_snps(n4: int) -> int:
+    """SNPs a chunk of the plain scores: the byte rows of ``_CHUNK_WORDS``
+    quad words, a multiple of 4."""
+    return 4 * max(1, _CHUNK_WORDS // max(n4, 1))
+
+
+def xt_dots(words: torch.Tensor, rhs: torch.Tensor, *, want_missing: bool,
+            want_sq: bool = False, p: int | None = None):
+    """Raw-plane dots of the whole packed matrix against ``rhs`` in f32,
+    R unquantised: the counterpart of the JAX package's ``decode.xt_dots``
+    (which takes the byte rows), run by the operator on the CPU.
 
     words (p4, n4) int32; rhs (n_pad = 4*n4, m) float.  Returns (A, M, S):
     value dot (p, m), missing dot (p, m) or None, squared-value dot (p, m)
@@ -121,8 +107,32 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
 
     Chunked over quad rows (like the JAX package's ``decode.xt_dots``) so
     that no (p, n_pad) float matrix is ever materialized."""
-    return _xt_dots_rows(lambda lo, hi: quad_rows_bytes(words[lo:hi]),
-                         words.shape[0], rhs, want_missing, want_sq, p)
+    row_bytes = quad_rows(words)
+    n4 = rhs.shape[0] // 4
+    m = rhs.shape[1]
+    p_all = 4 * words.shape[0]
+    p_out = p_all if p is None else p
+    planes = rhs.reshape(4, n4, m)
+    kw = dict(dtype=rhs.dtype, device=rhs.device)
+    wanted = (True, want_missing, want_sq)
+    outs = [torch.empty((p_all, m), **kw) if w else None for w in wanted]
+    chunk = _chunk_snps(n4)
+    for lo in range(0, p_all, chunk):
+        hi = min(lo + chunk, p_all)
+        by = row_bytes(lo, hi)                               # (c, n4) u8
+        acc = [torch.zeros((hi - lo, m), **kw) if w else None for w in wanted]
+        for s in range(4):
+            crumbs = (by >> (2 * s)) & 3
+            val, miss, hi_f, hl_f = _plane_val_miss(crumbs, rhs.dtype,
+                                                    want_missing)
+            sq = hi_f + 3.0 * hl_f if want_sq else None
+            for a, x in zip(acc, (val, miss, sq)):
+                if a is not None:
+                    a += x @ planes[s]
+        for o, a in zip(outs, acc):
+            if o is not None:
+                o[lo:hi] = a
+    return tuple(None if o is None else o[:p_out] for o in outs)
 
 
 def quantize_rhs_planes(rhs: torch.Tensor):
@@ -144,28 +154,29 @@ def quantize_rhs_planes(rhs: torch.Tensor):
     return torch.cat([rh, rm, rl], dim=0).to(torch.int8), scale
 
 
-def digit_sums_t(words_t: torch.Tensor, planes: torch.Tensor, *,
-                 want_missing: bool = False, want_sq: bool = False):
-    """Exact integer dots of the decoded transposed words against int8 digit
-    rows: words_t (nw, p_all) int32, planes (rows, 16*nw) int8 -> (V'D,
-    Miss'D or None, H'D or None), each (p_all, rows) float64 holding the
-    int32 sums exactly: V the crumb values (missing -> 0), Miss the missing
-    indicators, H the hi bits (``V^2 = 3V - 2H``).
+def digit_sums(row_bytes, p_all: int, planes: torch.Tensor, *,
+               want_missing: bool = False, want_sq: bool = False):
+    """Exact integer dots of decoded genotypes against int8 digit rows:
+    ``row_bytes(lo, hi)`` gives the (hi - lo, n4) uint8 byte rows of SNPs
+    lo..hi-1 (:func:`quad_rows`, :func:`t_rows`; lo and hi multiples of 4,
+    or hi = p_all), planes (rows, 4*n4) int8 -> (V'D, Miss'D or None, H'D
+    or None), each (p_all, rows) float64 holding the int32 sums exactly: V
+    the crumb values (missing -> 0), Miss the missing indicators, H the hi
+    bits (``V^2 = 3V - 2H``).
 
     Each product is at most 128 in magnitude, so every partial sum is an
-    integer below 2^53 and float64 keeps it exact; chunked over SNP columns
-    so no (p, n_pad) matrix is made."""
-    nw, p_all = words_t.shape
-    n4 = 4 * nw
-    rows = planes.shape[0]
+    integer below 2^53 and float64 keeps it exact; chunked over SNPs so no
+    (p, n_pad) matrix is made."""
+    rows, n_pad = planes.shape
+    n4 = n_pad // 4
     d = planes.to(torch.float64).reshape(rows, 4, n4)
-    kw = dict(dtype=torch.float64, device=words_t.device)
+    kw = dict(dtype=torch.float64, device=planes.device)
     wanted = (True, want_missing, want_sq)
     outs = [torch.empty((p_all, rows), **kw) if w else None for w in wanted]
-    chunk = max(1, 4 * _CHUNK_WORDS // max(n4, 1))
+    chunk = _chunk_snps(n4)
     for lo in range(0, p_all, chunk):
         hi = min(lo + chunk, p_all)
-        by = t_rows_bytes(words_t[:, lo:hi])                 # (c, n4) u8
+        by = row_bytes(lo, hi)                               # (c, n4) u8
         acc = [torch.zeros((hi - lo, rows), **kw) if w else None
                for w in wanted]
         for q in range(4):
@@ -180,6 +191,14 @@ def digit_sums_t(words_t: torch.Tensor, planes: torch.Tensor, *,
             if o is not None:
                 o[lo:hi] = a
     return tuple(outs)
+
+
+def digit_sums_t(words_t: torch.Tensor, planes: torch.Tensor, *,
+                 want_missing: bool = False, want_sq: bool = False):
+    """:func:`digit_sums` over the transposed words (nw, p_all): planes
+    (rows, 16*nw) -> each (p_all, rows) float64."""
+    return digit_sums(t_rows(words_t), words_t.shape[1], planes,
+                      want_missing=want_missing, want_sq=want_sq)
 
 
 def digit_dots_t(words_t: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
@@ -204,30 +223,51 @@ def nan_guard(rhs: torch.Tensor) -> torch.Tensor:
     return (rhs.sum(dim=0) * 0.0).to(torch.float32)
 
 
-def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
-                    want_missing: bool, want_sq: bool = False,
-                    p: int | None = None):
-    """Raw-plane dots over the transposed per-SNP words through int8 digit
-    planes of R: words_t (nw = n4/4, p_all) int32, rhs (16*nw, m) float.
-    Returns (A, M, S) like :func:`xt_dots_words`, f32: the function of
-    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t``.
+def _digit_score(row_bytes, p_all: int, rhs: torch.Tensor, *,
+                 want_missing: bool, want_sq: bool, p: int | None):
+    """The digit-plane score of both layouts: (A, M, S) f32 of the SNPs'
+    byte rows (``row_bytes``, :func:`digit_sums`) against ``rhs``.
 
     R is split into three int8 digit planes (:func:`quantize_rhs_planes`);
-    the value, missing and hi-bit sums against them are exact
-    (:func:`digit_sums_t`) and combined in f32 (:func:`combine_digits`);
-    ``S = 3A - 2H``; every output adds :func:`nan_guard`, so a NaN or Inf
-    in an rhs column is NaN in that output column and nowhere else.
-    ``p`` slices off the quad-padding SNP columns (default: keep them;
-    they are zero)."""
+    the value, missing and hi-bit sums against them are exact and combined
+    in f32 (:func:`combine_digits`); ``S = 3A - 2H``; every output adds
+    :func:`nan_guard`, so a NaN or Inf in an rhs column is NaN in that
+    output column and nowhere else.  ``p`` slices off the quad-padding SNPs
+    (default: keep them; they are zero)."""
     planes, scale = quantize_rhs_planes(rhs)
     guard = nan_guard(rhs)[None, :]
-    a, mm, h = digit_sums_t(words_t, planes, want_missing=want_missing,
-                            want_sq=want_sq)
+    a, mm, h = digit_sums(row_bytes, p_all, planes,
+                          want_missing=want_missing, want_sq=want_sq)
     A = combine_digits(a, scale)
     M = combine_digits(mm, scale) if want_missing else None
     S = 3.0 * A - 2.0 * combine_digits(h, scale) if want_sq else None
     p_out = A.shape[0] if p is None else p
     return tuple(None if o is None else (o + guard)[:p_out] for o in (A, M, S))
+
+
+def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
+                  want_missing: bool, want_sq: bool = False,
+                  p: int | None = None):
+    """Raw-plane dots over the quad words through int8 digit planes of R:
+    words (p4, n4) int32, rhs (4*n4, m) float.  Returns (A, M, S) like
+    :func:`xt_dots`, f32: the function of ``mendeliht_tpu.ops.
+    pallas_kernels.xt_dots_words`` (:func:`_digit_score`), equal bit for
+    bit to :func:`xt_dots_words_t` on the same genotypes' transposed
+    words."""
+    return _digit_score(quad_rows(words), 4 * words.shape[0], rhs,
+                        want_missing=want_missing, want_sq=want_sq, p=p)
+
+
+def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
+                    want_missing: bool, want_sq: bool = False,
+                    p: int | None = None):
+    """Raw-plane dots over the transposed per-SNP words through int8 digit
+    planes of R: words_t (nw = n4/4, p_all) int32, rhs (16*nw, m) float.
+    Returns (A, M, S) like :func:`xt_dots`, f32: the function of
+    ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t``
+    (:func:`_digit_score`)."""
+    return _digit_score(t_rows(words_t), words_t.shape[1], rhs,
+                        want_missing=want_missing, want_sq=want_sq, p=p)
 
 
 def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -36,8 +36,9 @@ LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0,
 
 TP = 1024          # the round-3 probe's row tile (tools/kernel_probe.py)
 
-# words, rhs, A, M, S pointers; three sizes and two flags; the stream
-_SCORE_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+# the score kernels' entries (csrc/xt_dots_t.cu): words, digits, scale,
+# guard, A, M, S pointers; nw, p_all, m, two flags and the plan; the stream
+_SCORE_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
 def _nvcc() -> str:
@@ -109,18 +110,25 @@ def _launch(name: str, fn, device, *args):
 def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
                   want_missing: bool, want_sq: bool = False,
                   p: int | None = None):
-    """Fused decode + multi-RHS dots over the quad-word storage.
+    """Fused decode + multi-RHS dots over the quad-word storage through int8
+    digit planes of R.
 
-    words (p4, n4) int32; rhs (4*n4, m) float32.  Returns (A, M, S), each
+    words (p4, n4) int32; rhs (4*n4, m) float.  Returns (A, M, S), each
     (p, m) float32 or None (M without ``want_missing``, S without
     ``want_sq``); ``p`` slices off the quad-padding rows (default 4*p4).
-    The contract of ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words``."""
+    The function of ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words``, as
+    ``xt_dots_words_t`` is of its transposed kernel: the kernel equals its
+    plain version (``decode.xt_dots_words``) and kernel 2 on the same
+    genotypes bit for bit; past the exact range the wrapper raises before
+    any work, on either device."""
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"words must be 2-D int32, got {words.dtype} "
                          f"{tuple(words.shape)}")
     if rhs.dim() != 2 or rhs.shape[0] != 4 * words.shape[1]:
         raise ValueError(f"rhs {tuple(rhs.shape)} does not match words "
                          f"{tuple(words.shape)}: need (4*n4, m)")
+    p4, n4 = words.shape
+    _check_exact_range("words", words, 4 * n4, 4 * p4, rhs.shape[1])
     if rhs.device != words.device:
         raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
     if words.device.type == "cpu":
@@ -128,18 +136,58 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
                                     want_sq=want_sq, p=p)
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
+    if n4 % 4:
+        raise ValueError(f"words {tuple(words.shape)}: n4 must be a multiple "
+                         "of 4 (16-byte loads, the digit image's K steps)")
+    return _digit_score("xt_dots_words", words, rhs, n4 // 4, 4 * p4,
+                        want_missing, want_sq, p)
+
+
+def _check_exact_range(name: str, arr: torch.Tensor, n_pad: int, p_all: int,
+                       m: int):
+    """Raise before any work where the int32 digit sums of the score
+    kernels would not be exact (128 * n_pad >= 2^31) or a size exceeds the
+    C entry's ints."""
+    if 128 * n_pad >= 2**31 or max(p_all, m) >= 2**31:
+        raise ValueError(f"shape out of range: {name} {tuple(arr.shape)}, "
+                         f"m={m} (the int32 digit sums are exact only below "
+                         "2^31)")
+
+
+def _digit_operands(rhs: torch.Tensor, nw: int, want_missing: bool,
+                    want_sq: bool):
+    """What both score kernels take besides the words, made by torch ops
+    as XLA makes them around the Pallas call: the digit image
+    (``_digit_stages_t``), the per-column scale, the NaN guard and the plan
+    (ng, split, passes) of ``score_plan_t``."""
+    planes, scale = decode.quantize_rhs_planes(rhs)
+    guard = decode.nan_guard(rhs)
+    ng, split, passes = score_plan_t(rhs.shape[1],
+                                     1 + want_missing + want_sq)
+    digits = _digit_stages_t(_digit_rows_t(planes, nw, ng, split, passes),
+                             passes)
+    for name, t, dtype in (("digits", digits, torch.int8),
+                           ("scale", scale, torch.float32),
+                           ("guard", guard, torch.float32)):
+        _check_card_tensor(name, t, dtype)
+    return digits, scale, guard, (ng, int(split), passes)
+
+
+def _digit_score(name: str, words: torch.Tensor, rhs: torch.Tensor, nw: int,
+                 p_all: int, want_missing: bool, want_sq: bool,
+                 p: int | None):
+    """Launch score kernel ``name`` (``csrc/xt_dots_t.cu``'s entry of that
+    name: ``xt_dots_words`` on the quad words, ``xt_dots_words_t`` on the
+    transposed words) on CUDA tensors; returns (A, M, S) cut to ``p``."""
     _check_card_tensor("words", words, torch.int32)
-    p4, n4 = words.shape
+    digits, scale, guard, plan = _digit_operands(rhs, nw, want_missing,
+                                                 want_sq)
     m = rhs.shape[1]
-    if max(p4, n4, m) >= 2**31:                 # the C entry takes int sizes
-        raise ValueError(f"shape out of range: words {tuple(words.shape)}, m={m}")
-    rhs_t = rhs.t().contiguous()                             # (m, n_pad)
-    _check_card_tensor("rhs", rhs_t, torch.float32)
-    A, M, S = _outputs(m, 4 * p4, want_missing, want_sq, words.device)
-    fn = _entry("xt_dots", "xt_dots_words", _SCORE_ARGS)
-    _launch("xt_dots_words", fn, words.device, words.data_ptr(),
-            rhs_t.data_ptr(), *_ptrs(A, M, S), p4, n4, m, int(want_missing),
-            int(want_sq))
+    A, M, S = _outputs(m, p_all, want_missing, want_sq, words.device)
+    fn = _entry("xt_dots_t", name, _SCORE_ARGS)
+    _launch(name, fn, words.device, words.data_ptr(), digits.data_ptr(),
+            scale.data_ptr(), guard.data_ptr(), *_ptrs(A, M, S), nw, p_all,
+            m, int(want_missing), int(want_sq), *plan)
     return _cut(A, M, S, p)
 
 
@@ -282,11 +330,7 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
         raise ValueError(f"rhs {tuple(rhs.shape)} does not match words_t "
                          f"{tuple(words_t.shape)}: need (16*nw, m)")
     nw, p_all = words_t.shape
-    m = rhs.shape[1]
-    if 128 * 16 * nw >= 2**31 or max(p_all, m) >= 2**31:
-        raise ValueError(f"shape out of range: words_t "
-                         f"{tuple(words_t.shape)}, m={m} (the int32 digit "
-                         "sums are exact only below 2^31)")
+    _check_exact_range("words_t", words_t, 16 * nw, p_all, rhs.shape[1])
     if rhs.device != words_t.device:
         raise ValueError(f"words_t on {words_t.device}, rhs on {rhs.device}")
     if words_t.device.type == "cpu":
@@ -294,25 +338,8 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
                                       want_sq=want_sq, p=p)
     if words_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {words_t.device}")
-    _check_card_tensor("words_t", words_t, torch.int32)
-    planes, scale = decode.quantize_rhs_planes(rhs)
-    guard = decode.nan_guard(rhs)
-    ng, split, passes = score_plan_t(m, 1 + want_missing + want_sq)
-    digits = _digit_stages_t(_digit_rows_t(planes, nw, ng, split, passes),
-                             passes)
-    for name, t, dtype in (("digits", digits, torch.int8),
-                           ("scale", scale, torch.float32),
-                           ("guard", guard, torch.float32)):
-        _check_card_tensor(name, t, dtype)
-    A, M, S = _outputs(m, p_all, want_missing, want_sq, words_t.device)
-    fn = _entry("xt_dots_t", "xt_dots_words_t",
-                (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8
-                + (ctypes.c_void_p,))
-    _launch("xt_dots_words_t", fn, words_t.device, words_t.data_ptr(),
-            digits.data_ptr(), scale.data_ptr(), guard.data_ptr(),
-            *_ptrs(A, M, S), nw, p_all, m, int(want_missing), int(want_sq),
-            ng, int(split), passes)
-    return _cut(A, M, S, p)
+    return _digit_score("xt_dots_words_t", words_t, rhs, nw, p_all,
+                        want_missing, want_sq, p)
 
 
 def read_words(words: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -382,10 +409,7 @@ def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if nw % 4:
         raise ValueError(f"words_t {tuple(words_t.shape)}: nw must be a "
                          "multiple of 4 (16-byte digit loads)")
-    if 128 * 16 * nw >= 2**31 or max(p_all, m) >= 2**31:
-        raise ValueError(f"shape out of range: words_t "
-                         f"{tuple(words_t.shape)}, m={m} (the int32 digit "
-                         "sums are exact only below 2^31)")
+    _check_exact_range("words_t", words_t, 16 * nw, p_all, m)
     planes, scale = decode.quantize_rhs_planes(rhs)
     digits, nt = _digit_chunks(planes, m)
     _check_card_tensor("digits", digits, torch.int8)
@@ -501,10 +525,7 @@ def xt_i8_rounds(words: torch.Tensor, rhs: torch.Tensor, tp: int = TP,
     if rhs.device != words.device:
         raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
     m = rhs.shape[1]
-    if 128 * 16 * nw >= 2**31 or max(p, m) >= 2**31:
-        raise ValueError(f"shape out of range: words {tuple(words.shape)}, "
-                         f"m={m} (the int32 digit sums are exact only below "
-                         "2^31)")
+    _check_exact_range("words", words, 16 * nw, p, m)
     if words.device.type == "cpu":
         return decode.xt_i8_rounds(words, rhs)
     if words.device.type != "cuda":

@@ -1,12 +1,14 @@
 """Genotype operator: standardized products over 2-bit packed genotypes.
 
 All batched ops use a leading task axis B (1 for a single fit).  The score
-``xtr`` goes through ``ops.kernels.xt_dots_words`` (quad words) or, where
-the genotypes carry the transposed dual layout and the RHS is at most
-``_VT_MAX_M`` wide, ``ops.kernels.xt_dots_words_t``, as the JAX package
-dispatches (``mendeliht_tpu/ops/linalg.py``).  The tensors' device
-dispatches each: the hand-written CUDA kernel on the card, the plain
-PyTorch version on the CPU.
+``xtr`` is routed as the JAX package routes it (``mendeliht_tpu/ops/
+linalg.py::PackedOp._xt_dots``): on the card, to ``ops.kernels.
+xt_dots_words_t`` (kernel 2) where the genotypes carry the transposed dual
+layout and the RHS is at most ``_VT_MAX_M`` wide, else to ``ops.kernels.
+xt_dots_words`` (kernel 1), as the JAX package picks its Pallas kernels on
+a TPU; on the CPU, whatever the layout, to the f32 function
+``ops.decode.xt_dots``, as the JAX package runs its oracle
+``decode.xt_dots`` off the TPU.
 """
 
 from __future__ import annotations
@@ -38,6 +40,15 @@ def _env_int(name: str, default: int) -> int:
         raise ValueError(f"{name}={raw!r} is not an integer") from None
 
 
+def transposed_score(g: PackedGenotypes, m: int) -> bool:
+    """Whether the card's score of an RHS m wide runs on the transposed
+    words (kernel 2) rather than the quad words (kernel 1): where ``words_t``
+    is stored and m is at most ``MENDELIHT_VT_MAX_M`` (default
+    ``_VT_MAX_M``)."""
+    return (g.words_t is not None
+            and m <= _env_int("MENDELIHT_VT_MAX_M", _VT_MAX_M))
+
+
 @dataclasses.dataclass
 class PackedOp:
     geno: PackedGenotypes
@@ -63,14 +74,14 @@ class PackedOp:
         return self.geno.device
 
     def _xt_dots(self, RT: torch.Tensor, want_sq: bool = False):
-        """Raw dots (A, M, S) of the whole matrix against RT (n_pad, m): the
-        transposed-layout kernel when ``words_t`` is stored and m is at most
-        ``MENDELIHT_VT_MAX_M`` (default ``_VT_MAX_M``), else the quad-word
-        kernel."""
+        """Raw dots (A, M, S) of the whole matrix against RT (n_pad, m): on
+        the CPU the f32 function, else the score kernel that
+        :func:`transposed_score` picks."""
         g = self.geno
         kw = dict(want_missing=g.has_missing, want_sq=want_sq, p=g.p)
-        if (g.words_t is not None
-                and RT.shape[1] <= _env_int("MENDELIHT_VT_MAX_M", _VT_MAX_M)):
+        if RT.device.type == "cpu":
+            return decode.xt_dots(g.words, RT, **kw)
+        if transposed_score(g, RT.shape[1]):
             return kernels.xt_dots_words_t(g.words_t, RT, **kw)
         return kernels.xt_dots_words(g.words, RT, **kw)
 

@@ -141,7 +141,7 @@ def test_xt_dots_words_t_keeps_pad_columns_without_p():
                            .astype(np.float32))
     A, M, S = tdecode.xt_dots_words_t(wt, rhs, want_missing=True,
                                       want_sq=True)
-    quad = tdecode.xt_dots_words(words, rhs, want_missing=True, want_sq=True)
+    quad = tdecode.xt_dots(words, rhs, want_missing=True, want_sq=True)
     for out, ref in zip((A, M, S), quad):
         assert out.shape == (8, 2)
         assert torch.all(out[6:] == 0)
@@ -222,19 +222,48 @@ def _record_score_calls(monkeypatch):
 
 
 def test_xt_dots_dispatch_follows_layout_and_width(monkeypatch):
+    """The card's choice of score kernel, as the JAX package picks its
+    Pallas kernel: the transposed words (kernel 2) where ``words_t`` is
+    stored and m is at most ``MENDELIHT_VT_MAX_M``, else the quad words."""
     rng = np.random.default_rng(47)
     g = jsnp.PackedGenotypes.from_codes(_codes(rng, 60, 12),
                                         sample_major=False)
-    calls = _record_score_calls(monkeypatch)
-    R = torch.zeros((3, g.n_pad))
-    tlinalg.PackedOp(_port(g)).xtr(R)
-    dual = tlinalg.PackedOp(_port(g).with_dual_layout())
-    dual.xtr(R)
+    quad, dual = _port(g), _port(g).with_dual_layout()
+    picks = [tlinalg.transposed_score(quad, 3),
+             tlinalg.transposed_score(dual, 3)]
     monkeypatch.setenv("MENDELIHT_VT_MAX_M", "2")
-    dual.xtr(R)                                     # m = 3 > 2: quad words
-    dual.xtr(R[:2])
-    assert calls == ["xt_dots_words", "xt_dots_words_t", "xt_dots_words",
-                     "xt_dots_words_t"]
+    picks += [tlinalg.transposed_score(dual, 3),     # m = 3 > 2: quad words
+              tlinalg.transposed_score(dual, 2)]
+    assert picks == [False, True, False, True]
+    monkeypatch.delenv("MENDELIHT_VT_MAX_M")
+    assert tlinalg.transposed_score(dual, tlinalg._VT_MAX_M)
+    assert not tlinalg.transposed_score(dual, tlinalg._VT_MAX_M + 1)
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("missing", [False, True])
+def test_cpu_operator_runs_f32_function_whatever_layout(monkeypatch, dual,
+                                                        missing):
+    """A CPU ``PackedOp``, with or without ``words_t``, calls neither score
+    wrapper and equals the f32 function ``decode.xt_dots``, as the JAX
+    package's operator runs ``decode.xt_dots`` off the TPU."""
+    rng = np.random.default_rng(49)
+    g = jsnp.PackedGenotypes.from_codes(_codes(rng, 130, 45, missing),
+                                        sample_major=False)
+    t = _port(g).with_dual_layout() if dual else _port(g)
+    calls = _record_score_calls(monkeypatch)
+    RT = torch.from_numpy(rng.standard_normal((g.n_pad, 3))
+                          .astype(np.float32))
+    op = tlinalg.PackedOp(t)
+    for want_sq in (False, True):
+        got = op._xt_dots(RT, want_sq=want_sq)
+        want = tdecode.xt_dots(t.words, RT, want_missing=missing,
+                               want_sq=want_sq, p=45)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+    op.xtr(RT.T)
+    assert calls == []
 
 
 @pytest.mark.parametrize("name", ["MENDELIHT_VT_MAX_M",
@@ -435,11 +464,48 @@ def test_iht_run_many_models_matches_jax(plain_problem):
     (dict(weight=[1.0]), "item 9"), (dict(zkeep=[True]), "item 9"),
     (dict(debias=True), "item 9"), (dict(init_beta=True), "item 9"),
     (dict(checkpoint_dir="ckpt"), "item 12"),
-    (dict(checkpoint_every=5), "item 12"), (dict(d="bernoulli"), "item 9")])
+    (dict(checkpoint_dir="ckpt", checkpoint_every=5), "item 12"),
+    (dict(d="bernoulli"), "item 9")])
 def test_cv_unported_arguments_raise(plain_problem, kwargs, item):
     x, y, _ = plain_problem
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         mt.cv_iht(y, _port(x), path=[1, 2], q=2, verbose=False, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(memory_efficient=False), dict(dtype=torch.float32),
+    dict(dtype=np.float32), dict(dtype="float32"), dict(checkpoint_every=10)])
+def test_cv_jax_api_arguments_accepted(plain_problem, tmp_path, monkeypatch,
+                                       kwargs):
+    """cv_iht arguments the JAX package accepts and ignores here (or, for
+    ``checkpoint_every`` without a ``checkpoint_dir``, ignores too): the
+    mse equals the same call without them, and nothing is written."""
+    x, y, folds = plain_problem
+    monkeypatch.chdir(tmp_path)
+    kw = dict(path=[1, 2, 3], q=3, folds=folds, verbose=False)
+    want = mt.cv_iht(y, _port(x), **kw)
+    got = mt.cv_iht(y, _port(x), **kw, **kwargs)
+    np.testing.assert_array_equal(got, want)
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, np.float32, "float32"])
+def test_iht_run_many_models_accepts_float32_dtype(plain_problem, dtype):
+    x, y, _ = plain_problem
+    want = mt.iht_run_many_models(y, _port(x), path=[1, 3], verbose=False)
+    got = mt.iht_run_many_models(y, _port(x), path=[1, 3], verbose=False,
+                                 dtype=dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_float64_dtype_raises_in_cv_and_path(plain_problem):
+    x, y, folds = plain_problem
+    with pytest.raises(NotImplementedError, match="float64 fits"):
+        mt.cv_iht(y, _port(x), path=[1], q=3, folds=folds, verbose=False,
+                  dtype=np.float64)
+    with pytest.raises(NotImplementedError, match="float64 fits"):
+        mt.iht_run_many_models(y, _port(x), path=[1], verbose=False,
+                               dtype=torch.float64)
 
 
 def test_cv_unported_inputs_raise(plain_problem):

@@ -172,6 +172,36 @@ def test_unported_defaults_and_unknown_arguments(small_sim):
         mt.fit_iht(y, g, k=5, verbose=False, no_such_argument=1)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(memory_efficient=False), dict(memory_efficient=True),
+    dict(dtype=torch.float32), dict(dtype=np.float32), dict(dtype="float32"),
+    dict(dtype=jnp.float32), dict(checkpoint_every=7),
+    dict(checkpoint_dir="ckpt"), dict(checkpoint_dir="ckpt",
+                                      checkpoint_every=3)])
+def test_jax_api_arguments_accepted(small_sim, tmp_path, monkeypatch, kwargs):
+    """Arguments the JAX package's fit_iht accepts and ignores here
+    (``memory_efficient``; the checkpoint arguments, used only by its
+    streamed fits; the float32 ``dtype``): the fit equals the same call
+    without them, and no checkpoint is written."""
+    x, y, _, _ = small_sim
+    g = _port_genotypes(x)
+    monkeypatch.chdir(tmp_path)
+    want = mt.fit_iht(y, g, k=5, verbose=False)
+    got = mt.fit_iht(y, g, k=5, verbose=False, **kwargs)
+    np.testing.assert_array_equal(got.beta, want.beta)
+    np.testing.assert_array_equal(got.c, want.c)
+    assert (got.iter, got.logl) == (want.iter, want.logl)
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, np.float64, "float64",
+                                   jnp.bfloat16, None])
+def test_other_dtypes_raise(small_sim, dtype):
+    x, y, _, _ = small_sim
+    with pytest.raises(NotImplementedError, match="float64 fits"):
+        mt.fit_iht(y, _port_genotypes(x), k=5, verbose=False, dtype=dtype)
+
+
 @pytest.mark.parametrize("n,p", [(301, 8195), (10, 13)])
 def test_simulate_matches_bench_generator(n, p):
     """The port's chunked generator writes the bytes, stats and effects of

@@ -5,10 +5,10 @@
 - A CPU tensor takes the plain PyTorch version and builds nothing.
 - On a CUDA card (marker ``cuda``), each hand-written kernel agrees with its
   plain version, and the two score kernels with each other.  The int8
-  digit-plane scores (kernels 2, 6 and 7), the narrow-integer probes and the
-  round-3 probes sum integers exactly, so they equal their plain versions;
-  kernel 2's A equals kernel 6's, and kernels 2 and 1 (f32, unquantised R)
-  agree within 2e-5.
+  digit-plane scores (kernels 1, 2, 6 and 7), the narrow-integer probes and
+  the round-3 probes sum integers exactly, so they equal their plain
+  versions bit for bit; kernels 1 and 2 equal each other on the same
+  genotypes, and kernel 2's A equals kernel 6's.
 """
 
 import ast
@@ -39,10 +39,11 @@ def _imported_roots(path):
 
 def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
+    assert not (PKG / "csrc" / "xt_dots.cu").exists()     # kernel 1's f32
     assert {"ops/kernels.py", "ops/decode.py", "models/fit.py",
             "models/cv.py", "utils/profiling.py",
             "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
-    for src in ("xt_dots.cu", "xt_dots_t.cu", "read_probe.cu",
+    for src in ("xt_dots_t.cu", "read_probe.cu",
                 "xt_dots_i8.cu", "int_probe.cu", "kernel_probe.cu",
                 "i8_mma.cuh"):
         assert (PKG / "csrc" / src).is_file()
@@ -78,6 +79,8 @@ def test_cpu_tensor_takes_plain_path_without_building(monkeypatch):
     want = decode.xt_dots_words(words, rhs, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for g, w in zip(got, decode.xt_dots_words_t(words_t, rhs, **kw)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)     # kernel 2's
     got = kernels.xt_dots_words_t(words_t, rhs, **kw)
     want = decode.xt_dots_words_t(words_t, rhs, **kw)
     for g, w in zip(got, want):
@@ -145,34 +148,6 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 13])
-def test_kernel_matches_plain_on_card(cuda_device, m):
-    """CUDA kernel vs the plain version on the same card tensors, for every
-    output plane, p not a multiple of 4, and a NaN column."""
-    words, rhs = _case(3, n=1000, p=4099, m=m)
-    rhs[5, m - 1] = float("nan")
-    words, rhs = words.to(cuda_device), rhs.to(cuda_device)
-    before = kernels.LAUNCHES["xt_dots_words"]
-    for want_missing in (False, True):
-        for want_sq in (False, True):
-            got = kernels.xt_dots_words(words, rhs, want_missing=want_missing,
-                                        want_sq=want_sq, p=4099)
-            ref = decode.xt_dots_words(words, rhs, want_missing=want_missing,
-                                       want_sq=want_sq, p=4099)
-            torch.cuda.synchronize()
-            for g, r in zip(got, ref):
-                assert (g is None) == (r is None)
-                if g is None:
-                    continue
-                assert torch.isnan(g[:, m - 1]).all()
-                g, r = g[:, :m - 1], r[:, :m - 1]
-                if m > 1:
-                    err = (g - r).abs().max() / r.abs().max().clamp(min=1.0)
-                    assert float(err) < 2e-5
-    assert kernels.LAUNCHES["xt_dots_words"] == before + 4
-
-
 def _same(a, b):
     """Bit for bit, NaN where NaN."""
     return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
@@ -180,14 +155,47 @@ def _same(a, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 37, 100, 300, 1000, 4100])
+def test_kernel_matches_plain_on_card(cuda_device, m):
+    """Kernel 1 (quad words) vs its plain version and vs kernel 2 on the
+    transposed words, bit for bit, on the same card tensors: every output
+    plane, p not a multiple of 4, a NaN column, and widths that run every
+    digit-row grouping (one or two column groups of 8, 7 and 13 a
+    warpgroup, split rows, several passes, past ``_VT_MAX_M``) and a ragged
+    last group; one launch a call."""
+    words, rhs = _case(3, n=1000, p=4099, m=m)
+    rhs[5, m - 1] = float("nan")
+    words, rhs = words.to(cuda_device), rhs.to(cuda_device)
+    words_t = kernels.build_words_t(words, 4099)
+    before = dict(kernels.LAUNCHES)
+    for want_missing in (False, True):
+        for want_sq in (False, True):
+            kw = dict(want_missing=want_missing, want_sq=want_sq, p=4099)
+            got = kernels.xt_dots_words(words, rhs, **kw)
+            ref = decode.xt_dots_words(words, rhs, **kw)
+            k2 = kernels.xt_dots_words_t(words_t, rhs, **kw)
+            torch.cuda.synchronize()
+            for g, r, t in zip(got, ref, k2):
+                assert (g is None) == (r is None) == (t is None)
+                if g is None:
+                    continue
+                assert g.shape == (4099, m)
+                assert torch.isnan(g[:, m - 1]).all()
+                assert _same(g, r) and _same(g, t)
+    assert kernels.LAUNCHES["xt_dots_words"] == before["xt_dots_words"] + 4
+    assert kernels.LAUNCHES["xt_dots_words_t"] == before["xt_dots_words_t"] + 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 3, 8, 13, 37, 100, 300, 1000])
 def test_transposed_kernel_matches_plain_and_quad_on_card(cuda_device, m):
     """Transposed-layout kernel (int8 digit planes) vs its plain version bit
-    for bit, its A vs kernel 6 bit for bit and vs the quad-word kernel
-    within 2e-5, on the same card tensors: every output plane, p not a
-    multiple of 4, a NaN column, and widths that run every digit-row
-    grouping (one or two column groups of 8, 7 and 13 a warpgroup, split
-    rows, several passes) and a ragged last group; one launch a call."""
+    for bit, its A vs kernel 6 bit for bit and all three outputs vs the
+    quad-word kernel bit for bit, on the same card tensors: every output
+    plane, p not a multiple of 4, a NaN column, and widths that run every
+    digit-row grouping (one or two column groups of 8, 7 and 13 a
+    warpgroup, split rows, several passes) and a ragged last group; one
+    launch a call."""
     words, rhs = _case(4, n=1000, p=4099, m=m)
     rhs[5, m - 1] = float("nan")
     words, rhs = words.to(cuda_device), rhs.to(cuda_device)
@@ -206,11 +214,7 @@ def test_transposed_kernel_matches_plain_and_quad_on_card(cuda_device, m):
                     continue
                 assert g.shape == (4099, m)
                 assert torch.isnan(g[:, m - 1]).all()
-                assert _same(g, r)
-                if m > 1:
-                    a, b = g[:, :m - 1], q[:, :m - 1]
-                    scale = b.abs().max().clamp(min=1.0)
-                    assert float((a - b).abs().max() / scale) < 2e-5
+                assert _same(g, r) and _same(g, q)
     assert kernels.LAUNCHES["xt_dots_words_t"] == before["xt_dots_words_t"] + 4
     assert kernels.LAUNCHES["xt_dots_words"] == before["xt_dots_words"] + 4
     a = kernels.xt_dots_words_t(words_t, rhs, want_missing=False, p=4099)[0]
@@ -221,9 +225,8 @@ def test_transposed_kernel_matches_plain_and_quad_on_card(cuda_device, m):
 @pytest.mark.parametrize("m", [1, 8, 100])
 def test_score_kernels_hold_bound_at_large_n(cuda_device, m):
     """Both score kernels where each SNP sums 200,000 samples, for every
-    output plane: the quad-word kernel's f32 rounding of a long sum stays
-    inside the 2e-5 bound of the plain version, and the transposed kernel's
-    exact integer sums equal its plain version bit for bit."""
+    output plane: each equal to its plain version bit for bit (exact integer
+    sums), and to each other."""
     n, p = 200_000, 67
     words, rhs = _case(7, n=n, p=p, m=m)
     words, rhs = words.to(cuda_device), rhs.to(cuda_device)
@@ -231,20 +234,15 @@ def test_score_kernels_hold_bound_at_large_n(cuda_device, m):
     for want_missing in (False, True):
         for want_sq in (False, True):
             kw = dict(want_missing=want_missing, want_sq=want_sq, p=p)
-            ref = decode.xt_dots_words(words, rhs, **kw)
             got = kernels.xt_dots_words(words, rhs, **kw)
+            ref = decode.xt_dots_words(words, rhs, **kw)
+            got_t = kernels.xt_dots_words_t(words_t, rhs, **kw)
+            ref_t = decode.xt_dots_words_t(words_t, rhs, **kw)
             torch.cuda.synchronize()
-            for g, r in zip(got, ref):
-                if r is None:
-                    continue
-                err = (g - r).abs().max() / r.abs().max().clamp(min=1.0)
-                assert float(err) < 2e-5
-            got = kernels.xt_dots_words_t(words_t, rhs, **kw)
-            ref = decode.xt_dots_words_t(words_t, rhs, **kw)
-            torch.cuda.synchronize()
-            for g, r in zip(got, ref):
-                assert (g is None) == (r is None)
-                assert g is None or _same(g, r)
+            for g, r, gt, rt in zip(got, ref, got_t, ref_t):
+                assert (g is None) == (r is None) == (gt is None)
+                assert g is None or (_same(g, r) and _same(gt, rt)
+                                     and _same(g, gt))
 
 
 @pytest.mark.cuda

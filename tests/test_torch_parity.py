@@ -118,17 +118,18 @@ def test_xt_dots_words_parity(want_missing, want_sq, n, p, m, tp):
 
 
 def test_xt_dots_words_keeps_quad_padding_without_p():
-    """Without ``p`` the quad-padding SNP rows stay, as inert zeros."""
+    """Without ``p`` the quad-padding SNP rows stay, as inert zeros, in the
+    digit-plane score and in the f32 function."""
     rng = np.random.default_rng(14)
     codes = _codes(rng, 50, 6)
     words = torch.from_numpy(jsnp._bytes_to_words(jsnp.pack_codes(codes)))
     rhs = torch.from_numpy(rng.standard_normal((4 * words.shape[1], 2))
                            .astype(np.float32))
-    A, M, S = tdecode.xt_dots_words(words, rhs, want_missing=True,
-                                    want_sq=True)
-    assert A.shape == M.shape == S.shape == (8, 2)
-    for out in (A, M, S):
-        assert torch.all(out[6:] == 0)
+    for fn in (tdecode.xt_dots_words, tdecode.xt_dots):
+        A, M, S = fn(words, rhs, want_missing=True, want_sq=True)
+        assert A.shape == M.shape == S.shape == (8, 2)
+        for out in (A, M, S):
+            assert torch.all(out[6:] == 0)
 
 
 def test_xt_dots_words_nan_column():
