@@ -15,14 +15,17 @@ cross-validation
 whose full-width score X'R runs through hand-written CUDA kernels when the
 genotypes live on a CUDA device (``csrc/xt_dots_t.cu``, one kernel body
 over the quad words or the transposed dual layout, the JAX kernels'
-digit-plane function), and on the CPU through the f32 function
+digit-plane function; the lab's and the round-3 probe's scores are the
+same body), and on the CPU through the f32 function
 ``ops/decode.py::xt_dots``, as the JAX package's operator runs off the
 TPU; the kernels' plain versions are in ``ops/decode.py``.  ``utils/profiling``
 measures the card's read ceiling through a third kernel
 (``csrc/read_probe.cu``) and the score kernels' share of it.  The kernel
 lab ``tools/kernel_lab5.py`` sweeps the score kernels across RHS widths
-beside an int8 tensor-core score (``csrc/xt_dots_i8.cu``) and probes the
-tensor cores with packed int8 / int4 operands (``csrc/int_probe.cu``).
+and probes the tensor cores with packed int8 / int4 operands
+(``csrc/int_probe.cu``); the round-3 probe ``tools/kernel_probe.py`` adds
+the row-major words and the read and decode ceilings
+(``csrc/kernel_probe.cu``).
 """
 
 from .genotype.snparray import PackedGenotypes

@@ -1,17 +1,24 @@
 // Fused 2-bit genotype decode + multi-RHS score X'R, through int8 digit
 // planes of R on the tensor cores of Hopper (sm_90a): warpgroup MMAs (wgmma)
 // with the decoded words as the register operand and the digit planes in
-// shared memory.  One kernel body, two word layouts (template QUAD):
+// shared memory.  One kernel body, three word layouts (template Layout):
 //
-//   kernel 2 (QUAD false, entry xt_dots_words_t): the transposed per-SNP
-//     words; replaces mendeliht_tpu/ops/pallas_kernels.py::_kernel_t
-//     (driven there by _xt_dots_chunk_t / xt_dots_words_t; layout from
-//     build_words_t)
-//   kernel 1 (QUAD true, entry xt_dots_words): the quad words; replaces
+//   kernel 2 (T, entry xt_dots_words_t): the transposed per-SNP words;
+//     replaces mendeliht_tpu/ops/pallas_kernels.py::_kernel_t (driven there
+//     by _xt_dots_chunk_t / xt_dots_words_t; layout from build_words_t).
+//     Kernel 6 is its A alone with a zero guard: it replaces
+//     tools/kernel_lab5.py::_kernel_T (driven by xt_dots_T), whose function
+//     is kernel 2's A without the NaN guard
+//   kernel 1 (QUAD, entry xt_dots_words): the quad words; replaces
 //     pallas_kernels.py::_kernel (driven by _xt_dots_chunk / xt_dots_words)
+//   kernel 7 (ROW, entry xt_dots_words_rows, A alone): the round-3
+//     row-major words; replaces tools/kernel_probe.py::_kernel_i8_rounds
+//     (driven by xt_i8_rounds).  Its 16 rounds r = 4*s2 + s1 take crumb s1
+//     of byte s2 of word (j, w), sample s1*n4 + 4w + s2: the K order of
+//     words_t (w, j), so the rounds are the MMA's K steps here
 //
-// Each computes its Pallas kernel's function exactly, and the two equal
-// each other bit for bit on the same genotypes:
+// Each computes its Pallas kernel's function exactly, and all equal each
+// other bit for bit on the same genotypes:
 //
 //   words_t (nw, p_all) words, read as uint32: word (w, j) holds bytes
 //           4w..4w+3 of SNP j's crumb-transposed row, so crumb q of its byte
@@ -20,6 +27,8 @@
 //           word (i, c) is byte c of SNP 4i+k, so crumb q of it is sample
 //           q*n4 + c.  The four quad words (i, 4w..4w+3) hold, byte k of
 //           each in turn, exactly words_t (w, 4i+k): a 4x4 byte transpose
+//   rows    (p_all, nw) row-major words (kernel 7): words_t transposed, any
+//           p_all, nw a multiple of 4 (16-byte row runs)
 //   digits  (passes, ksteps, 4, 2, rows/8, 8, 16) int8, ksteps = nw
 //           rounded up to 32, over 8: the digit planes of R (ops/decode.py::
 //           quantize_rhs_planes, |digit| <= 64) as laid out by the wrapper
@@ -50,7 +59,10 @@
 // 16+4t.. of the K step) and gathers its four transposed words with 8 byte
 // permutes (prmt) a K step, about 2 integer operations a word beside the
 // decode's 11; the rest of the kernel is kernel 2's, and the store writes
-// each accumulator row to its SNP through the same permutation.
+// each accumulator row to its SNP through the same permutation.  Kernel 7's
+// rows already hold the transposed words: a thread reads words t and 4+t
+// of the K step from the shared rows of SNPs g and g+8, as kernel 2 does
+// from its columns, and the store is kernel 2's.
 //
 // What bounds it on an H100 at 10k x 1M (nw = 640):
 //   m = 1:   the 2.56 GB of words, 0.76 ms at 3.35 TB/s; the digit MMAs are
@@ -85,8 +97,9 @@
 //     of 1, 2 or 4 K steps: the digits by one bulk copy (cp.async.bulk, the
 //     async proxy that wgmma reads by, completing on an mbarrier), the
 //     words tile by cp.async: 8 sample words x the tile's SNPs a K step
-//     (kernel 2), or the tile's quad rows x 32 words a K step (kernel 1),
-//     the same bytes.
+//     (kernel 2), the tile's quad rows x 32 words a K step (kernel 1), or
+//     the tile's SNP rows x 8 words a K step (kernel 7: one 32-byte run of
+//     each row a K step), the same bytes.
 //     The copies run stages - 2 ahead, so the last MMAs of a stage may still
 //     read it while the next runs, and the ring runs on across the block's
 //     work items.
@@ -106,6 +119,10 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// the word layout a kernel reads: T words_t (kernels 2, 6), QUAD the quad
+// words (kernel 1), ROW the row-major words (kernel 7)
+enum class Layout { T, QUAD, ROW };
 
 constexpr int kWarpgroups = 2;
 constexpr int kThreads = 128 * kWarpgroups;
@@ -237,13 +254,22 @@ __host__ __device__ constexpr int stage_steps() {
   return NG == 0 ? 4 : NG <= 2 ? 2 : 1;
 }
 
-// bytes of a stage's words tile of `snps` SNPs and ks K steps: 8*ks
+// uint32 words of one SNP row of a ROW stage: its 8*ks words and 4 of
+// padding, so that the rows g = 0..7 of a warp's reads start in banks 4
+// apart (12 words: 0, 12, 24, 4, ..) and its 32 reads of one fragment
+// register (words t of rows g) fall in 32 banks
+__host__ __device__ constexpr int row_words(int ks) { return 8 * ks + 4; }
+
+// bytes of a stage's words tile of `snps` SNPs and ks K steps: T, 8*ks
 // transposed-word rows of snps + 8 words (padded: a warp's reads of one
-// fragment register span 4 rows), or snps/4 quad rows of 32*ks words (not
-// padded: a quarter-warp's 16-byte reads all fall in one row)
-template <bool QUAD>
+// fragment register span 4 rows); QUAD, snps/4 quad rows of 32*ks words
+// (not padded: a quarter-warp's 16-byte reads all fall in one row); ROW,
+// snps rows of row_words(ks)
+template <Layout L>
 __host__ __device__ constexpr int words_bytes(int snps, int ks) {
-  return QUAD ? 32 * ks * snps : 32 * ks * (snps + 8);
+  return L == Layout::QUAD  ? 32 * ks * snps
+         : L == Layout::ROW ? 4 * row_words(ks) * snps
+                            : 32 * ks * (snps + 8);
 }
 
 // the four transposed words of SNPs 4i+k and 4i+k+1 (k = 0 or 2, `sel`
@@ -259,18 +285,19 @@ __device__ __forceinline__ void gather(const uint4& u, uint32_t sel,
 
 // One block: two warpgroups, a ring of `stages` stages in dynamic shared
 // memory, each [digits: KS K steps x 4 planes x 2 K halves x rows/8 core
-// matrices of 128 bytes, one bulk copy][words: words_bytes<QUAD>].  NG
-// column groups of 8 a warpgroup (NG = 0: m <= 2, one 8-row group); planes
-// A, M (MISS), H (SQ); QUAD: the quad words (kernel 1), else the transposed
-// words (kernel 2).
-template <int NG, bool MISS, bool SQ, bool QUAD>
+// matrices of 128 bytes, one bulk copy][words: words_bytes<L>].  NG column
+// groups of 8 a warpgroup (NG = 0: m <= 2, one 8-row group); planes A, M
+// (MISS), H (SQ); L the word layout.
+template <int NG, bool MISS, bool SQ, Layout L>
 __global__ void __launch_bounds__(kThreads, 1)
 xt_dots_t_kernel(const Args args) {
+  constexpr bool QUAD = L == Layout::QUAD;
   constexpr int kP = 1 + MISS + SQ;
   constexpr int kBlk = NG == 0 ? 1 : 3 * NG;   // n8 blocks a plane
   constexpr int kAcc = 4 * kBlk;               // registers a plane
   constexpr int kS = stage_steps<NG>();
   constexpr int kQRow = 32 * kS;               // a quad row's words a stage
+  constexpr int kRow = row_words(kS);          // a ROW row's stride a stage
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];  // digits landed
 
@@ -284,7 +311,7 @@ xt_dots_t_kernel(const Args args) {
   const int n4 = 4 * args.nw;                  // quad words a row
   const int step_bytes = args.rows * 128;      // digits of one K step
   const int dig_bytes = kS * step_bytes;
-  const int stage_bytes = dig_bytes + words_bytes<QUAD>(snps, kS);
+  const int stage_bytes = dig_bytes + words_bytes<L>(snps, kS);
   const int rg = args.rows / 8;
   const int kstages = args.ksteps / kS;        // stages an item
   const uint32_t smem0 = smem_addr(smem);
@@ -317,7 +344,8 @@ xt_dots_t_kernel(const Args args) {
   int li = 0, ls = 0, lslot = 0;
   const int8_t* lsrc = nullptr;                // digits of (li, 0)
   const uint32_t* lwords = nullptr;            // li's tile: words_t (0,
-                                               // snp0) or quad row snp0/4
+                                               // snp0), quad row snp0/4 or
+                                               // row snp0
   long long lsnps = 0;                         // SNPs of li's tile left
   auto load_next = [&]() {
     if (li < my_items) {
@@ -327,7 +355,9 @@ xt_dots_t_kernel(const Args args) {
         const long long snp0 = static_cast<long long>(tile) * snps;
         lsrc = args.digits +
                static_cast<size_t>(item / args.tiles) * args.ksteps * step_bytes;
-        lwords = args.words + (QUAD ? snp0 / 4 * n4 : snp0);
+        lwords = args.words + (QUAD              ? snp0 / 4 * n4
+                               : L == Layout::ROW ? snp0 * args.nw
+                                                  : snp0);
         lsnps = args.p_all - snp0;
       }
       const uint32_t st = smem0 + lslot * stage_bytes;
@@ -351,6 +381,20 @@ xt_dots_t_kernel(const Args args) {
           const bool ok = 4 * r < lsnps && c0 + 4 * c < n4;
           cp_async16(wst + (r * kQRow + 4 * c) * 4,
                      ok ? lwords + static_cast<size_t>(r) * n4 + c0 + 4 * c
+                        : args.words,
+                     ok);
+        }
+      } else if constexpr (L == Layout::ROW) {
+        // SNP row r, 16-byte chunk c (words w0 + 4c ..) of the stage; nw is
+        // a multiple of 4, so a chunk lies wholly inside or past the row
+        const int w0 = ls * kS * 8;
+        constexpr int kC = 2 * kS;             // chunks a row: 2, 4 or 8
+        for (int i = tid; i < kC * snps; i += kThreads) {
+          const int r = i / kC, c = i % kC;
+          const bool ok = r < lsnps && w0 + 4 * c < args.nw;
+          cp_async16(wst + (r * kRow + 4 * c) * 4,
+                     ok ? lwords + static_cast<size_t>(r) * args.nw + w0 +
+                              4 * c
                         : args.words,
                      ok);
         }
@@ -394,7 +438,7 @@ xt_dots_t_kernel(const Args args) {
   const uint32_t sel = g & 1 ? 0x7362u : 0x5140u;
 
   // K step s of the words at ws into A buffer bs: rows g, g+8 of the
-  // warp's 16 SNPs (kernel 2: SNPs g, g+8; kernel 1: SNPs 2g, 2g+1); K
+  // warp's 16 SNPs (kernels 2, 7: SNPs g, g+8; kernel 1: SNPs 2g, 2g+1); K
   // 4t..4t+3 (word t of the K step) and 16+4t.. (word 4+t)
   auto decode = [&](const uint32_t* ws, int s, int bs) {
     uint32_t x[4];
@@ -403,6 +447,12 @@ xt_dots_t_kernel(const Args args) {
           reinterpret_cast<const uint4*>(ws + qrow * kQRow + 32 * s + 4 * t);
       gather(wk[0], sel, x[0], x[1]);
       gather(wk[4], sel, x[2], x[3]);
+    } else if constexpr (L == Layout::ROW) {
+      const uint32_t* wk = ws + sl * kRow + 8 * s + t;
+      x[0] = wk[0];
+      x[1] = wk[8 * kRow];
+      x[2] = wk[4];
+      x[3] = wk[8 * kRow + 4];
     } else {
       const uint32_t* wk = ws + 8 * s * wstride;
       x[0] = wk[t * wstride + sl];
@@ -584,15 +634,17 @@ xt_dots_t_kernel(const Args args) {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int NG, bool MISS, bool SQ, bool QUAD>
+template <int NG, bool MISS, bool SQ, Layout L>
 int launch(Args a, cudaStream_t stream) {
-  auto kern = xt_dots_t_kernel<NG, MISS, SQ, QUAD>;
+  auto kern = xt_dots_t_kernel<NG, MISS, SQ, L>;
   constexpr int kS = stage_steps<NG>();
   // shared memory a block: the narrow widths leave room for three blocks
-  // an SM
-  constexpr int kBudget = (NG <= 2 ? 72 : 220) * 1024;
+  // an SM; ROW's padded rows take 225 KB for the five stages that 220 KB
+  // give T at 13 groups
+  constexpr int kBudget =
+      (NG <= 2 ? 72 : L == Layout::ROW ? 225 : 220) * 1024;
   const int stage_bytes =
-      kS * a.rows * 128 + words_bytes<QUAD>(a.split ? 64 : 128, kS);
+      kS * a.rows * 128 + words_bytes<L>(a.split ? 64 : 128, kS);
   a.stages = kBudget / stage_bytes;
   a.stages = a.stages < 3 ? 3 : a.stages > kMaxStages ? kMaxStages : a.stages;
   const int smem = a.stages * stage_bytes;
@@ -613,24 +665,26 @@ int launch(Args a, cudaStream_t stream) {
   return 0;
 }
 
-template <int NG, bool QUAD>
+// ROW is built for A alone (kernel 7 has no M or S)
+template <int NG, Layout L>
 int launch_planes(const Args& a, bool miss, bool sq, cudaStream_t st) {
-  constexpr int kP2 = 2 * NG <= kMaxGroups;      // every NG takes one plane
-  constexpr int kP3 = 3 * NG <= kMaxGroups;
+  constexpr bool kMore = L != Layout::ROW;
+  constexpr int kP2 = kMore && 2 * NG <= kMaxGroups;  // every NG: one plane
+  constexpr int kP3 = kMore && 3 * NG <= kMaxGroups;
   const int planes = 1 + miss + sq;
-  if (planes == 1) return launch<NG, false, false, QUAD>(a, st);
+  if (planes == 1) return launch<NG, false, false, L>(a, st);
   if constexpr (kP2) {
-    if (planes == 2 && miss) return launch<NG, true, false, QUAD>(a, st);
-    if (planes == 2) return launch<NG, false, true, QUAD>(a, st);
+    if (planes == 2 && miss) return launch<NG, true, false, L>(a, st);
+    if (planes == 2) return launch<NG, false, true, L>(a, st);
   }
   if constexpr (kP3) {
-    if (planes == 3) return launch<NG, true, true, QUAD>(a, st);
+    if (planes == 3) return launch<NG, true, true, L>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the two entry points' shared body: QUAD as in xt_dots_t_kernel
-template <bool QUAD>
+// the entry points' shared body: L as in xt_dots_t_kernel
+template <Layout L>
 int run(const void* words, const void* digits, const void* scale,
         const void* guard, void* A, void* M, void* S, int nw, int p_all,
         int m, int want_missing, int want_sq, int ng, int split, int passes,
@@ -652,8 +706,9 @@ int run(const void* words, const void* digits, const void* scale,
     const int snps = split ? 64 : 128;
     a.tiles = (p_all + snps - 1) / snps;
     const long long items = static_cast<long long>(a.tiles) * passes;
-    if (items > 0x7fffffffLL || (ng == 0 && split) || p_all % 4 ||
-        (QUAD && 4LL * nw >= 0x80000000LL))
+    if (items > 0x7fffffffLL || (ng == 0 && split) ||
+        (L == Layout::ROW ? nw % 4 : p_all % 4) ||
+        (L == Layout::QUAD && 4LL * nw >= 0x80000000LL))
       return static_cast<int>(cudaErrorInvalidValue);
     a.items = static_cast<int>(items);
     a.rows = ng == 0 ? 8 : 24 * ng * (split ? 2 : 1);
@@ -662,12 +717,12 @@ int run(const void* words, const void* digits, const void* scale,
     const bool miss = want_missing != 0, sq = want_sq != 0;
     int err;
     switch (ng) {
-      case 0: err = launch_planes<0, QUAD>(a, miss, sq, st); break;
-      case 1: err = launch_planes<1, QUAD>(a, miss, sq, st); break;
-      case 2: err = launch_planes<2, QUAD>(a, miss, sq, st); break;
-      case 4: err = launch_planes<4, QUAD>(a, miss, sq, st); break;
-      case 7: err = launch_planes<7, QUAD>(a, miss, sq, st); break;
-      case 13: err = launch_planes<13, QUAD>(a, miss, sq, st); break;
+      case 0: err = launch_planes<0, L>(a, miss, sq, st); break;
+      case 1: err = launch_planes<1, L>(a, miss, sq, st); break;
+      case 2: err = launch_planes<2, L>(a, miss, sq, st); break;
+      case 4: err = launch_planes<4, L>(a, miss, sq, st); break;
+      case 7: err = launch_planes<7, L>(a, miss, sq, st); break;
+      case 13: err = launch_planes<13, L>(a, miss, sq, st); break;
       default: err = static_cast<int>(cudaErrorInvalidValue);
     }
     if (err != 0) return err;
@@ -677,22 +732,23 @@ int run(const void* words, const void* digits, const void* scale,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), one a layout: kernel 2 over
-// words_t (nw, p_all), kernel 1 over the quad words (p_all/4, 4*nw).  ng
-// (column groups of 8 a warpgroup and pass: 0 for m <= 2, else 1, 2, 4, 7
-// or 13, with ng times the planes at most 14), split and passes as the
-// wrapper laid out `digits` (kernels._digit_rows_t, the same for both
-// layouts); every pointer 16-byte aligned and p_all a multiple of 4 (the
-// wrapper checks).  M / S may be null when not wanted.  Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError() so a
-// refused launch is seen by the caller.
+// Plain C entry points (loaded with ctypes), one a layout: kernel 2 (and 6)
+// over words_t (nw, p_all), kernel 1 over the quad words (p_all/4, 4*nw),
+// kernel 7 over the row-major words (p_all, nw), A alone.  ng (column
+// groups of 8 a warpgroup and pass: 0 for m <= 2, else 1, 2, 4, 7 or 13,
+// with ng times the planes at most 14), split and passes as the wrapper
+// laid out `digits` (kernels._digit_rows_t, the same for every layout);
+// every pointer 16-byte aligned, and p_all (T, QUAD) or nw (ROW) a
+// multiple of 4 (the wrapper checks).  M / S may be null when not wanted.
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() so a refused launch is seen by the caller.
 extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
                                const void* scale, const void* guard, void* A,
                                void* M, void* S, int nw, int p_all, int m,
                                int want_missing, int want_sq, int ng,
                                int split, int passes, void* stream) {
-  return run<false>(words_t, digits, scale, guard, A, M, S, nw, p_all, m,
-                    want_missing, want_sq, ng, split, passes, stream);
+  return run<Layout::T>(words_t, digits, scale, guard, A, M, S, nw, p_all, m,
+                        want_missing, want_sq, ng, split, passes, stream);
 }
 
 extern "C" int xt_dots_words(const void* words, const void* digits,
@@ -700,6 +756,17 @@ extern "C" int xt_dots_words(const void* words, const void* digits,
                              void* M, void* S, int nw, int p_all, int m,
                              int want_missing, int want_sq, int ng, int split,
                              int passes, void* stream) {
-  return run<true>(words, digits, scale, guard, A, M, S, nw, p_all, m,
-                   want_missing, want_sq, ng, split, passes, stream);
+  return run<Layout::QUAD>(words, digits, scale, guard, A, M, S, nw, p_all,
+                           m, want_missing, want_sq, ng, split, passes,
+                           stream);
+}
+
+extern "C" int xt_dots_words_rows(const void* words, const void* digits,
+                                  const void* scale, const void* guard,
+                                  void* A, void* M, void* S, int nw,
+                                  int p_all, int m, int want_missing,
+                                  int want_sq, int ng, int split, int passes,
+                                  void* stream) {
+  return run<Layout::ROW>(words, digits, scale, guard, A, M, S, nw, p_all, m,
+                          want_missing, want_sq, ng, split, passes, stream);
 }

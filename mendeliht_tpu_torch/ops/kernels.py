@@ -155,13 +155,16 @@ def _check_exact_range(name: str, arr: torch.Tensor, n_pad: int, p_all: int,
 
 
 def _digit_operands(rhs: torch.Tensor, nw: int, want_missing: bool,
-                    want_sq: bool):
-    """What both score kernels take besides the words, made by torch ops
+                    want_sq: bool, guarded: bool = True):
+    """What the score kernels take besides the words, made by torch ops
     as XLA makes them around the Pallas call: the digit image
-    (``_digit_stages_t``), the per-column scale, the NaN guard and the plan
-    (ng, split, passes) of ``score_plan_t``."""
+    (``_digit_stages_t``), the per-column scale, the guard and the plan
+    (ng, split, passes) of ``score_plan_t``.  The guard is the NaN guard
+    where the JAX kernel re-poisons a non-finite column (``guarded``), else
+    zeros: adding +0.0 leaves every score bit as it is."""
     planes, scale = decode.quantize_rhs_planes(rhs)
-    guard = decode.nan_guard(rhs)
+    guard = (decode.nan_guard(rhs) if guarded
+             else torch.zeros_like(scale))
     ng, split, passes = score_plan_t(rhs.shape[1],
                                      1 + want_missing + want_sq)
     digits = _digit_stages_t(_digit_rows_t(planes, nw, ng, split, passes),
@@ -173,18 +176,26 @@ def _digit_operands(rhs: torch.Tensor, nw: int, want_missing: bool,
     return digits, scale, guard, (ng, int(split), passes)
 
 
+# the lab's and the probe's A-only scores (kernels 6 and 7): their entry of
+# csrc/xt_dots_t.cu; their JAX kernels have no NaN guard
+_UNGUARDED = {"xt_dots_T": "xt_dots_words_t",
+              "xt_i8_rounds": "xt_dots_words_rows"}
+
+
 def _digit_score(name: str, words: torch.Tensor, rhs: torch.Tensor, nw: int,
                  p_all: int, want_missing: bool, want_sq: bool,
                  p: int | None):
-    """Launch score kernel ``name`` (``csrc/xt_dots_t.cu``'s entry of that
-    name: ``xt_dots_words`` on the quad words, ``xt_dots_words_t`` on the
-    transposed words) on CUDA tensors; returns (A, M, S) cut to ``p``."""
+    """Launch score kernel ``name`` on CUDA tensors and count it: kernels 1
+    and 2 by ``csrc/xt_dots_t.cu``'s entry of that name (``xt_dots_words``
+    on the quad words, ``xt_dots_words_t`` on the transposed words) with
+    the NaN guard, kernels 6 and 7 by their ``_UNGUARDED`` entry with a zero
+    guard; returns (A, M, S) cut to ``p``."""
     _check_card_tensor("words", words, torch.int32)
-    digits, scale, guard, plan = _digit_operands(rhs, nw, want_missing,
-                                                 want_sq)
+    digits, scale, guard, plan = _digit_operands(
+        rhs, nw, want_missing, want_sq, guarded=name not in _UNGUARDED)
     m = rhs.shape[1]
     A, M, S = _outputs(m, p_all, want_missing, want_sq, words.device)
-    fn = _entry("xt_dots_t", name, _SCORE_ARGS)
+    fn = _entry("xt_dots_t", _UNGUARDED.get(name, name), _SCORE_ARGS)
     _launch(name, fn, words.device, words.data_ptr(), digits.data_ptr(),
             scale.data_ptr(), guard.data_ptr(), *_ptrs(A, M, S), nw, p_all,
             m, int(want_missing), int(want_sq), *plan)
@@ -368,29 +379,16 @@ def read_words(words: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _digit_chunks(planes: torch.Tensor, m: int):
-    """(3m, n_pad) digit planes [hi|mid|lo] -> (chunks*rows, n_pad) int8 in
-    xt_dots_i8.cu's order: row d*nc + c of chunk i is digit d of column
-    i*nc + c, the other rows zero; returns it and the kernel's NT.  A chunk
-    has the fewest of 8, 32 or 64 rows (NT = 1, 4, 8) that holds all m
-    columns, at most 64 (nc = 21)."""
-    rows = 8 if m <= 2 else 32 if m <= 10 else 64
-    nc = rows // 3
-    chunks = -(-m // nc)
-    i, r = torch.meshgrid(torch.arange(chunks), torch.arange(rows),
-                          indexing="ij")
-    d, c = r // nc, i * nc + r % nc
-    src = torch.where((d < 3) & (c < m), d * m + c, torch.full_like(c, 3 * m))
-    padded = torch.cat([planes, planes.new_zeros((1, planes.shape[1]))])
-    return padded[src.reshape(-1).to(planes.device)], rows // 8
-
-
 def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Value dots A = V'R over the transposed per-SNP words through int8
     digit planes of R: words_t (nw, p_all) int32 (``build_words_t``), rhs
     (16*nw, m) float32 -> (p_all, m) float32.  The contract of
-    ``tools/kernel_lab5.py::xt_dots_T`` (A only; missing crumbs count 0);
-    the integer sums are exact, so the kernel equals its plain version."""
+    ``tools/kernel_lab5.py::xt_dots_T`` (A only, no NaN re-poisoning;
+    missing crumbs count 0): kernel 2's A with a zero guard, launched from
+    its entry and counted as ``xt_dots_T``, so it equals its plain version
+    and kernel 2's A bit for bit.  A ``p_all`` that is not a multiple of 4
+    is padded with zero columns for the kernel's 16-byte runs, a copy that
+    ``build_words_t``'s output never needs."""
     if words_t.dtype != torch.int32 or words_t.dim() != 2:
         raise ValueError(f"words_t must be 2-D int32, got {words_t.dtype} "
                          f"{tuple(words_t.shape)}")
@@ -403,24 +401,13 @@ def xt_dots_T(words_t: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         return decode.xt_dots_T(words_t, rhs)
     if words_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {words_t.device}")
-    _check_card_tensor("words_t", words_t, torch.int32)
     nw, p_all = words_t.shape
-    m = rhs.shape[1]
-    if nw % 4:
-        raise ValueError(f"words_t {tuple(words_t.shape)}: nw must be a "
-                         "multiple of 4 (16-byte digit loads)")
-    _check_exact_range("words_t", words_t, 16 * nw, p_all, m)
-    planes, scale = decode.quantize_rhs_planes(rhs)
-    digits, nt = _digit_chunks(planes, m)
-    _check_card_tensor("digits", digits, torch.int8)
-    out = torch.empty((m, p_all), dtype=torch.float32, device=words_t.device)
-    fn = _entry("xt_dots_i8", "xt_dots_T",
-                (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-                + (ctypes.c_void_p,))
-    _launch("xt_dots_T", fn, words_t.device, words_t.data_ptr(),
-            digits.data_ptr(), scale.data_ptr(), out.data_ptr(), nw, p_all,
-            m, nt)
-    return out.t()
+    _check_exact_range("words_t", words_t, 16 * nw, p_all, rhs.shape[1])
+    if p_all % 4:
+        words_t = torch.cat([words_t, words_t.new_zeros((nw, -p_all % 4))],
+                            dim=1)
+    return _digit_score("xt_dots_T", words_t, rhs, nw, words_t.shape[1],
+                        False, False, p_all)[0]
 
 
 def unpack_words(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -504,13 +491,17 @@ def xt_i8_rounds(words: torch.Tensor, rhs: torch.Tensor, tp: int = TP,
     """Value dots A = V'R over the round-3 row-major words through int8
     digit planes of R: words (p, nw) int32 (``words_t.T``), rhs (16*nw, m)
     float32 -> (p, m) float32.  The contract of ``tools/kernel_probe.py::
-    xt_i8_rounds``; equal bit for bit to ``xt_dots_T(words.T, rhs)``.
+    xt_i8_rounds``: kernel 2's A on the row-major words with a zero guard
+    (``csrc/xt_dots_t.cu``'s ROW loader), equal bit for bit to its plain
+    version and to ``xt_dots_T(words.T, rhs)``.
 
-    ``tp`` is the SNP rows a thread block takes.  ``tw`` (the reference's
-    word-column tile) is accepted only as None or nw: the exact integer sums
-    do not depend on it, and the kernel tiles the words itself.  An rhs of
-    another height than 16*nw (the quad words' (4*n4, m) included) raises
-    before any work."""
+    ``tp`` (the reference's SNP rows a grid step) is validated and
+    otherwise a no-op: the kernel's persistent blocks take 128-SNP tiles in
+    turn whatever it is.  ``tw`` (the reference's word-column tile) is
+    accepted only as None or nw: the exact integer sums do not depend on
+    either, and the kernel tiles the words itself.  An rhs of another
+    height than 16*nw (the quad words' (4*n4, m) included) raises before
+    any work."""
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"words must be 2-D int32, got {words.dtype} "
                          f"{tuple(words.shape)}")
@@ -524,27 +515,16 @@ def xt_i8_rounds(words: torch.Tensor, rhs: torch.Tensor, tp: int = TP,
         raise ValueError(f"tw must be None or nw = {nw}, got {tw!r}")
     if rhs.device != words.device:
         raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
-    m = rhs.shape[1]
-    _check_exact_range("words", words, 16 * nw, p, m)
+    _check_exact_range("words", words, 16 * nw, p, rhs.shape[1])
     if words.device.type == "cpu":
         return decode.xt_i8_rounds(words, rhs)
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
-    _check_card_tensor("words", words, torch.int32)
     if nw % 4:
         raise ValueError(f"words {tuple(words.shape)}: nw must be a multiple "
                          "of 4 (16-byte loads)")
-    planes, scale = decode.quantize_rhs_planes(rhs)
-    digits, nt = _digit_chunks(planes, m)
-    _check_card_tensor("digits", digits, torch.int8)
-    out = torch.empty((m, p), dtype=torch.float32, device=words.device)
-    fn = _entry("kernel_probe", "xt_i8_rounds",
-                (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
-                + (ctypes.c_void_p,))
-    _launch("xt_i8_rounds", fn, words.device, words.data_ptr(),
-            digits.data_ptr(), scale.data_ptr(), out.data_ptr(), p, nw, m, nt,
-            tp)
-    return out.t()
+    return _digit_score("xt_i8_rounds", words, rhs, nw, p, False, False,
+                        None)[0]
 
 
 def _check_seeded(words: torch.Tensor, seed: torch.Tensor, tp: int):

@@ -8,8 +8,9 @@ and the narrow-integer probes of the tensor cores (the JAX package's
 - :func:`bench_int4_ingestion` — us per call of the same (8192, 2048) x
   (2048, 8) dot with the big operand packed as int8 or as int4;
 - :func:`xt_dots_T` — the int8 digit-plane score over the transposed words
-  (``csrc/xt_dots_i8.cu``), swept beside the quad-word score at widths
-  1..128 (the JAX lab's quad production kernel and transposed prototype);
+  (kernel 2's A, ``csrc/xt_dots_t.cu``), swept beside the quad-word score
+  at widths 1..128 (the JAX lab's quad production kernel and transposed
+  prototype);
 - :func:`attrib` — the transposed-layout score at m = 100, 66, 33 and the
   read-only pass, to split the m = 100 time into MMA and read time.
 

@@ -6,9 +6,10 @@ Variants, each timed at the RHS widths given (default 1, 8, 64):
 
   v0      - the quad-word score (kernel 1, ``kernels.xt_dots_words``)
   v1      - the 16-round int8 digit-plane score (kernel 7,
-            ``kernels.xt_i8_rounds``, ``csrc/kernel_probe.cu``) on the
-            round-3 words; ``v1tp512`` / ``v1tp2048`` with 512 / 2048 SNP
-            rows a thread block
+            ``kernels.xt_i8_rounds``, the row-major loader of
+            ``csrc/xt_dots_t.cu``) on the round-3 words; ``v1tp512`` /
+            ``v1tp2048`` ask for 512 / 2048 SNP rows a grid step, which the
+            kernel takes as a no-op (its blocks take 128-SNP tiles)
   stream  - XOR-accumulate read of the quad words (kernel 8): the read ceiling
   decode  - the 16-round decode alone, XOR-accumulated (kernel 9)
 

@@ -4,11 +4,12 @@
   AST scan: jax may already sit in ``sys.modules`` of any process here).
 - A CPU tensor takes the plain PyTorch version and builds nothing.
 - On a CUDA card (marker ``cuda``), each hand-written kernel agrees with its
-  plain version, and the two score kernels with each other.  The int8
-  digit-plane scores (kernels 1, 2, 6 and 7), the narrow-integer probes and
-  the round-3 probes sum integers exactly, so they equal their plain
-  versions bit for bit; kernels 1 and 2 equal each other on the same
-  genotypes, and kernel 2's A equals kernel 6's.
+  plain version, and the score kernels with each other.  The int8
+  digit-plane scores (kernels 1, 2, 6 and 7: one body, ``csrc/xt_dots_t.cu``),
+  the narrow-integer probes and the round-3 probes sum integers exactly, so
+  they equal their plain versions bit for bit; kernels 1 and 2 equal each
+  other on the same genotypes, kernel 2's A equals kernel 6's, and kernel
+  7's equals kernel 6's on the transposed words.
 """
 
 import ast
@@ -40,12 +41,12 @@ def _imported_roots(path):
 def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert not (PKG / "csrc" / "xt_dots.cu").exists()     # kernel 1's f32
+    assert not (PKG / "csrc" / "xt_dots_i8.cu").exists()  # kernel 6's mma.sync
     assert {"ops/kernels.py", "ops/decode.py", "models/fit.py",
             "models/cv.py", "utils/profiling.py",
             "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
-    for src in ("xt_dots_t.cu", "read_probe.cu",
-                "xt_dots_i8.cu", "int_probe.cu", "kernel_probe.cu",
-                "i8_mma.cuh"):
+    for src in ("xt_dots_t.cu", "read_probe.cu", "int_probe.cu",
+                "kernel_probe.cu", "i8_mma.cuh"):
         assert (PKG / "csrc" / src).is_file()
 
 
@@ -274,23 +275,28 @@ def _lab_words_t(seed, n, p, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 2, 3, 8, 10, 11, 100])
-def test_int8_score_kernel_equals_plain_on_card(cuda_device, m):
-    """The digit-plane score vs its plain version on the same card tensors,
-    at every chunking of the digit rows, with missing calls, p not a
-    multiple of the block's SNPs and a ragged last tile of sample words."""
-    wt = _lab_words_t(9, 2600, 4099, cuda_device)            # nw = 192
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 64, 100, 128])
+@pytest.mark.parametrize("p_all", [4096, 4099])
+def test_int8_score_kernel_equals_plain_on_card(cuda_device, m, p_all):
+    """Kernel 6 (kernel 2's A with a zero guard) vs its plain version and
+    kernel 2's A, bit for bit, on the same card tensors: every plan of the
+    digit rows (m <= 2, one or two groups, 13 groups, two passes), missing
+    calls, a tiny and a zero column, nw = 163 (not a multiple of 32 or 4)
+    and p_all = 4099 (not a multiple of 4: the wrapper pads a copy)."""
+    wt = _lab_words_t(9, 2600, 4100, cuda_device)[:163, :p_all].contiguous()
     rhs = torch.randn((16 * wt.shape[0], m), device=cuda_device)
     rhs[:, 0] *= 1e-20
     if m > 2:
         rhs[:, 2] = 0.0                                      # a zero column
     before = kernels.LAUNCHES["xt_dots_T"]
     got = kernels.xt_dots_T(wt, rhs)
-    ref = decode.xt_dots_T(wt, rhs)
-    torch.cuda.synchronize()
-    assert got.shape == ref.shape == (wt.shape[1], m)
-    assert torch.equal(got, ref)
     assert kernels.LAUNCHES["xt_dots_T"] == before + 1
+    ref = decode.xt_dots_T(wt, rhs)
+    wt4 = torch.cat([wt, wt.new_zeros((wt.shape[0], -p_all % 4))], dim=1)
+    k2 = kernels.xt_dots_words_t(wt4, rhs, want_missing=False, p=p_all)[0]
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == k2.shape == (p_all, m)
+    assert torch.equal(got, ref) and torch.equal(got, k2)
 
 
 @pytest.mark.cuda
@@ -363,24 +369,38 @@ def _full_range(seed, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m_", [1, 2, 3, 8, 11, 64, 100])
-@pytest.mark.parametrize("tp", [128, 200, 512, 1024, 2048])
-def test_xt_i8_rounds_kernel_equals_plain_on_card(cuda_device, m_, tp):
-    """Kernel 7 against its plain version and kernel 6 on the transpose:
-    every digit-row chunking, a tp that is not a multiple of the sub-tile,
-    the probe's tp = 512 and 2048, p not a multiple of tp, every crumb code
-    and a ragged last word tile (nw = 164)."""
+@pytest.mark.parametrize("m_", [1, 3, 8, 64, 100])
+def test_xt_i8_rounds_kernel_equals_plain_on_card(cuda_device, m_):
+    """Kernel 7 (the ROW layout of the score body) against its plain
+    version and kernel 6 on the transpose, bit for bit, at every tp of the
+    probe (a no-op: the same result for each): every crumb code, p = 4099
+    (not a multiple of the tile or of 4) and nw = 164 (a ragged last K
+    step)."""
     w3 = torch.from_numpy(_full_range(m_, (4099, 164))).to(cuda_device)
     rhs = torch.randn((16 * w3.shape[1], m_), device=cuda_device)
     rhs[:, 0] *= 1e-20
-    before = kernels.LAUNCHES["xt_i8_rounds"]
-    got = kernels.xt_i8_rounds(w3, rhs, tp=tp)
     ref = decode.xt_i8_rounds(w3, rhs)
     k6 = kernels.xt_dots_T(w3.T.contiguous(), rhs)
-    torch.cuda.synchronize()
-    assert got.shape == ref.shape == (4099, m_)
-    assert torch.equal(got, ref) and torch.equal(got, k6)
-    assert kernels.LAUNCHES["xt_i8_rounds"] == before + 1
+    before = kernels.LAUNCHES["xt_i8_rounds"]
+    for tp in (128, 512, 1024, 2048):
+        got = kernels.xt_i8_rounds(w3, rhs, tp=tp)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (4099, m_)
+        assert torch.equal(got, ref) and torch.equal(got, k6), tp
+    assert kernels.LAUNCHES["xt_i8_rounds"] == before + 4
+
+
+@pytest.mark.cuda
+def test_row_layout_refuses_other_planes_and_ragged_rows(cuda_device):
+    """The ROW entry is built for A alone and 16-byte row runs: asking it
+    for M, or for nw not a multiple of 4, is refused before any launch."""
+    w3 = torch.zeros((256, 8), dtype=torch.int32, device=cuda_device)
+    rhs = torch.randn((128, 3), device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels._digit_score("xt_i8_rounds", w3, rhs, 8, 256, True, False,
+                             None)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.xt_i8_rounds(w3[:, :6].contiguous(), rhs[:96])
 
 
 @pytest.mark.cuda
