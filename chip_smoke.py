@@ -64,9 +64,14 @@ result line):
               launch count set to 0 before and read after, each of the six
               kernels launched; the probe verdicts against the reference's;
               the sweep of kernels 1, 2 and 6 over m = 1..128; kernels 4
-              and 5 equal to their plain versions at the lab's shapes and
-              timed by profiler device time (CUDA events would time the
-              host's launches), ``torch._int_mm``'s beside kernel 5's
+              and 5 equal to their plain versions at the lab's shapes
+              (kernel 5 also on random full-range operands, int4 and int8)
+              and timed by profiler device time (CUDA events would time the
+              host's launches): kernel 5 cold (the L2 emptied by a 128 MB
+              read before each call) and warm (the lab's loop on one
+              operand), ``torch._int_mm``'s timed both ways beside it and
+              kernel 3's cold read of the same words as the yardstick;
+              int4 faster than int8 cold, int8 ahead of ``torch._int_mm``
 12. kprobe    the round-3 kernel probe
               (``mendeliht_tpu_torch.tools.kernel_probe``) on the same 10k x
               1M genotypes: kernel 7 (``xt_i8_rounds``) equal to its plain
@@ -75,7 +80,9 @@ result line):
               timed beside its bound; kernels
               8 and 9 (``stream_xor``,
               ``decode_only``) equal to plain on the quad words at tp = 1024
-              (a ragged last tile) with a seed of 0 and one that wraps, timed;
+              (a ragged last tile) with a seed of 0 and one that wraps, timed
+              in turns (8, 9, 9, 8), kernel 9 within 25% of kernel 8 (the
+              same reads);
               then ``main(["1", "8", "64"])`` with every launch count set to
               0 before and read after, each of the three kernels launched
               and no variant failed
@@ -158,9 +165,13 @@ PROBE_TPS = (512, 2048)              # its v1tp512 and v1tp2048 row tiles
 WRAP_SEED = 2**31 - 3                # words + seed wraps in int32
 # integer operations a word that the functions of kernels 8 and 9 need: the
 # seed add and the xor; for the decode also h = (t >> 1) & 0x55555555 and its
-# 16 crumb values' sum popc(h) + popc(h & t), 6 more (kernel 9 itself does
-# the reference's 16 x (shift, and, add), which the bound does not charge)
+# 16 crumb values' sum popc(h) + popc(h & t), 6 more (kernel 9's own form)
 XOR_OPS = {"stream_xor": 2, "decode_only": 2 + 6}
+# bytes read between two cold calls of kernel 5: over twice the 50 MB L2
+FLUSH_BYTES = 128 << 20
+# kernel 9 reads what kernel 8 reads, with two popcounts a word more: timed
+# in turns it may exceed kernel 8's time by no more than this
+DECODE_SLACK = 1.25
 # the reference lab's verdicts (tools/kernel_lab5.py::probe_int4): its
 # int4 x int4 operands do not match, so that one is dot_general's error
 PROBE_VERDICTS = {
@@ -227,18 +238,20 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, match=None):
+def device_ms(fn, reps, match=None, skip=()):
     """Device ms per call of ``fn`` from a profiler trace of ``reps`` calls
-    after one: the kernels whose name holds ``match``, or (``match`` None)
-    all device activity.  For calls so short that CUDA events would time
-    the host's launches instead."""
+    after one: the kernels whose name holds ``match`` (any name if None)
+    and is not in ``skip``, or (neither given) all device activity.  For
+    calls so short that CUDA events would time the host's launches
+    instead."""
     fn()
-    with profiling.trace() as s:
+    with profiling.trace(top=64) as s:
         for _ in range(reps):
             fn()
-    if match is None:
+    if match is None and not skip:
         return s["device_busy_ms"] / reps
-    hits = [ms for name, ms, _ in s["kernels"] if match in name]
+    hits = [ms for name, ms, _ in s["kernels"]
+            if (match is None or match in name) and name not in skip]
     if not hits:
         raise AssertionError(f"no {match} kernel in the trace: {s['kernels']}")
     return sum(hits) / reps
@@ -876,10 +889,29 @@ def lab_unpack(dev):
                 **bound(dev, 32 * 256 * 4 * 9, 0, "f32"), library_ms=None)
 
 
+def cold_ms(fn, reps, match, dev):
+    """:func:`device_ms` of ``fn``'s kernels (those whose name holds
+    ``match``, or all of them) with the L2 emptied before each call by a
+    read of FLUSH_BYTES: clean lines, so the call's own misses write nothing
+    back.  The flush's own kernels are left out by name."""
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    with profiling.trace(top=64) as s:
+        flush.sum()
+    skip = {name for name, _, _ in s["kernels"]}
+
+    def call():
+        flush.sum()
+        fn()
+
+    return device_ms(call, reps, match, skip)
+
+
 def lab_dot(dev):
-    """Kernel 4's probe dots and kernel 5's ingestion dot equal to plain;
-    kernel 5 timed alone at the lab's shape beside its plain version and
-    ``torch._int_mm`` on the unpacked int8 operand."""
+    """Kernel 4's probe dots and kernel 5's ingestion dot equal to plain
+    (the lab's all-ones operands and random full-range ones); kernel 5 timed
+    alone at the lab's shape, cold (L2 emptied between calls) and warm (the
+    lab's loop on one operand), beside its plain version, its bound and
+    ``torch._int_mm`` on the unpacked int8 operand, timed the same two ways."""
     probes = (((32, 256), (256, 128), 4, True),
               ((32, 512), (8, 256), 4, False))
     for xs, ys, bits, lhs in probes:
@@ -891,39 +923,68 @@ def lab_dot(dev):
                            decode.int_dot_packed(x, y, bits, lhs)):
             raise AssertionError(f"probe dot {xs} x {ys} differs from plain")
     M, K, N = lab.INGEST_SHAPE
+    rng = np.random.default_rng(SEED)
     out = {}
-    x8, y8 = lab.ingestion_operands(8, dev)
     for bits in (8, 4):
-        x, y = (x8, y8) if bits == 8 else lab.ingestion_operands(bits, dev)
+        x, y = lab.ingestion_operands(bits, dev)
         got = kernels.int_dot_packed(x, y, bits)
         if not (torch.equal(got, decode.int_dot_packed(x, y, bits))
                 and int(got[::32 // bits].min()) == K
                 and int(got.sum()) == K * N * M * bits // 32):
             raise AssertionError(f"ingestion dot ({bits} bits) is wrong")
-        ms = device_ms(lambda: kernels.int_dot_packed(x, y, bits), 200,
-                       "int_dot_kernel")
+        xr = torch.from_numpy(rng.integers(-2**31, 2**31, size=x.shape)
+                              .astype(np.int32)).to(dev)
+        yr = torch.from_numpy(rng.integers(-128, 128, size=y.shape)
+                              .astype(np.int8)).to(dev)
+        if not torch.equal(kernels.int_dot_packed(xr, yr, bits),
+                           decode.int_dot_packed(xr, yr, bits)):
+            raise AssertionError(f"ingestion dot ({bits} bits) on random "
+                                 "operands differs from plain")
+        kern = lambda: kernels.int_dot_packed(x, y, bits)       # noqa: E731
+        cold = cold_ms(kern, 50, "ingest_dot_kernel", dev)
+        warm = device_ms(kern, lab.INGEST_REPS, "ingest_dot_kernel")
+        call = device_ms(kern, lab.INGEST_REPS)     # with y's staging copy
         plain_ms = device_ms(lambda: decode.int_dot_packed(x, y, bits), 20)
-        out[bits] = (ms, plain_ms, x.numel() * 4)
+        # the yardstick of one cold read of the same bytes: kernel 3
+        c0 = torch.zeros(1, dtype=torch.int32, device=dev)
+        read = cold_ms(lambda: kernels.read_words(x, c0), 50,
+                       "read_words_kernel", dev)
+        b = bound(dev, x.numel() * 4 + K * N + 4 * M * N, 2 * M * K * N,
+                  "int8")
+        out[bits] = dict(ms=cold, ms_warm=warm, call_ms_warm=call,
+                         plain_ms=plain_ms, share=b["bound_ms"] / cold,
+                         read_ms=read, **b)
+        print(f"[lab] ingestion dot ({M}, {K}) x ({K}, {N}), big operand "
+              f"int{bits} ({x.numel() * 4 / 1e6:.1f} MB): equal to plain "
+              f"(all-ones and random operands); kernel cold "
+              f"{cold * 1e3:.3f} us ({b['bound_ms'] / cold:.3f} of the "
+              f"bound), warm {warm * 1e3:.3f} us ({call * 1e3:.3f} us with "
+              f"the wrapper's staging of y), plain "
+              f"{plain_ms * 1e3:.3f} us of device time per call (profiler), "
+              f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}); the "
+              f"read probe (kernel 3) on the same words cold "
+              f"{read * 1e3:.3f} us", flush=True)
+    x8, y8 = lab.ingestion_operands(8, dev)
     a8 = decode.unpack_words(x8, 8).to(torch.int8)          # (M, K) int8
     if not torch.equal(torch._int_mm(a8, y8),
                        kernels.int_dot_packed(x8, y8, 8)):
         raise AssertionError("torch._int_mm differs from the kernel")
-    library_ms = device_ms(lambda: torch._int_mm(a8, y8), 200)
-    for bits, (ms, plain_ms, nbytes) in out.items():
-        b = bound(dev, nbytes + K * N + 4 * M * N, 2 * M * K * N, "int8")
-        print(f"[lab] ingestion dot ({M}, {K}) x ({K}, {N}), big operand "
-              f"int{bits} ({nbytes / 1e6:.1f} MB): equal to plain; kernel "
-              f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us of device "
-              f"time per call (profiler), bound {b['bound_ms'] * 1e3:.3f} us "
-              f"({b['bound_by']})", flush=True)
-    print(f"[lab] torch._int_mm on the unpacked int8 operand "
-          f"{library_ms * 1e3:.3f} us of device time per call", flush=True)
-    ms, plain_ms, nbytes = out[8]
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, ms_i4=out[4][0],
-                plain_ms_i4=out[4][1], shape=[M, K, N],
-                **bound(dev, nbytes + K * N + 4 * M * N, 2 * M * K * N,
-                        "int8"),
-                library_ms=library_ms)
+    lib = lambda: torch._int_mm(a8, y8)                         # noqa: E731
+    library_ms = cold_ms(lib, 50, None, dev)
+    library_warm = device_ms(lib, lab.INGEST_REPS)
+    print(f"[lab] torch._int_mm on the unpacked int8 operand: cold "
+          f"{library_ms * 1e3:.3f} us, warm {library_warm * 1e3:.3f} us of "
+          "device time per call", flush=True)
+    i8, i4 = out[8], out[4]
+    # the bytes decide: half of them, less time; and ahead of the library
+    if not (i4["ms"] < i8["ms"] and i8["ms"] < library_ms
+            and i8["ms_warm"] < library_warm):
+        raise AssertionError(f"ingestion dot cold int4 {i4['ms']}, int8 "
+                             f"{i8['ms']} ms (warm {i8['ms_warm']}) against "
+                             f"torch._int_mm {library_ms} ({library_warm})")
+    return dict(i8, max_abs_err=0.0, shape=[M, K, N], library_ms=library_ms,
+                library_ms_warm=library_warm,
+                **{f"{k}_i4": v for k, v in i4.items()})
 
 
 def check_rounds(small, gen):
@@ -985,32 +1046,46 @@ def probe_rounds(g, w3, gen):
 
 def probe_xor(g):
     """Kernels 8 and 9 on the quad words at the probe's tp (a ragged last
-    tile): equal to plain with a seed of 0 and one that wraps, then timed;
-    kernel 9 also with a word-column tile that leaves a ragged column."""
+    tile): equal to plain with a seed of 0 and one that wraps, then timed in
+    turns (8, 9, 9, 8: the same reads, one with the decode); kernel 9 also
+    with a word-column tile that leaves a ragged column."""
     words, tp = g.words, kernels.TP
     p4, nw = words.shape
     calls = {"stream_xor": (lambda s: kernels.stream_xor(words, s, tp),
                             lambda s: decode.stream_xor(words, s, tp)),
              "decode_only": (lambda s: kernels.decode_only(words, s, tp),
                              lambda s: decode.decode_only(words, s, tp, nw))}
-    out = {}
+    st = torch.tensor([[WRAP_SEED]], dtype=torch.int32, device=g.device)
+    plain_ms = {}
     for name, (kern, plain) in calls.items():
         for seed in (0, WRAP_SEED):
-            st = torch.tensor([[seed]], dtype=torch.int32, device=g.device)
-            if not torch.equal(kern(st), plain(st)):
+            s = torch.tensor([[seed]], dtype=torch.int32, device=g.device)
+            if not torch.equal(kern(s), plain(s)):
                 raise AssertionError(f"{name} differs from plain, seed {seed}")
-        ms, plain_ms, runs = interleaved(lambda: kern(st), lambda: plain(st),
-                                         reps=20, plain_reps=2)
+        plain_ms[name] = cuda_ms(lambda: plain(st), 2)
+    runs = {name: [] for name in calls}
+    for name in ("stream_xor", "decode_only", "decode_only", "stream_xor"):
+        runs[name].append(cuda_ms(lambda: calls[name][0](st), 20))
+    out = {}
+    for name, r in runs.items():
+        ms = sum(r) / len(r)
         b = bound(g.device, words.numel() * 4 + tp * nw * 4,
                   XOR_OPS[name] * words.numel(), "int32")
-        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b,
-                         library_ms=None, tp=tp)
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms[name], **b,
+                         share=b["bound_ms"] / ms, library_ms=None, tp=tp)
         print(f"[kprobe] {name} ({p4}, {nw}) tp={tp} (last tile {p4 % tp} "
               f"rows): equal to plain for seeds 0 and {WRAP_SEED}; kernel "
-              f"{ms:.3f} ms (runs {runs[0]:.3f}, {runs[1]:.3f}), "
+              f"{ms:.3f} ms (runs {r[0]:.3f}, {r[1]:.3f}), "
               f"{words.numel() * 4 / ms / 1e6:.1f} GB/s; plain "
-              f"{plain_ms:.3f} ms; bound {b['bound_ms']:.3f} ms "
-              f"({b['bound_by']})", flush=True)
+              f"{plain_ms[name]:.3f} ms; bound {b['bound_ms']:.3f} ms "
+              f"({b['bound_by']}), {b['bound_ms'] / ms:.3f} of it", flush=True)
+    ratio = out["decode_only"]["ms"] / out["stream_xor"]["ms"]
+    print(f"[kprobe] decode_only / stream_xor in turns: {ratio:.3f}",
+          flush=True)
+    if not ratio <= DECODE_SLACK:
+        raise AssertionError(f"decode_only takes {ratio:.3f} x stream_xor's "
+                             f"time on the same reads (at most "
+                             f"{DECODE_SLACK})")
     tw = 1000
     if not torch.equal(kernels.decode_only(words, st, tp, tw),
                        decode.decode_only(words, st, tp, tw)):

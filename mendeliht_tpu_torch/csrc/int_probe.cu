@@ -16,22 +16,50 @@
 //
 // Hopper facts that shape it: no Hopper MMA multiplies int4 by int8, wgmma
 // takes no int4 at all, and mma.sync takes .s4 only against .s4 (m16n8k64).
-// So the packed fields are widened to int8 in registers, four to a 32-bit
-// fragment register, and every product runs on mma.sync.m16n8k32 s8 x s8.
+// So the packed fields are widened to 8 bits in registers, four to a 32-bit
+// fragment register, and every product runs on mma.sync.m16n8k32 (s8 or u8
+// by s8).
 //
 // What bounds it on an H100: the lab's ingestion shape (M, K, N) =
 // (8192, 2048, 8) is 2.7e8 int8 operations (0.14 us at 1,979 TOP/s) on a
 // 16.8 MB (int8) or 8.4 MB (int4) packed operand, so the bytes bound it
 // (5.1 / 2.6 us at the 3.35 TB/s of device memory; both operands fit the
-// 50 MB L2, so repeated calls read L2).  The probe shapes are a few hundred
-// KB: launch latency.
+// 50 MB L2, so repeated calls on one operand read L2).  The probe shapes are
+// a few hundred KB: launch latency.
 //
-// Design: one block of 4 warps per 16 x 8 output tile, the warps splitting K
-// in 32-sample steps and adding their four accumulators through shared
-// memory at the end (enough warps in flight at N = 8).  An A fragment
-// register of the packed operand is one 16-byte load of four words and a
-// byte select (int8) or four nibble sign-extensions (int4); y's fragments
-// are single 32-bit loads.  No atomics: results repeat.
+// The packed-lhs dot (kernel 5, the ingestion dot) is built for bytes in
+// flight.  A block owns a slab of 8 word rows (32/bits * 8 output rows)
+// across all of K and 8 output columns; its 8 warps split K into 1 KB runs
+// of each row.  A warp copies its 8 runs (and its 8 columns' y) into shared
+// memory with cp.async, all issued before the first wait, in two groups
+// (the first and the second half of every run), so the whole slab is in
+// flight at once: 64 KB of words a block, 128 blocks on the 132 SMs at int4
+// (256 at int8, two an SM).  Each copy instruction moves 512 contiguous
+// bytes (a cold read of the slab in 64-byte pieces of 8 rows at a time is
+// markedly slower).  The warp decodes the first half while the second
+// lands.  Each word is decoded once: thread (g, t) of the MMA's fragment
+// layout reads word row g, and the four words of its 16-byte run are
+// samples 4t..4t+3 of a K step (16 + 4t.. for the second run).  A 4 x 4
+// byte transpose of those words (8 byte permutes) turns bytes into
+// fragment registers: for int8, byte f of four words is field f of four
+// samples, the A row of output row 4r + f; for int4 each transposed byte is
+// then split into its two nibbles (one and-xor each).  The fields of a word
+// row are the MMA's rows g and g + 8 of 32/bits / 2 m16 tiles, so one
+// decode feeds all of them.  An int4 field enters the MMA as u = nibble ^ 8
+// = field + 8 in [0, 15] on the u8 x s8 MMA (no sign fix), and one more MMA
+// a step with A = -8 adds -8 * sum_k y[k, n], exactly; int8 fields are
+// already int8.  Every block needs all of y's 16 KB: 128 blocks reading the
+// same lines at once queue on them in L2, so the wrapper stages y as 8
+// identical copies (a copy it makes anyway, to transpose y) and block bx
+// reads copy bx % 8.  The warps' sums meet in shared memory in the output's
+// layout (exact), and each warp stores 8 whole 32-byte output rows.
+
+// The packed-rhs dot (kernel 4's dot_i8_lhs_i4_rhs probe): one block of 4
+// warps per 16 x 8 output tile, the warps splitting K in 32-sample steps and
+// adding their four accumulators through shared memory at the end.  A B
+// fragment register of the packed operand is one word (int8) or four nibble
+// sign-extensions (int4); y's are single 32-bit loads.  No atomics: results
+// repeat.
 
 #include "i8_mma.cuh"
 
@@ -66,61 +94,241 @@ __device__ __forceinline__ uint32_t field_byte(uint32_t w, int j) {
          0xFFu;
 }
 
-// four int8 values (field j of four words) in one register
-template <int BITS>
-__device__ __forceinline__ uint32_t pack_fields(uint4 w, int j) {
-  if constexpr (BITS == 8) {
-    const uint32_t sel = j | ((j + 4) << 4);
-    return __byte_perm(__byte_perm(w.x, w.y, sel), __byte_perm(w.z, w.w, sel),
-                       0x5410);
-  } else {
-    return field_byte<BITS>(w.x, j) | (field_byte<BITS>(w.y, j) << 8) |
-           (field_byte<BITS>(w.z, j) << 16) | (field_byte<BITS>(w.w, j) << 24);
-  }
-}
-
 using i8mma::mma_s8;
+using i8mma::mma_u8s8;
 
-// A fragment register: row `row`, K values k..k+3, four int8
-template <int BITS, bool LHS_PACKED>
-__device__ __forceinline__ uint32_t load_a(const int32_t* xw, const int8_t* y,
-                                           int row, int k, int K, int xc) {
-  if constexpr (LHS_PACKED) {
-    constexpr int kF = 32 / BITS;
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(
-        xw + static_cast<size_t>(row / kF) * xc + k));
-    return pack_fields<BITS>(w, row % kF);
-  } else {
-    return __ldg(reinterpret_cast<const uint32_t*>(
-        y + static_cast<size_t>(row) * K + k));
-  }
+// ---------------------------------------------------------------------------
+// packed lhs: the ingestion dot
+// ---------------------------------------------------------------------------
+
+constexpr int kIngestWarps = 8;    // K split of a block
+constexpr int kIngestRows = 8;     // word rows of a block: fragment rows g
+constexpr int kIngestSteps = 8;    // K steps of a warp's range: 1 KB a row
+constexpr int kIngestThreads = kIngestWarps * 32;
+// a warp's shared tile: its 8 word rows' 1 KB runs and its 8 columns'
+// 256-byte y runs, rows padded by 64 and 16 bytes so that a warp's reads of
+// one fragment register fall in 32 banks (uint4 units)
+constexpr int kRowU4 = kIngestSteps * 8 + 4;
+constexpr int kColU4 = kIngestSteps * 2 + 1;
+constexpr int kWarpU4 = kIngestRows * kRowU4 + 8 * kColU4;
+constexpr int kTilesBytes = kIngestWarps * kWarpU4 * 16;
+// the warps' sums, in the output's layout: warp w, block output row
+// 32/BITS * r + j, column c at int w * RedWarp + r * RedRow + 8j + c; the
+// 8-int pad after each word row's output rows keeps a warp's 8-byte writes
+// (rows r = g of eight lanes) in distinct banks
+template <int BITS>
+constexpr int kRedRow = 8 * (32 / BITS) + 8;
+template <int BITS>
+constexpr int kRedWarp = kIngestRows * kRedRow<BITS>;
+template <int BITS>
+constexpr int kIngestSmem = kTilesBytes + kIngestWarps * kRedWarp<BITS> * 4;
+
+__device__ __forceinline__ void copy16(uint4* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
 
-// B fragment register: column `col`, K values k..k+3, four int8
-template <int BITS, bool LHS_PACKED>
-__device__ __forceinline__ uint32_t load_b(const int32_t* xw, const int8_t* y,
-                                           int col, int k, int K, int xc) {
-  if constexpr (LHS_PACKED) {
-    return __ldg(reinterpret_cast<const uint32_t*>(
-        y + static_cast<size_t>(col) * K + k));
+// d = (a & b) ^ c in one instruction (the compiler splits two constants)
+__device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// r[f] = byte f of w0..w3 (w0's in the low byte)
+__device__ __forceinline__ void transpose_bytes(uint4 w, uint32_t (&r)[4]) {
+  const uint32_t t0 = __byte_perm(w.x, w.y, 0x5140);  // x0 y0 x1 y1
+  const uint32_t t1 = __byte_perm(w.x, w.y, 0x7362);  // x2 y2 x3 y3
+  const uint32_t t2 = __byte_perm(w.z, w.w, 0x5140);
+  const uint32_t t3 = __byte_perm(w.z, w.w, 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// The fragment registers of four words (samples k..k+3 of one word row):
+// f[j] holds field j of the four words as int8 (BITS 8) or as field + 8 in
+// u8 (BITS 4), sample k in the low byte.  The byte transpose comes first:
+// the nibble masks act on each byte alike, so they commute with it.
+template <int BITS>
+__device__ __forceinline__ void decode_run(uint4 w, uint32_t (&f)[32 / BITS]) {
+  if constexpr (BITS == 8) {
+    transpose_bytes(w, f);
   } else {
-    constexpr int kF = 32 / BITS;
-    const uint32_t w = static_cast<uint32_t>(
-        __ldg(xw + static_cast<size_t>(k / kF) * xc + col));
-    if constexpr (BITS == 8) {
-      return w;                    // fields 0..3 are K values k..k+3
-    } else {
-      const int j0 = k % kF;       // 0 or 4
-      return field_byte<BITS>(w, j0) | (field_byte<BITS>(w, j0 + 1) << 8) |
-             (field_byte<BITS>(w, j0 + 2) << 16) |
-             (field_byte<BITS>(w, j0 + 3) << 24);
+    constexpr uint32_t kLo = 0x0F0F0F0Fu, kOff = 0x08080808u;
+    uint32_t r[4];
+    transpose_bytes(w, r);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[2 * b] = and_xor(r[b], kLo, kOff);         // field 2b: low nibble
+      f[2 * b + 1] = and_xor(r[b] >> 4, kLo, kOff);
     }
   }
 }
 
-template <int BITS, bool LHS_PACKED>
+// out (M, N) = unpack(x) (M, K) . y'.T with x (M*BITS/32, K) words and y'
+// (N, K) int8 given as y_copies identical copies (block bx reads copy bx %
+// y_copies).  Block (bx, by): word rows 8bx.., columns 8by..; warp w takes
+// the K steps 8w..8w+7 of each 64-step chunk.  Tile q of a word row r is
+// output rows 32/BITS * r + 2q (MMA row g) and + 2q + 1 (MMA row g + 8).
+template <int BITS>
+__global__ void __launch_bounds__(kIngestThreads)
+ingest_dot_kernel(const int32_t* __restrict__ x, const int8_t* __restrict__ y,
+                  int32_t* __restrict__ out, int M, int N, int K,
+                  int y_copies) {
+  constexpr int kF = 32 / BITS;
+  constexpr int kTiles = kF / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  uint4* sx = reinterpret_cast<uint4*>(smem) + warp * kWarpU4;
+  uint4* sy = sx + kIngestRows * kRowU4;
+  const int rows = M / kF;
+  const int row0 = blockIdx.x * kIngestRows;
+  const int col0 = blockIdx.y * 8;
+  const int8_t* yb = y + static_cast<size_t>(blockIdx.x % y_copies) * N * K;
+  int acc[kTiles][4] = {};
+  int corr[4] = {0, 0, 0, 0};          // -8 * sum_k y[k, n] (BITS 4)
+  for (int k0 = 256 * warp; k0 < K; k0 += 256 * kIngestWarps) {
+    __syncwarp();                      // the lanes are done with the tile
+    // one copy instruction a row half: 512 contiguous bytes, K steps 4h..;
+    // group h holds half h of every row (and, in group 0, y)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int r = 0; r < kIngestRows; ++r) {
+        const int k = k0 + 128 * h + 4 * lane;
+        const bool ok = row0 + r < rows && k < K;
+        copy16(sx + r * kRowU4 + 32 * h + lane,
+               x + (ok ? static_cast<size_t>(row0 + r) * K + k : 0), ok);
+      }
+      if (h == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // columns 2j, 2j + 1: 16 bytes a lane
+          const int c = 2 * j + lane / 16;
+          const int k = k0 + 16 * (lane % 16);
+          const bool ok = col0 + c < N && k < K;
+          copy16(sy + c * kColU4 + lane % 16,
+                 yb + (ok ? static_cast<size_t>(col0 + c) * K + k : 0), ok);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 0)
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      else
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncwarp();                    // the other lanes' copies are visible
+#pragma unroll
+      for (int i = 4 * h; i < 4 * h + 4; ++i) {  // samples k0 + 32i ..
+        uint32_t f0[kF], f1[kF];
+        decode_run<BITS>(sx[g * kRowU4 + 8 * i + t], f0);
+        decode_run<BITS>(sx[g * kRowU4 + 8 * i + 4 + t], f1);
+        const uint32_t* yc = reinterpret_cast<const uint32_t*>(sy + g * kColU4);
+        const uint32_t b0 = yc[8 * i + t];
+        const uint32_t b1 = yc[8 * i + 4 + t];
+#pragma unroll
+        for (int q = 0; q < kTiles; ++q) {
+          const uint32_t frag[4] = {f0[2 * q], f0[2 * q + 1], f1[2 * q],
+                                    f1[2 * q + 1]};
+          if constexpr (BITS == 8)
+            mma_s8(acc[q], frag, b0, b1);
+          else
+            mma_u8s8(acc[q], frag, b0, b1);
+        }
+        if constexpr (BITS == 4) {
+          constexpr uint32_t kMinus8 = 0xF8F8F8F8u;
+          const uint32_t m8[4] = {kMinus8, kMinus8, kMinus8, kMinus8};
+          mma_s8(corr, m8, b0, b1);
+        }
+      }
+    }
+  }
+  // accumulator c of tile q is output row kF g + 2q + c / 2, column 2t +
+  // c % 2: two 8-byte writes a tile
+  int* red = reinterpret_cast<int*>(smem + kTilesBytes);
+#pragma unroll
+  for (int q = 0; q < kTiles; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<int2*>(red + warp * kRedWarp<BITS> +
+                               g * kRedRow<BITS> + 8 * (2 * q + e) + 2 * t) =
+          make_int2(acc[q][2 * e] + corr[2 * e],
+                    acc[q][2 * e + 1] + corr[2 * e + 1]);
+  __syncthreads();
+  // thread i: block output row i / 4, columns 2(i % 4) and + 1; a warp
+  // writes 8 whole rows of 32 bytes
+  for (int i = threadIdx.x; i < 2 * kTiles * 32; i += kIngestThreads) {
+    const int rl = i / 4;
+    const int off = (rl / kF) * kRedRow<BITS> + 8 * (rl % kF) + 2 * (i % 4);
+    int s0 = 0, s1 = 0;
+#pragma unroll
+    for (int w = 0; w < kIngestWarps; ++w) {
+      const int2 v =
+          *reinterpret_cast<const int2*>(red + w * kRedWarp<BITS> + off);
+      s0 += v.x;
+      s1 += v.y;
+    }
+    const int row = kF * row0 + rl;
+    const int c = col0 + 2 * (i % 4);
+    if (row >= M) continue;
+    int32_t* o = out + static_cast<size_t>(row) * N + c;
+    if (c + 1 < N && N % 2 == 0) {
+      *reinterpret_cast<int2*>(o) = make_int2(s0, s1);
+    } else {
+      if (c < N) o[0] = s0;
+      if (c + 1 < N) o[1] = s1;
+    }
+  }
+}
+
+template <int BITS>
+int launch_ingest(const int32_t* x, const int8_t* y, int32_t* out, int M,
+                  int N, int K, int y_copies, cudaStream_t stream) {
+  if (y_copies < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ingest_dot_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kIngestSmem<BITS>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = M / (32 / BITS);
+  const dim3 grid((rows + kIngestRows - 1) / kIngestRows, (N + 7) / 8);
+  ingest_dot_kernel<BITS><<<grid, kIngestThreads, kIngestSmem<BITS>, stream>>>(
+      x, y, out, M, N, K, y_copies);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// packed rhs: kernel 4's dot_i8_lhs_i4_rhs probe
+// ---------------------------------------------------------------------------
+
+// B fragment register: column `col`, K values k..k+3, four int8
+template <int BITS>
+__device__ __forceinline__ uint32_t load_b(const int32_t* xw, int col, int k,
+                                           int xc) {
+  constexpr int kF = 32 / BITS;
+  const uint32_t w =
+      static_cast<uint32_t>(__ldg(xw + static_cast<size_t>(k / kF) * xc + col));
+  if constexpr (BITS == 8) {
+    return w;                    // fields 0..3 are K values k..k+3
+  } else {
+    const int j0 = k % kF;       // 0 or 4
+    return field_byte<BITS>(w, j0) | (field_byte<BITS>(w, j0 + 1) << 8) |
+           (field_byte<BITS>(w, j0 + 2) << 16) |
+           (field_byte<BITS>(w, j0 + 3) << 24);
+  }
+}
+
+// out (M, N) = y (M, K) int8 . unpack(x) (K, N), x (K*BITS/32, xc) words
+template <int BITS>
 __global__ void __launch_bounds__(kThreads)
-int_dot_kernel(const int32_t* __restrict__ xw, const int8_t* __restrict__ y,
+rhs_dot_kernel(const int32_t* __restrict__ xw, const int8_t* __restrict__ y,
                int32_t* __restrict__ out, int M, int N, int K, int xc) {
   __shared__ int red[kThreads / 32][32][4];
   const int warp = threadIdx.x / 32;
@@ -135,15 +343,15 @@ int_dot_kernel(const int32_t* __restrict__ xw, const int8_t* __restrict__ y,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = row0 + g + 8 * (r & 1);
-      a[r] = row < M ? load_a<BITS, LHS_PACKED>(xw, y, row,
-                                                k0 + 4 * t + 16 * (r >> 1), K,
-                                                xc)
+      a[r] = row < M ? __ldg(reinterpret_cast<const uint32_t*>(
+                           y + static_cast<size_t>(row) * K + k0 + 4 * t +
+                           16 * (r >> 1)))
                      : 0u;
     }
     uint32_t b0 = 0u, b1 = 0u;
     if (col < N) {
-      b0 = load_b<BITS, LHS_PACKED>(xw, y, col, k0 + 4 * t, K, xc);
-      b1 = load_b<BITS, LHS_PACKED>(xw, y, col, k0 + 16 + 4 * t, K, xc);
+      b0 = load_b<BITS>(xw, col, k0 + 4 * t, xc);
+      b1 = load_b<BITS>(xw, col, k0 + 16 + 4 * t, xc);
     }
     mma_s8(acc, a, b0, b1);
   }
@@ -162,12 +370,12 @@ int_dot_kernel(const int32_t* __restrict__ xw, const int8_t* __restrict__ y,
   }
 }
 
-template <int BITS, bool LHS_PACKED>
-void launch_dot(const int32_t* xw, const int8_t* y, int32_t* out, int M, int N,
-                int K, int xc, cudaStream_t stream) {
+template <int BITS>
+void launch_rhs(const int32_t* xw, const int8_t* y, int32_t* out, int M,
+                int N, int K, int xc, cudaStream_t stream) {
   const dim3 grid((M + 15) / 16, (N + 7) / 8);
-  int_dot_kernel<BITS, LHS_PACKED><<<grid, kThreads, 0, stream>>>(
-      xw, y, out, M, N, K, xc);
+  rhs_dot_kernel<BITS><<<grid, kThreads, 0, stream>>>(xw, y, out, M, N, K,
+                                                      xc);
 }
 
 }  // namespace
@@ -195,25 +403,26 @@ extern "C" int unpack_words(const void* x, void* out, long long r, long long c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// lhs_packed: x (M*bits/32, K) words, y (N, K) int8 (y transposed);
-// else: y (M, K) int8, x (K*bits/32, N) words.  K % 32 == 0, xc = x's
-// columns, pointers 16-byte aligned (the wrapper checks).
+// lhs_packed: x (M*bits/32, K) words, y y_copies identical (N, K) int8
+// (y transposed), one after the other; else: y (M, K) int8, x (K*bits/32,
+// N) words (y_copies unused).  K % 32 == 0, xc = x's columns, pointers
+// 16-byte aligned (the wrapper checks).
 extern "C" int int_dot_packed(const void* x, const void* y, void* out, int M,
                               int N, int K, int xc, int bits, int lhs_packed,
-                              void* stream) {
+                              int y_copies, void* stream) {
   if (M > 0 && N > 0) {
     const auto* xw = static_cast<const int32_t*>(x);
     const auto* yy = static_cast<const int8_t*>(y);
     auto* o = static_cast<int32_t*>(out);
     auto st = static_cast<cudaStream_t>(stream);
     if (bits == 8 && lhs_packed)
-      launch_dot<8, true>(xw, yy, o, M, N, K, xc, st);
-    else if (bits == 8)
-      launch_dot<8, false>(xw, yy, o, M, N, K, xc, st);
-    else if (bits == 4 && lhs_packed)
-      launch_dot<4, true>(xw, yy, o, M, N, K, xc, st);
+      return launch_ingest<8>(xw, yy, o, M, N, K, y_copies, st);
+    if (bits == 4 && lhs_packed)
+      return launch_ingest<4>(xw, yy, o, M, N, K, y_copies, st);
+    if (bits == 8)
+      launch_rhs<8>(xw, yy, o, M, N, K, xc, st);
     else if (bits == 4)
-      launch_dot<4, false>(xw, yy, o, M, N, K, xc, st);
+      launch_rhs<4>(xw, yy, o, M, N, K, xc, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

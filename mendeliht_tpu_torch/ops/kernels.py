@@ -35,6 +35,9 @@ LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0,
             "xt_i8_rounds": 0, "stream_xor": 0, "decode_only": 0}
 
 TP = 1024          # the round-3 probe's row tile (tools/kernel_probe.py)
+# copies of the small operand that the packed-lhs dot stages, so that its
+# blocks spread their reads of it over that many times the L2 lines
+_Y_COPIES = 8
 
 # the score kernels' entries (csrc/xt_dots_t.cu): words, digits, scale,
 # guard, A, M, S pointers; nw, p_all, m, two flags and the plan; the stream
@@ -462,7 +465,8 @@ def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
     if lhs_packed:
         (M, K), (ky, N) = (rows, xc), y.shape
         decode.check_contraction(K, ky)
-        y8 = y.to(torch.int8).t().contiguous()               # (N, K)
+        # (copies, N, K): each block of the kernel reads one copy
+        y8 = y.to(torch.int8).t().expand(_Y_COPIES, N, K).contiguous()
     else:
         (M, ky), (K, N) = y.shape, (rows, xc)
         decode.check_contraction(ky, K)
@@ -473,11 +477,11 @@ def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
     _check_card_tensor("y", y8, torch.int8)
     out = torch.empty((M, N), dtype=torch.int32, device=x_words.device)
     fn = _entry("int_probe", "int_dot_packed",
-                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6
+                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
                 + (ctypes.c_void_p,))
     _launch("int_dot_packed", fn, x_words.device, x_words.data_ptr(),
             y8.data_ptr(), out.data_ptr(), M, N, K, xc, bits,
-            int(lhs_packed))
+            int(lhs_packed), _Y_COPIES)
     return out
 
 

@@ -350,6 +350,27 @@ def test_ingestion_kernel_at_lab_shape_on_card(cuda_device, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_ingestion_kernel_on_full_range_operands_on_card(cuda_device, bits):
+    """Kernel 5 at the lab's ingestion shape on random words (every field
+    value, both signs, in every position) and random int8 y: a wrong field
+    order or sign changes the product."""
+    from mendeliht_tpu_torch.tools.kernel_lab5 import INGEST_SHAPE
+
+    M, K, N = INGEST_SHAPE
+    rng = np.random.default_rng(bits + 5)
+    x = torch.from_numpy(_full_range(bits, (M * bits // 32, K))).to(
+        cuda_device)
+    y = torch.from_numpy(rng.integers(-128, 128, size=(K, N), dtype=np.int64)
+                         .astype(np.int8)).to(cuda_device)
+    before = kernels.LAUNCHES["int_dot_packed"]
+    got = kernels.int_dot_packed(x, y, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, decode.int_dot_packed(x, y, bits))
+    assert kernels.LAUNCHES["int_dot_packed"] == before + 1
+
+
+@pytest.mark.cuda
 def test_int_dot_kernel_shape_error_before_launch(cuda_device):
     x = torch.zeros((32, 256), dtype=torch.int32, device=cuda_device)
     y = torch.zeros((128, 128), dtype=torch.int32, device=cuda_device)
@@ -418,3 +439,17 @@ def test_xor_kernels_equal_plain_on_card(cuda_device, p, nw, tp, tw, seed):
                        decode.decode_only(x, s, tp, tw or nw))
     assert kernels.LAUNCHES["stream_xor"] == before["stream_xor"] + 1
     assert kernels.LAUNCHES["decode_only"] == before["decode_only"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tw", [None, 1000])
+@pytest.mark.parametrize("seed", [0, 2**31 - 3])
+def test_decode_only_at_scale_on_card(cuda_device, seed, tw):
+    """Kernel 9 on 8.4 M full-range words (every crumb code, words + seed
+    wrapping), a ragged last row tile and, at tw = 1000, a ragged column
+    tile: equal to plain."""
+    x = torch.from_numpy(_full_range(seed % 7, (4099, 2048))).to(cuda_device)
+    s = torch.tensor([[seed]], dtype=torch.int32, device=cuda_device)
+    got = kernels.decode_only(x, s, tw=tw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, decode.decode_only(x, s, kernels.TP, tw or 2048))

@@ -204,6 +204,248 @@ def test_int_dot_packed_wraps_y_to_int8():
 
 
 # ---------------------------------------------------------------------------
+# a numpy model of kernel 5's packed-lhs dot (csrc/int_probe.cu,
+# ingest_dot_kernel): the copies each thread makes, its fragment registers,
+# the m16n8k32 MMA's fragment layout, the int4 offset and its correction, and
+# the reduction's output map
+# ---------------------------------------------------------------------------
+
+WARPS, STEPS = 8, 8             # kIngestWarps, kIngestSteps
+ROW_U4, COL_U4 = 8 * STEPS + 4, 2 * STEPS + 1   # kRowU4, kColU4 (uint4)
+Y_COPIES = kernels._Y_COPIES
+
+
+def _red_row(bits):
+    """kRedRow: ints of a word row's output rows in the sums' tile."""
+    return 8 * (32 // bits) + 8
+RANGE = 32 * STEPS              # samples of a warp's range: 1 KB a word row
+BANKS = 32
+RAGGED = [(8, 256, 512), (40, 96, 24), (256, 256, 128)]   # (M, K, N)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays: byte i of the
+    result is byte ``(sel >> 4i) & 7`` of the eight bytes ``y:x``."""
+    xy = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros(xy.shape, np.uint32)
+    for i in range(4):
+        b = np.uint64(8 * ((sel >> (4 * i)) & 7))
+        out |= ((xy >> b) & np.uint64(0xFF)).astype(np.uint32) << np.uint32(
+            8 * i)
+    return out
+
+
+def _transpose_bytes(w):
+    """``transpose_bytes``: w (..., 4) uint32 -> (..., 4), the kernel's
+    eight byte permutes."""
+    t0 = _byte_perm(w[..., 0], w[..., 1], 0x5140)
+    t1 = _byte_perm(w[..., 0], w[..., 1], 0x7362)
+    t2 = _byte_perm(w[..., 2], w[..., 3], 0x5140)
+    t3 = _byte_perm(w[..., 2], w[..., 3], 0x7362)
+    return np.stack([_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+                     _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)],
+                    axis=-1)
+
+
+def _decode_run(w, bits):
+    """``decode_run``: four words (..., 4) uint32 -> the (..., 32/bits)
+    fragment registers; int4: the transposed bytes' low nibble ^ 8 is field
+    2b, the high nibble ^ 8 field 2b + 1."""
+    r = _transpose_bytes(w)
+    if bits == 8:
+        return r
+    lo = (r & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    hi = ((r >> np.uint32(4)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)
+    return np.stack([lo, hi], axis=-1).reshape(*r.shape[:-1], 8)
+
+
+def _x_reads(g, t):
+    """uint4 slots of a warp's word tile that thread (g, t) reads for its two
+    runs of K step i (0..STEPS-1): (STEPS, 2)."""
+    i = np.arange(STEPS)[:, None]
+    return g * ROW_U4 + 8 * i + 4 * np.arange(2)[None, :] + t
+
+
+def _y_reads(g, t):
+    """uint32 words of a warp's y tile that thread (g, t) reads as b0, b1 of
+    K step i: (STEPS, 2)."""
+    i = np.arange(STEPS)[:, None]
+    return g * 4 * COL_U4 + 8 * i + 4 * np.arange(2)[None, :] + t
+
+
+def _warp_tiles(xw, yt):
+    """The shared tiles a warp's copies build, for every block and range of
+    RANGE samples: x (bx, range, 8 * ROW_U4, 4) uint32 from one 16-byte copy
+    a lane of word row r, half h (samples 128h + 4 lane); y (by, range,
+    8 * COL_U4 * 16) int8, column 2j + lane // 16, samples 16 (lane % 16).
+    Padding holds junk."""
+    nbx, nby, nr = xw.shape[0] // 8, yt.shape[0] // 8, xw.shape[1] // RANGE
+    tx = np.full((nbx, nr, 8 * ROW_U4, 4), 0xDEADBEEF, np.uint32)
+    src = xw.reshape(nbx, 8, nr, 2, 32, 4)                   # bx r rg h lane w
+    for r in range(8):
+        for h in range(2):
+            tx[:, :, r * ROW_U4 + 32 * h:r * ROW_U4 + 32 * h + 32] = \
+                src[:, r, :, h]
+    ty = np.full((nby, nr, 8 * COL_U4 * 16), -99, np.int8)
+    src = yt.reshape(nby, 8, nr, 16, 16)                     # by c rg piece b
+    for j in range(4):
+        for lane in range(32):
+            c, piece = 2 * j + lane // 16, lane % 16
+            o = (c * COL_U4 + piece) * 16
+            ty[:, :, o:o + 16] = src[:, c, :, piece]
+    return tx, ty
+
+
+def _ingest_model(x, y, bits):
+    """Kernel 5's packed-lhs path, unpack(x) (M, K) . y (K, N), as the
+    kernel computes it: x (M*bits/32, K) int32, y (K, N) -> (M, N) int64."""
+    kf, tiles = 32 // bits, 16 // bits
+    R, K = x.shape
+    N = y.shape[1]
+    nbx, nby = -(-R // 8), -(-N // 8)
+    kpad = -(-K // (WARPS * RANGE)) * WARPS * RANGE          # whole chunks
+    steps = kpad // 32
+    # absent word rows, columns and samples are copied as zeros; y is staged
+    # as the wrapper stages it, Y_COPIES copies of y' (N, K), and block bx
+    # reads copy bx % Y_COPIES
+    xw = np.zeros((nbx * 8, kpad), np.uint32)
+    xw[:R, :K] = x.view(np.uint32)
+    staged = torch.from_numpy(y).to(torch.int8).t().expand(
+        Y_COPIES, N, K).contiguous().numpy()
+    yt = np.zeros((Y_COPIES, nby * 8, kpad), np.int8)
+    yt[:, :N, :K] = staged
+    tx = _warp_tiles(xw, yt[0])[0]
+    # thread (g, t)'s runs of every K step, read from the tiles
+    runs = np.stack([np.stack([tx[:, :, _x_reads(g, t)] for t in range(4)],
+                              axis=3) for g in range(8)], axis=1)
+    runs = runs.reshape(nbx, 8, steps, 4, 2, 4).transpose(0, 1, 2, 4, 3, 5)
+    f = _decode_run(runs, bits)                              # bx g s h t j
+    # MMA tile q: A row g + 8e, column 16h + 4t + i <- byte i of the
+    # fragment register of field 2q + e (u8 for int4, s8 for int8)
+    fb = np.ascontiguousarray(f).view(np.uint8 if bits == 4 else np.int8)
+    fb = fb.reshape(nbx, 8, steps, 2, 4, tiles, 2, 4)       # bx g s h t q e i
+    a = fb.transpose(0, 5, 6, 1, 2, 3, 4, 7).reshape(
+        nbx, tiles * 16, steps * 32).astype(np.int64)
+    d = np.zeros((nbx, tiles * 16, nby * 8), np.int64)
+    for copy in range(Y_COPIES):
+        ty = _warp_tiles(xw[:8], yt[copy])[1]
+        yw = ty.view(np.uint32)
+        bw = np.stack([np.stack([yw[:, :, _y_reads(g, t)] for t in range(4)],
+                                axis=3) for g in range(8)], axis=1)
+        bw = bw.reshape(nby, 8, steps, 4, 2).transpose(0, 1, 2, 4, 3)
+        # B column g, row 16h + 4t + i <- byte i of thread (g, t)'s b_h
+        b = np.ascontiguousarray(bw).view(np.int8).reshape(nby, 8,
+                                                           steps * 32)
+        b = b.transpose(2, 0, 1).reshape(steps * 32, nby * 8).astype(np.int64)
+        mine = np.arange(nbx) % Y_COPIES == copy
+        d[mine] = a[mine] @ b
+        if bits == 4:                  # the correction MMA, A = -8
+            d[mine] -= 8 * b.sum(axis=0)
+    d = d.reshape(nbx, tiles, 16, nby, 8)
+    # thread (g, t)'s accumulator c of tile q (D row g + 8(c >> 1), column
+    # 2t + (c & 1)) goes to int g * RedRow + 8(2q + c // 2) + 2t + c % 2 of
+    # the sums' tile, where the warps' sums add
+    rr = _red_row(bits)
+    red = np.zeros((nbx, nby, 8 * rr), np.int64)
+    for q in range(tiles):
+        for c in range(4):
+            for g in range(8):
+                for t in range(4):
+                    red[:, :, g * rr + 8 * (2 * q + c // 2) + 2 * t + c % 2] = \
+                        d[:, q, g + 8 * (c >> 1), :, 2 * t + c % 2]
+    # thread i stores block output row i // 4, columns 2(i % 4) and + 1
+    out = np.zeros((nbx * 8 * kf, nby * 8), np.int64)
+    for i in range(2 * tiles * 32):
+        rl, tt = divmod(i, 4)
+        off = (rl // kf) * rr + 8 * (rl % kf) + 2 * tt
+        rows = 8 * kf * np.arange(nbx) + rl
+        for c in range(2):
+            cols = 8 * np.arange(nby) + 2 * tt + c
+            out[np.ix_(rows, cols)] = red[:, :, off + c]
+    return out[:R * kf, :N]
+
+
+def test_ingest_tile_reads_are_conflict_free():
+    """A warp's 16-byte reads of one run fall in 32 banks each quarter warp
+    (eight lanes), and its 4-byte y reads in 32 banks; no read touches the
+    padding.  The 8-byte writes and reads of the sums' tile fall in 32
+    banks each half warp."""
+    for i in range(STEPS):
+        for h in range(2):
+            slots = np.array([_x_reads(g, t)[i, h]
+                              for g in range(8) for t in range(4)])
+            assert (slots % ROW_U4 < 8 * STEPS).all()
+            for quarter in slots.reshape(4, 8):
+                banks = (4 * quarter[:, None] + np.arange(4)) % BANKS
+                assert len(set(banks.ravel())) == BANKS
+            words = np.array([_y_reads(g, t)[i, h]
+                              for g in range(8) for t in range(4)])
+            assert (words % (4 * COL_U4) < 8 * STEPS).all()
+            assert len(set(words % BANKS)) == BANKS
+    for bits in (4, 8):
+        rr, kf = _red_row(bits), 32 // bits
+        for q in range(16 // bits):    # the sums' 8-byte writes, 16 lanes a
+            for e in range(2):         # phase
+                w = np.array([g * rr + 8 * (2 * q + e) + 2 * t
+                              for g in range(8) for t in range(4)])
+                for half in w.reshape(2, 16):
+                    banks = (half[:, None] + np.arange(2)) % BANKS
+                    assert len(set(banks.ravel())) == BANKS
+        for i0 in range(0, 2 * (16 // bits) * 32, 32):   # and their reads
+            w = np.array([(rl // kf) * rr + 8 * (rl % kf) + 2 * (i % 4)
+                          for i in range(i0, i0 + 32) for rl in [i // 4]])
+            for half in w.reshape(2, 16):
+                banks = (half[:, None] + np.arange(2)) % BANKS
+                assert len(set(banks.ravel())) == BANKS
+
+
+def test_transpose_bytes_selectors():
+    """The kernel's permute selectors transpose a 4 x 4 byte block."""
+    w = np.random.default_rng(5).integers(0, 2**32, size=(64, 4),
+                                          dtype=np.uint64).astype(np.uint32)
+    want = w.view(np.uint8).reshape(64, 4, 4).transpose(0, 2, 1)
+    np.testing.assert_array_equal(
+        _transpose_bytes(w).view(np.uint8).reshape(64, 4, 4), want)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fragment_registers_are_unpacked_fields(bits):
+    """Byte i of fragment register j of four words is field j of word i
+    (``decode.unpack_words``), + 8 as u8 for int4, as s8 for int8."""
+    x = _full_words(bits, (256, 4))
+    f = _decode_run(x.view(np.uint32), bits)                 # (256, 32/bits)
+    fields = decode.unpack_words(torch.from_numpy(x), bits).numpy().reshape(
+        256, 32 // bits, 4)                                  # word row, j, i
+    got = f.view(np.uint8 if bits == 4 else np.int8).reshape(
+        256, 32 // bits, 4).astype(np.int64)
+    np.testing.assert_array_equal(got, fields + (8 if bits == 4 else 0))
+    if bits == 4:
+        assert got.min() == 0 and got.max() == 15            # u8, offset 8
+
+
+def _full_words(seed, shape):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    x.reshape(-1)[:4] = [-1, 0x7FFFFFFF, -2**31, 0x08080808]
+    return x
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", [tlab.INGEST_SHAPE] + RAGGED)
+def test_ingest_model_equals_int_dot_packed(bits, shape):
+    """The model of kernel 5 equals the plain version on full-range words and
+    int8 y, at the lab's ingestion shape, the probe's dot and the card
+    tests' ragged shapes (absent word rows, columns and K steps)."""
+    M, K, N = shape
+    x = _full_words(M + bits, (M * bits // 32, K))
+    y = np.random.default_rng(N).integers(-128, 128, size=(K, N),
+                                          dtype=np.int64).astype(np.int32)
+    want = decode.int_dot_packed(torch.from_numpy(x), torch.from_numpy(y),
+                                 bits).numpy()
+    np.testing.assert_array_equal(_ingest_model(x, y, bits), want)
+
+
+# ---------------------------------------------------------------------------
 # timing entry points and profiling
 # ---------------------------------------------------------------------------
 

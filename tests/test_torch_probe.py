@@ -243,6 +243,37 @@ def test_decode_sums_count_crumb_values():
     np.testing.assert_array_equal(got.numpy(), value)
 
 
+def _popcount_crumb_sums(t):
+    """Kernel 9's crumb sum (``csrc/kernel_probe.cu::crumb_sum``) in numpy
+    uint32: popc(h) + popc(h & t), h = (t >> 1) & 0x55555555."""
+    h = (t >> np.uint32(1)) & np.uint32(0x55555555)
+    return np.bitwise_count(h).astype(np.int32) + np.bitwise_count(h & t)
+
+
+@pytest.mark.parametrize("seed", [0, -7, 2**31 - 3])
+def test_popcount_crumb_sum_equals_decode_sums(seed):
+    """The popcount form equals the plain version's 16 rounds on full-range
+    words, ``words + seed`` wrapping, every crumb code in every position."""
+    x = _int32(np.random.default_rng(seed % 97), (64, 1024))
+    x.reshape(-1)[:6] = [-1, 0, 0x7FFFFFFF, -2**31, 0x55555555, -0x55555556]
+    t = ((x.view(np.uint32).astype(np.uint64) + seed % 2**32) % 2**32
+         ).astype(np.uint32)                       # the kernel's uint32 add
+    want = decode.decode_sums(torch.from_numpy(x) + torch.tensor(
+        seed, dtype=torch.int32)).numpy()          # wrapping int32
+    np.testing.assert_array_equal(_popcount_crumb_sums(t), want)
+    assert want.min() >= 0 and want.max() <= 32
+
+
+def test_popcount_crumb_sum_of_every_byte():
+    """Each byte's four crumbs on their own: the popcount sum of a word is
+    the sum of its bytes' values, for all 256 bytes in every position."""
+    b = np.arange(256, dtype=np.uint32)
+    value = sum(np.array([0, 0, 1, 2])[(b >> (2 * k)) & 3] for k in range(4))
+    for pos in range(4):
+        np.testing.assert_array_equal(
+            _popcount_crumb_sums(b << np.uint32(8 * pos)), value)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' checks, the timers and the entry point
 # ---------------------------------------------------------------------------
