@@ -38,7 +38,12 @@ result line):
               card's score takes R through 21-bit digits, the CPU operator
               runs the f32 function, as the JAX package's does off the TPU)
 7. cv-parity  the same ``cv_iht`` (2,000 x 20,000, path 1:10, q=3, fixed
-              folds) on the card and on the CPU: mse within 1e-4, same best k
+              folds) on the card and on the CPU: mse within 1e-4, same best
+              k; then every family of FAMILIES fitted on the card and on the
+              CPU at that size (responses from ``simulate_random_response``,
+              seed 2026 + the family's index): same support, iterations
+              within one; and the Bernoulli cv, path 1:10, q=3: mse within
+              1e-4, same best k
 8. fit        ``fit_iht`` at 10k x 1M, k=10 (the JAX package's headline
               size) through ``PackedOp`` (quad words, kernel 1) and through
               the genotypes (dual layout, kernel 2), cold then FIT_WARM warm
@@ -71,7 +76,10 @@ result line):
               read before each call) and warm (the lab's loop on one
               operand), ``torch._int_mm``'s timed both ways beside it and
               kernel 3's cold read of the same words as the yardstick;
-              int4 faster than int8 cold, int8 ahead of ``torch._int_mm``
+              int4 faster than int8 cold, int8 ahead of ``torch._int_mm``;
+              kernel 4's unpack and packed-rhs probe dot (``rhs_dot_kernel``)
+              each timed in turns with a zero fill of its output, the least
+              a launch that writes those bytes takes (its one-launch floor)
 12. kprobe    the round-3 kernel probe
               (``mendeliht_tpu_torch.tools.kernel_probe``) on the same 10k x
               1M genotypes: kernel 7 (``xt_i8_rounds``) equal to its plain
@@ -86,6 +94,19 @@ result line):
               then ``main(["1", "8", "64"])`` with every launch count set to
               0 before and read after, each of the three kernels launched
               and no variant failed
+    families  the other GLM families on the same 10k x 1M genotypes (after
+              the kernel-6 gate), responses from ``simulate_random_response``
+              with seed 2026 + the family's index: the Bernoulli (logit)
+              fit through both layouts, cold then FAM_FIT_WARM warm runs
+              (identical, exactly k selected, causal recovered, launches);
+              the Bernoulli cv on cv_iht's default path, cold then
+              FAM_CV_WARM warm runs on the same folds (finite mse, best k,
+              kernel-2 launches, peak memory); then the Poisson, negative
+              binomial (est_r Newton and MM), Gamma and inverse Gaussian
+              (log link) fits on the dual layout, each cold and warm, with
+              exactly k selected, a finite logl, causal recovered, the
+              estimated r, and a ``profiling.trace`` of one warm fit of
+              every family (launches, syncs, device idle share)
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernels 2 and 1 vs plain
               bit for bit and equal to each other, timed at m=100 on them
@@ -107,7 +128,9 @@ bit for bit, on the round-3 words of the kernel cases at m in {1, 8, 64}
 
 Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
-(kernel 1; ``cv_launches`` from the cv-quad run), the cv (kernel 2), the
+(kernel 1; ``cv_launches`` from the cv-quad run, ``family_launches`` from
+the Bernoulli quad-word fit), the cv (kernel 2; ``family_launches`` from
+each family's fit and the Bernoulli cv), the
 read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
 ``lab_launches`` of every kernel) and the probe's
 run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
@@ -130,14 +153,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mendeliht_tpu_torch import PackedGenotypes, cv_iht, fit_iht
-from mendeliht_tpu_torch.models import univariate
+from mendeliht_tpu_torch import (Bernoulli, Gamma, InverseGaussian, LogLink,
+                                 LogitLink, NegativeBinomial, PackedGenotypes,
+                                 Poisson, cv_iht, fit_iht)
+from mendeliht_tpu_torch.models import fit as fit_module, univariate
 from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.ops.linalg import PackedOp
 from mendeliht_tpu_torch.tools import kernel_lab5 as lab
 from mendeliht_tpu_torch.tools import kernel_probe as probe
 from mendeliht_tpu_torch.utils import profiling
-from mendeliht_tpu_torch.utils.simulate import simulate_packed_problem
+from mendeliht_tpu_torch.utils.simulate import (simulate_packed_problem,
+                                                simulate_random_response)
 
 N, P, K = 10_000, 1_000_000, 10          # the JAX package's headline fit
 P_KERNEL = 65_536                        # SNPs of the kernel-vs-plain cases
@@ -145,8 +171,21 @@ N_DEEP, P_DEEP = 200_000, 4_096          # long per-SNP sums
 N_PARITY, P_PARITY = 2_000, 20_000       # the card-vs-CPU fit and cv
 CV_PATH, CV_Q = list(range(1, 21)), 5    # the reference-shaped cv grid
 FIT_WARM, CV_WARM, CVQ_WARM = 10, 5, 3   # warm runs after the cold one
+FAM_FIT_WARM, FAM_CV_WARM = 5, 3         # the families phase's
+# the families phase, in its order: (label, family, link, est_r); the
+# response of each family comes from simulate_random_response with seed
+# SEED + its index in FAMILY_SEEDS (the two negative-binomial fits share one)
+FAMILIES = (("bernoulli", Bernoulli(), LogitLink(), "none"),
+            ("poisson", Poisson(), LogLink(), "none"),
+            ("negbin-newton", NegativeBinomial(), LogLink(), "newton"),
+            ("negbin-mm", NegativeBinomial(), LogLink(), "mm"),
+            ("gamma", Gamma(), LogLink(), "none"),
+            ("invgauss", InverseGaussian(), LogLink(), "none"))
+FAMILY_SEEDS = ("bernoulli", "poisson", "negativebinomial", "gamma",
+                "inversegaussian")
 N_BIG = 51_200                           # past the budget: 12.8 GB of words
 CV_MAX_ITER = 100                        # cv_iht's default
+FIT_MAX_ITER = 200                       # fit_iht's default
 SEED = 2026
 CV_TOL = 1e-4      # cv mse, card vs CPU: f32 sums in another order
 SOURCES = ("xt_dots_t", "read_probe", "int_probe", "kernel_probe")
@@ -663,106 +702,119 @@ def phase_cv_parity(card_g, cpu_g, y):
         raise AssertionError("card and CPU cv disagree")
 
 
-def phase_fit(g, causal, y, card):
-    """The 10k x 1M fit through both layouts, cold then FIT_WARM warm runs
-    each; returns kernel 1's launches in the last warm quad-word fit."""
+def phase_fit(g, causal, y, card, name="fit", warm=FIT_WARM, min_found=K,
+              **fit_kw):
+    """The 10k x 1M fit (``fit_kw``: its family, link, est_r) through both
+    layouts, cold then ``warm`` warm runs each: exactly K selected, at
+    least ``min_found`` causal SNPs among them; returns kernel 1's and
+    kernel 2's launches in the last warm fit of each layout."""
     quad = PackedOp(dataclasses.replace(g, words_t=None))
     res = {}
     for layout, x in (("quad", quad), ("dual", g)):
         mine = "xt_dots_words" if layout == "quad" else "xt_dots_words_t"
         other = "xt_dots_words_t" if layout == "quad" else "xt_dots_words"
         walls = []
-        for run in range(1 + FIT_WARM):
-            for name in kernels.LAUNCHES:
-                kernels.LAUNCHES[name] = 0
+        for run in range(1 + warm):
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
             t0 = time.perf_counter()
-            r = fit_iht(y, x, k=K, verbose=False)
+            r = fit_iht(y, x, k=K, verbose=False, **fit_kw)
             walls.append(time.perf_counter() - t0)
             launches = dict(kernels.LAUNCHES)
             sel = np.flatnonzero(r.beta)
             found = len(set(sel) & set(causal.tolist()))
             if run == 0:
-                print(f"[fit] {layout} cold fit {N} x {P} k={K}: "
+                print(f"[{name}] {layout} cold fit {N} x {P} k={K}: "
                       f"{walls[0]:.4f} s on {card}; iter {r.iter}, logl "
                       f"{r.logl}, causal recovered {found}/{K}, {len(sel)} "
                       f"selected, launches {launches[mine]} ({mine}), "
                       f"{launches[other]} ({other})", flush=True)
-            if (len(sel) != K or found < K or launches[mine] < r.iter + 1
-                    or launches[other] != 0):
-                raise AssertionError(f"{layout} fit failed its checks")
+            if (len(sel) != K or found < min_found
+                    or launches[mine] < r.iter + 1 or launches[other] != 0):
+                raise AssertionError(f"{name}: {layout} fit failed its "
+                                     "checks")
             if run:
                 same = (set(sel), r.iter, r.logl) == res[layout][:3]
                 if not same:
-                    raise AssertionError(f"{layout} warm fit differs from cold")
+                    raise AssertionError(f"{name}: {layout} warm fit differs "
+                                         "from cold")
             res[layout] = (set(sel), r.iter, r.logl, launches[mine])
-        warm = np.array(walls[1:])
-        print(f"[fit] {layout} {FIT_WARM} warm fits: median "
-              f"{np.median(warm):.4f} s, range {warm.min():.4f}-"
-              f"{warm.max():.4f} s, each the same result; launches "
+        walls = np.array(walls[1:])
+        print(f"[{name}] {layout} {warm} warm fits: median "
+              f"{np.median(walls):.4f} s, range {walls.min():.4f}-"
+              f"{walls.max():.4f} s, each the same result; launches "
               f"{launches[mine]} ({mine}) per fit", flush=True)
-    (sq, iq, lq, launches), (sd, idu, ld, _) = res["quad"], res["dual"]
+    (sq, iq, lq, quad_launches), (sd, idu, ld, dual_launches) = (
+        res["quad"], res["dual"])
     # kernels 1 and 2 compute one function bit for bit, so the two fits
     # are one fit
     if (sq, iq, lq) != (sd, idu, ld):
-        raise AssertionError(f"quad and dual fits differ: {iq} and {idu} "
-                             f"iterations, logl {lq} and {ld}, same support "
-                             f"{sq == sd}")
-    print(f"[fit] quad and dual: identical, support of {len(sq)}, {iq} "
+        raise AssertionError(f"{name}: quad and dual fits differ: {iq} and "
+                             f"{idu} iterations, logl {lq} and {ld}, same "
+                             f"support {sq == sd}")
+    print(f"[{name}] quad and dual: identical, support of {len(sq)}, {iq} "
           f"iterations, logl {lq}", flush=True)
-    return launches
+    return quad_launches, dual_launches
 
 
 @contextlib.contextmanager
-def solver_states():
-    """Collects the state of every full solve (``univariate.run_iht``);
-    cv_iht's default path runs one for all its (fold, k) tasks."""
-    states, run_iht = [], univariate.run_iht
+def solver_states(module=univariate, name="run_iht"):
+    """Collects the state that every call of ``module.name`` returns: by
+    default every full solve (``univariate.run_iht``; cv_iht's default path
+    runs one for all its (fold, k) tasks); ``fit_module.finalize_iht`` gives
+    the final state of every ``fit_iht``."""
+    states, fn = [], getattr(module, name)
 
     def recording(*args, **kwargs):
-        states.append(run_iht(*args, **kwargs))
+        states.append(fn(*args, **kwargs))
         return states[-1]
 
-    univariate.run_iht = recording
+    setattr(module, name, recording)
     try:
         yield states
     finally:
-        univariate.run_iht = run_iht
+        setattr(module, name, fn)
 
 
-def run_cv(x, y):
-    """cv_iht on its default path: (mse, wall s, the launches of every
-    kernel, counted from 0, the final solver state)."""
+def run_cv(x, y, **cv_kw):
+    """cv_iht on its default path (``cv_kw``: its family, link): (mse, wall
+    s, the launches of every kernel, counted from 0, the final solver
+    state)."""
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
     with solver_states() as states:
         t0 = time.perf_counter()
         mse = cv_iht(y, x, path=CV_PATH, q=CV_Q, verbose=False,
-                     max_iter=CV_MAX_ITER, rng=np.random.default_rng(SEED))
+                     max_iter=CV_MAX_ITER, rng=np.random.default_rng(SEED),
+                     **cv_kw)
         wall = time.perf_counter() - t0
     return mse, wall, dict(kernels.LAUNCHES), states[-1]
 
 
-def phase_cv(name, x, y, card, warm, kernel="xt_dots_words_t"):
+def phase_cv(name, x, y, card, warm, kernel="xt_dots_words_t", gaussian=True,
+             **cv_kw):
     """cv_iht at the full width on ``x`` (genotypes or an operator), cold
     then ``warm`` warm runs on the same folds, every score pass through
     ``kernel`` (kernel 2, or kernel 1 for the quad words) and none through
-    the other; returns its launches in the last run and the mse."""
+    the other; for the Gaussian cv (``gaussian``) also every task converged
+    and best k in 8..14; returns its launches in the last run and the
+    mse."""
     other = ({"xt_dots_words", "xt_dots_words_t"} - {kernel}).pop()
     k = "kernel-2" if kernel == "xt_dots_words_t" else "kernel-1"
     missing = (x.geno if isinstance(x, PackedOp) else x).has_missing
     out = []
     torch.cuda.reset_peak_memory_stats()
     for run in range(1 + warm):
-        mse, wall, counts, st = run_cv(x, y)
+        mse, wall, counts, st = run_cv(x, y, **cv_kw)
         launches = counts[kernel]
         iters, iteration = st.iters.cpu().numpy(), st.iteration
         del st                  # its (B, p) arrays would raise the next peak
         done = int((iters < CV_MAX_ITER).sum())
         best = CV_PATH[int(np.argmin(mse))]
         out.append((mse, wall))
-        if (not np.all(np.isfinite(mse)) or done != len(iters)
-                or launches < iteration + 1 or counts[other] != 0
-                or not 8 <= best <= 14):
+        if (not np.all(np.isfinite(mse)) or launches < iteration + 1
+                or counts[other] != 0
+                or gaussian and (done != len(iters) or not 8 <= best <= 14)):
             raise AssertionError(f"{name} failed its checks: best k {best}, "
                                  f"{done}/{len(iters)} converged, "
                                  f"{launches} {k} launches, "
@@ -828,6 +880,118 @@ def phase_profile(g, y, card, calls=None):
             raise AssertionError(f"the {what} trace shows no {kernel} time")
 
 
+def family_responses(g):
+    """{family name: (y, causal SNPs)} of each family in FAMILY_SEEDS,
+    drawn by ``simulate_random_response`` over ``g`` with seed SEED + its
+    index there, through the link the families phase fits it with."""
+    out = {}
+    for i, dist in enumerate(FAMILY_SEEDS):
+        _, d, l, _ = next(f for f in FAMILIES if f[1].name == dist)
+        y, _, causal = simulate_random_response(
+            g, K, d, l, rng=np.random.default_rng(SEED + i))
+        out[dist] = (y, causal)
+    return out
+
+
+def phase_family_parity(card_g, cpu_g):
+    """Every family of FAMILIES fitted on the card and on the CPU at the
+    parity size: the same support, iterations within one; then the
+    Bernoulli cv (path 1:10, q=3, fixed folds): mse within CV_TOL, the
+    same best k."""
+    t_phase = time.perf_counter()
+    ys = family_responses(cpu_g)
+    for label, d, l, est_r in FAMILIES:
+        y, causal = ys[d.name]
+        t0 = time.perf_counter()
+        a = fit_iht(y, card_g, k=K, d=d, l=l, est_r=est_r, verbose=False)
+        t1 = time.perf_counter()
+        b = fit_iht(y, cpu_g, k=K, d=d, l=l, est_r=est_r, verbose=False)
+        t2 = time.perf_counter()
+        sa, sb = set(np.flatnonzero(a.beta)), set(np.flatnonzero(b.beta))
+        print(f"[parity] {label} n={card_g.n} p={card_g.p} k={K}: cuda logl "
+              f"{a.logl} iter {a.iter}, cpu logl {b.logl} iter {b.iter}, "
+              f"same support {sa == sb}, causal recovered "
+              f"{len(sa & set(causal.tolist()))}/{K}; {t1 - t0:.1f} s on "
+              f"the card, {t2 - t1:.1f} s on the CPU", flush=True)
+        if sa != sb or abs(a.iter - b.iter) > 1:
+            raise AssertionError(f"{label}: card and CPU fits disagree")
+    y = ys["bernoulli"][0]
+    folds = np.random.default_rng(5).integers(1, 4, size=card_g.n)
+    path = list(range(1, 11))
+    kw = dict(d=Bernoulli(), path=path, q=3, folds=folds, verbose=False)
+    a, b = cv_iht(y, card_g, **kw), cv_iht(y, cpu_g, **kw)
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    ka, kb = path[int(np.argmin(a))], path[int(np.argmin(b))]
+    print(f"[cv-parity] bernoulli n={card_g.n} p={card_g.p} path 1:10 q=3: "
+          f"cuda best k {ka}, cpu best k {kb}, mse rel err {err:.3g}",
+          flush=True)
+    if not err < CV_TOL or ka != kb:
+        raise AssertionError("card and CPU Bernoulli cv disagree")
+    print(f"[parity] families in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase_families(g, card):
+    """Every other GLM family at 10k x 1M on the card: the Bernoulli fit
+    through both layouts (identical), the Bernoulli cv on cv_iht's default
+    path, then the Poisson, negative binomial (est_r Newton and MM), Gamma
+    and inverse Gaussian fits on the dual layout, each with exactly K
+    selected and a finite logl, and a ``profiling.trace`` of a warm fit of
+    every family; returns the score kernels' launches on each path."""
+    t_phase = time.perf_counter()
+    ys = family_responses(g)
+    print(f"[families] responses of {len(ys)} families over {N} x {P} from "
+          f"simulate_random_response in {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    label, d, l, _ = FAMILIES[0]
+    y, causal = ys[d.name]
+    quad, dual = phase_fit(g, causal, y, card, name=f"families {label}",
+                           warm=FAM_FIT_WARM, min_found=0, d=d, l=l)
+    cv, _ = phase_cv(f"families {label} cv", g, y, card, FAM_CV_WARM,
+                     gaussian=False, d=d, l=l)
+    launches = {"xt_dots_words": {f"{label} quad fit": quad},
+                "xt_dots_words_t": {f"{label} fit": dual, f"{label} cv": cv}}
+    for label, d, l, est_r in FAMILIES:
+        y, causal = ys[d.name]
+        kw = dict(k=K, d=d, l=l, est_r=est_r, verbose=False)
+        walls = []
+        for _ in range(2):                          # cold, then warm
+            for name in kernels.LAUNCHES:
+                kernels.LAUNCHES[name] = 0
+            with solver_states(fit_module, "finalize_iht") as states:
+                t0 = time.perf_counter()
+                r = fit_iht(y, g, **kw)
+                walls.append(time.perf_counter() - t0)
+            counts = dict(kernels.LAUNCHES)
+        nb_r = float(states[-1].nb_r[0])
+        sel = np.flatnonzero(r.beta)
+        found = len(set(sel) & set(causal.tolist()))
+        with profiling.trace() as s:
+            fit_iht(y, g, **kw)
+        print(f"[families] {label} ({l!r}, est_r={est_r}) {N} x {P} k={K} "
+              f"on {card}: iter {r.iter}, logl {r.logl}, causal recovered "
+              f"{found}/{K}, {len(sel)} selected, r {nb_r}; cold "
+              f"{walls[0]:.4f} s, warm {walls[1]:.4f} s; kernel-2 launches "
+              f"{counts['xt_dots_words_t']}; traced warm fit: wall "
+              f"{s['wall_ms']:.1f} ms, device busy {s['device_busy_ms']:.1f} "
+              f"ms, idle share {s['idle_share']:.3f}, {s['launches']} kernel "
+              f"launches ({s['launch_host_ms']:.1f} ms of host), "
+              f"{s['syncs']} syncs waiting {s['sync_wait_ms']:.1f} ms",
+              flush=True)
+        # one score pass at the start and one an iteration run; a fit that
+        # does not converge reports max_iter after max_iter - 1 iterations
+        ran = min(r.iter, FIT_MAX_ITER - 1)
+        if (len(sel) != K or not np.isfinite(r.logl)
+                or counts["xt_dots_words_t"] < ran + 1
+                or counts["xt_dots_words"] != 0):
+            raise AssertionError(f"the {label} fit failed its checks")
+        launches["xt_dots_words_t"].setdefault(f"{label} fit",
+                                               counts["xt_dots_words_t"])
+    print(f"[families] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def phase_lab(g, card):
     """The kernel lab's entry points on the 10k x 1M genotypes, then its
     sweep of kernels 1, 2 and 6 and kernels 4 and 5 against their plain
@@ -872,21 +1036,64 @@ def phase_lab(g, card):
                 launches=launches)
 
 
+def launch_floor(kern, match, out, reps=200):
+    """Device ms per call of ``kern`` (its kernels named ``match``) and of
+    ``out.zero_()``, one launch that only writes ``kern``'s output: the
+    least a launch that writes those bytes takes on this card.  Timed in
+    turns (zero, kernel, kernel, zero); returns (kernel ms, floor ms)."""
+    zero = out.zero_
+    floor = [device_ms(zero, reps)]
+    ms = [device_ms(kern, reps, match), device_ms(kern, reps, match)]
+    floor.append(device_ms(zero, reps))
+    return sum(ms) / 2, sum(floor) / 2
+
+
 def lab_unpack(dev):
-    """Kernel 4's unpack at the probe's shape: equal to plain, timed."""
-    x = torch.from_numpy(np.random.default_rng(SEED).integers(
-        -2**31, 2**31, size=(32, 256)).astype(np.int32)).to(dev)
+    """Kernel 4 at the probe's shapes: the unpack (32, 256) and the
+    packed-rhs probe dot (8, 256) x (256, 512) (``rhs_dot_kernel``) equal
+    to plain, each timed in turns with its one-launch floor, a zero fill
+    of its output."""
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(32, 256))
+                         .astype(np.int32)).to(dev)
     for bits in (4, 8):
         if not torch.equal(kernels.unpack_words(x, bits),
                            decode.unpack_words(x, bits)):
             raise AssertionError(f"unpack_words({bits}) differs from plain")
-    ms = device_ms(lambda: kernels.unpack_words(x, 4), 200, "unpack_kernel")
+    ms, floor = launch_floor(lambda: kernels.unpack_words(x, 4),
+                             "unpack_kernel", kernels.unpack_words(x, 4))
     plain_ms = device_ms(lambda: decode.unpack_words(x, 4), 200)
+    # the lab's dot_i8_lhs_i4_rhs: (8, 256) int8 . int4 fields of (32, 512)
+    w = torch.from_numpy(rng.integers(-2**31, 2**31, size=(32, 512))
+                         .astype(np.int32)).to(dev)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(8, 256))
+                         .astype(np.int8)).to(dev)
+    dot = lambda: kernels.int_dot_packed(w, a, 4, lhs_packed=False)  # noqa
+    if not torch.equal(dot(), decode.int_dot_packed(w, a, 4, False)):
+        raise AssertionError("the packed-rhs probe dot differs from plain")
+    dot_ms, dot_floor = launch_floor(dot, "rhs_dot_kernel", dot())
+    dot_plain = device_ms(lambda: decode.int_dot_packed(w, a, 4, False), 20)
+    dot_bound = bound(dev, w.numel() * 4 + a.numel() + 8 * 512 * 4,
+                      2 * 8 * 256 * 512, "int8")
+    b = bound(dev, 32 * 256 * 4 * 9, 0, "f32")
     print(f"[lab] unpack_words (32, 256) int4 and int8: equal to plain; "
-          f"kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us of "
-          "device time per call (profiler)", flush=True)
+          f"kernel {ms * 1e3:.3f} us, a zero fill of its (256, 256) int32 "
+          f"output {floor * 1e3:.3f} us ({ms / floor:.2f}x the one-launch "
+          f"floor), bytes bound {b['bound_ms'] * 1e3:.3f} us, plain "
+          f"{plain_ms * 1e3:.3f} us of device time per call (profiler)",
+          flush=True)
+    print(f"[lab] rhs_dot_kernel (8, 256) x int4 (256, 512): equal to plain "
+          f"(random operands); kernel {dot_ms * 1e3:.3f} us, a zero fill of "
+          f"its (8, 512) int32 output {dot_floor * 1e3:.3f} us "
+          f"({dot_ms / dot_floor:.2f}x the one-launch floor), bound "
+          f"{dot_bound['bound_ms'] * 1e3:.3f} us ({dot_bound['bound_by']}), "
+          f"plain {dot_plain * 1e3:.3f} us of device time per call",
+          flush=True)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape=[32, 256],
-                **bound(dev, 32 * 256 * 4 * 9, 0, "f32"), library_ms=None)
+                **b, floor_ms=floor, library_ms=None, rhs_dot_ms=dot_ms,
+                rhs_dot_floor_ms=dot_floor,
+                rhs_dot_bound_ms=dot_bound["bound_ms"],
+                rhs_dot_plain_ms=dot_plain)
 
 
 def cold_ms(fn, reps, match, dev):
@@ -1221,9 +1428,10 @@ def main(dev=None):
     k3 = phase_probe(g)
     card_g, cpu_g, y_par = phase_parity(dev)
     phase_cv_parity(card_g, cpu_g, y_par)
+    phase_family_parity(card_g, cpu_g)
     del card_g, cpu_g
     y = phenotype(g, causal, beta, 7)
-    k1["launches"] = phase_fit(g, causal, y, card)
+    k1["launches"], _ = phase_fit(g, causal, y, card)
     k2["launches"], dual_mse = phase_cv("cv", g, y, card, warm=CV_WARM)
     k1["cv_launches"] = phase_cv_quad(g, y, card, dual_mse)
     phase_profile(g, y, card)
@@ -1238,6 +1446,9 @@ def main(dev=None):
         raise AssertionError(f"kernel 6 ({k6['ms']:.3f} ms) is more than "
                              f"{SAME_BODY_SLACK - 1:.0%} slower than kernel 2 "
                              f"({k2['ms']:.3f} ms), its own body, at m = 100")
+    fam = phase_families(g, card)
+    k1["family_launches"] = fam["xt_dots_words"]
+    k2["family_launches"] = fam["xt_dots_words_t"]
     del g
     gm, causal_m, beta_m = genotypes(np.random.default_rng(SEED + 1), N, P,
                                      True, dev)

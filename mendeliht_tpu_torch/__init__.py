@@ -5,12 +5,14 @@ packed genotypes (feature-parity target: OpenMendel/MendelIHT.jl), on one
 CUDA device or the CPU.  The JAX package ``mendeliht_tpu`` is the reference
 this port is tested against; this package never imports it or jax.
 
-Ported so far: the resident univariate Gaussian fit and its
-cross-validation
+Ported so far: the resident univariate fit of every GLM family and link
+(Normal, Bernoulli, Poisson, NegativeBinomial with ``est_r`` "mm" or
+"newton", Gamma, InverseGaussian) and its cross-validation
 
-  - ``fit_iht(y, x: PackedGenotypes, z, k=...)``   (reference: src/fit.jl:60)
-  - ``cv_iht(y, x, z, path=..., q=...)``  (src/cross_validation.jl:60)
+  - ``fit_iht(y, x: PackedGenotypes, z, k=..., d=..., l=...)``   (reference: src/fit.jl:60)
+  - ``cv_iht(y, x, z, d=..., path=..., q=...)``  (src/cross_validation.jl:60)
   - ``iht_run_many_models(y, x, z, path=...)``   (:232)
+  - ``utils.simulate.simulate_random_response``  (src/simulate_utilities.jl:207)
 
 whose full-width score X'R runs through hand-written CUDA kernels when the
 genotypes live on a CUDA device (``csrc/xt_dots_t.cu``, one kernel body
@@ -32,9 +34,18 @@ from .genotype.snparray import PackedGenotypes
 from .models.cv import cv_iht, iht_run_many_models
 from .models.fit import fit_iht
 from .models.results import IHTResult
-from .ops.glm import IdentityLink, Normal
+from .ops.glm import (
+    Normal, Bernoulli, Poisson, NegativeBinomial, Gamma, InverseGaussian,
+    MvNormal, Binomial,
+    IdentityLink, LogitLink, LogLink, InverseLink, SqrtLink, ProbitLink,
+    CloglogLink, InverseSquareLink, canonicallink,
+)
 
 __version__ = "0.1.0"
 
 __all__ = ["fit_iht", "cv_iht", "iht_run_many_models", "PackedGenotypes",
-           "Normal", "IdentityLink", "IHTResult"]
+           "IHTResult",
+           "Normal", "Bernoulli", "Poisson", "NegativeBinomial", "Gamma",
+           "InverseGaussian", "MvNormal", "Binomial",
+           "IdentityLink", "LogitLink", "LogLink", "InverseLink", "SqrtLink",
+           "ProbitLink", "CloglogLink", "InverseSquareLink", "canonicallink"]

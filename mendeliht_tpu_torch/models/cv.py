@@ -27,11 +27,11 @@ from .univariate import (cv_fused, finalize_iht, predict_deviance, run_iht,
 
 _CV_NOT_PORTED = {
     **{name: _NOT_PORTED[name] for name in (
-        "est_r", "group", "weight", "zkeep", "debias", "init_beta")},
+        "group", "weight", "zkeep", "debias", "init_beta")},
     "checkpoint_dir": ((None,), "Queue 1 item 12 (checkpointing)"),
 }
 _PATH_NOT_PORTED = {name: _NOT_PORTED[name] for name in (
-    "est_r", "group", "weight", "use_maf", "debias")}
+    "group", "weight", "use_maf", "debias")}
 
 
 def allocate_fold_and_k(q: int, path):
@@ -53,21 +53,23 @@ def meanloss(fitloss, q, folds):
     return loss
 
 
-def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, folds=None,
-           verbose=True, max_iter=100, min_iter=5, memory_efficient=True,
-           dtype=torch.float32, rng=None, checkpoint_every=20,
-           show_progress=False, **not_ported):
+def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
+           folds=None, verbose=True, max_iter=100, min_iter=5,
+           memory_efficient=True, dtype=torch.float32, rng=None,
+           checkpoint_every=20, show_progress=False, **not_ported):
     """q-fold cross validation over a path of sparsity levels; returns the
     vector of fold-size-weighted holdout deviances per k (reference
     src/cross_validation.jl:60-131).
 
     ``x`` is a PackedGenotypes (or a PackedOp); the solve runs on its
     device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
-    Generator).  Only the resident Normal/identity path is ported; the JAX
-    package's other arguments raise NotImplementedError naming the ROADMAP
-    item that ports them.  As in the JAX package, ``memory_efficient`` is
-    accepted and ignored, and so is ``checkpoint_every`` without a
-    ``checkpoint_dir``; ``dtype`` must be float32."""
+    Generator).  Every family and link of :func:`fit_iht` runs, with
+    ``est_r``, on the resident path; the holdout loss is the family's
+    deviance.  The JAX package's other arguments raise NotImplementedError
+    naming the ROADMAP item that ports them.  As in the JAX package,
+    ``memory_efficient`` is accepted and ignored, and so is
+    ``checkpoint_every`` without a ``checkpoint_dir``; ``dtype`` must be
+    float32."""
     check_not_ported("cv_iht", not_ported, _CV_NOT_PORTED)
     check_dtype("cv_iht", dtype)
     y_arr = np.asarray(y)
@@ -77,7 +79,8 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, folds=None,
     d = d if d is not None else glm.Normal()
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg, _ = build_fit(y, x, z, k=max(path), d=d, l=l,
-                                 max_iter=max_iter, min_iter=min_iter)
+                                 est_r=est_r, max_iter=max_iter,
+                                 min_iter=min_iter)
     if max(path) > op.p:
         raise ValueError("Sparsity level in `path` cannot be larger than "
                          "total number of variables")
@@ -146,8 +149,8 @@ def _cv_progress(op, data, cfg, ks, train, test, step=5):
 
 
 def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
-                        verbose=True, parallel=True, max_iter=100,
-                        dtype=torch.float32, **not_ported):
+                        est_r="none", verbose=True, parallel=True,
+                        max_iter=100, dtype=torch.float32, **not_ported):
     """Fit every k in ``path`` on the full data (no holdout) and return the
     loglikelihoods (reference src/cross_validation.jl:232-277).  All models
     run as one batch of tasks; ``dtype`` must be float32."""
@@ -161,7 +164,7 @@ def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
     d = d if d is not None else glm.Normal()
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg, _ = build_fit(y, x, z, k=max(path), d=d, l=l,
-                                 max_iter=max_iter)
+                                 est_r=est_r, max_iter=max_iter)
 
     B = len(path)
     cv_wts = data.sample_mask[None, :].expand(B, op.n_pad)

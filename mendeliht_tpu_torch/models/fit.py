@@ -1,5 +1,5 @@
-"""Public ``fit_iht`` (reference src/fit.jl:60-127), resident univariate
-Gaussian fit on the genotypes' device."""
+"""Public ``fit_iht`` (reference src/fit.jl:60-127), the resident univariate
+fit of every GLM family on the genotypes' device."""
 
 from __future__ import annotations
 
@@ -25,8 +25,6 @@ _NOT_PORTED = {
     "weight": ((None,), "Queue 1 item 9 (weights)"),
     "zkeep": ((None,), "Queue 1 item 9 (zkeep)"),
     "use_maf": ((False,), "Queue 1 item 9 (weights)"),
-    "est_r": ((None, "none", ":None", "None"),
-              "Queue 1 item 9 (negative binomial nuisance)"),
     "debias": ((False,), "Queue 1 item 9 (debias)"),
     "init_beta": ((False,), "Queue 1 item 9 (init_beta)"),
     "io": ((None,), "Queue 1 item 9 (teed progress lines)"),
@@ -74,6 +72,10 @@ def checky(y, dist: str):
         raise ValueError(f"{dist} responses must be positive")
 
 
+def cfg_est_r_requested(est_r) -> bool:
+    return est_r not in (None, "none", ":None", "None")
+
+
 def _prepare_univariate(y, x, z):
     """Operator + zero-padded host arrays of the per-sample data."""
     op = make_operator(x)
@@ -97,15 +99,14 @@ def _prepare_univariate(y, x, z):
     return op, y_pad, z_pad, mask
 
 
-def build_fit(y, x, z=None, *, k=10, d=None, l=None, tol=1e-4, max_iter=200,
-              min_iter=5, max_step=3):
-    """Shared setup: returns (op, data, cfg, k)."""
+def build_fit(y, x, z=None, *, k=10, d=None, l=None, est_r="none",
+              tol=1e-4, max_iter=200, min_iter=5, max_step=3):
+    """Shared setup: returns (op, data, cfg, k).  ``l`` None takes the
+    family's canonical link; ``est_r`` ("none", "mm", "newton", any case,
+    with or without a leading colon) re-estimates the negative-binomial
+    r."""
     dist = glm.dist_name(d if d is not None else glm.Normal())
-    link = glm.link_name(l) if l is not None else glm._CANONICAL.get(dist)
-    if dist != "normal" or link != "identity":
-        raise NotImplementedError(
-            f"{dist} regression with the {link} link is not ported yet: "
-            "ROADMAP Queue 1 item 9 (other GLM families)")
+    link = glm.link_name(l) if l is not None else glm._CANONICAL[dist]
     checky(y, dist)
     op, y_pad, z_pad, mask = _prepare_univariate(y, x, z)
     p, q = op.p, z_pad.shape[1]
@@ -119,21 +120,26 @@ def build_fit(y, x, z=None, *, k=10, d=None, l=None, tol=1e-4, max_iter=200,
         sample_mask=torch.as_tensor(mask, **kw), n_true=op.n)
     cfg = FitConfig(dist=dist, link=link, S=int(S), zkeepn=zkeepn,
                     max_iter=int(max_iter), min_iter=int(min_iter),
-                    max_step=int(max_step), tol=float(tol))
+                    max_step=int(max_step), tol=float(tol),
+                    est_r=("none" if est_r in (None, "none", ":None") else
+                           str(est_r).lower().strip(":")))
     return op, data, cfg, k
 
 
-def fit_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
-            max_iter=200, min_iter=5, max_step=3, memory_efficient=True,
-            dtype=torch.float32, checkpoint_dir=None, checkpoint_every=20,
-            **not_ported):
+def fit_iht(y, x, z=None, k=10, d=None, l=None, est_r="none", verbose=True,
+            tol=1e-4, max_iter=200, min_iter=5, max_step=3,
+            memory_efficient=True, dtype=torch.float32, checkpoint_dir=None,
+            checkpoint_every=20, **not_ported):
     """Fit one IHT model at sparsity k (reference src/fit.jl:60-118).
 
     ``x`` is a PackedGenotypes (standardization and mean imputation applied
     on the fly); the fit runs on its device.  y (n,) and z (n, q) or None
-    (intercept only) are host arrays.  Only the Normal family with the
-    identity link is ported; the JAX package's other arguments raise
-    NotImplementedError naming the ROADMAP item that ports them.
+    (intercept only) are host arrays.  ``d`` is any family of the JAX
+    package (default Normal) and ``l`` any link (default the family's
+    canonical one); ``est_r`` ("mm" or "newton") re-estimates the negative
+    binomial's r at every step, and raises ValueError for another family.
+    The JAX package's other arguments raise NotImplementedError naming the
+    ROADMAP item that ports them.
 
     As in the JAX package, ``memory_efficient`` is accepted and ignored,
     and so are ``checkpoint_dir`` / ``checkpoint_every``, which only its
@@ -142,9 +148,12 @@ def fit_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
     check_not_ported("fit_iht", not_ported, _NOT_PORTED)
     check_dtype("fit_iht", dtype)
     d = d if d is not None else glm.Normal()
-    op, data, cfg, k = build_fit(y, x, z, k=k, d=d, l=l, tol=tol,
-                                 max_iter=max_iter, min_iter=min_iter,
-                                 max_step=max_step)
+    if glm.dist_name(d) != "negativebinomial" and cfg_est_r_requested(est_r):
+        raise ValueError("Only negative binomial regression supports "
+                         "nuisance parameter estimation")
+    op, data, cfg, k = build_fit(y, x, z, k=k, d=d, l=l, est_r=est_r,
+                                 tol=tol, max_iter=max_iter,
+                                 min_iter=min_iter, max_step=max_step)
     if verbose:
         from ..utils.printing import print_iht_signature, print_parameters
         print_iht_signature()

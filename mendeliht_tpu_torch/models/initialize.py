@@ -55,6 +55,7 @@ def init_state(op, data: FitData, cfg: FitConfig, k, cv_wts) -> IHTState:
         sel_valid=torch.zeros((B, cfg.S), dtype=torch.bool, device=device),
         idc=torch.zeros((B, q), dtype=torch.bool, device=device),
         xb=xb, zc=zc, mu=glm.linkinv(cfg.link, xb + zc),
+        nb_r=torch.ones((B,), **zeros),
         logl=torch.full((B,), float("-inf"), **zeros),
         best_logl=torch.full((B,), float("-inf"), **zeros),
         k=k, cv_wts=cv_wts,

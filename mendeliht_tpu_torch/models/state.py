@@ -28,6 +28,7 @@ class IHTState:
     xb: torch.Tensor         # (B, n_pad) genetic linear predictor
     zc: torch.Tensor         # (B, n_pad) covariate linear predictor
     mu: torch.Tensor         # (B, n_pad) mean
+    nb_r: torch.Tensor       # (B,)     negative-binomial nuisance r
     logl: torch.Tensor       # (B,)     loglikelihood of current iterate
     best_logl: torch.Tensor  # (B,)
     k: torch.Tensor          # (B,)     int64 per-task sparsity level
@@ -58,7 +59,8 @@ class IHTState:
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Solver configuration (Normal/identity subset of the JAX package's)."""
+    """Solver configuration (the subset of the JAX package's that the port
+    runs: every family and link, no group, weight or debias options)."""
     dist: str = "normal"
     link: str = "identity"
     S: int = 16                 # support slot count (>= max k + zkeepn)
@@ -67,6 +69,7 @@ class FitConfig:
     min_iter: int = 5
     max_step: int = 3
     tol: float = 1e-4
+    est_r: str = "none"         # "none" | "mm" | "newton"
     log_iters: bool = False     # print a progress line per iteration
 
 

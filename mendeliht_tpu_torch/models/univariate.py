@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..ops import glm
+from ..ops import glm, negbin
 from ..ops.projections import project_topk_joint, select_support
 from .state import IHTState, FitConfig, FitData
 
@@ -55,7 +55,8 @@ def _stepsize(op, data: FitData, cfg: FitConfig, st: IHTState):
     xgk = op.forward_sel(gidx, df_sel, gval.to(df_sel.dtype))
     xgk = xgk + df2_supp @ data.z.T
     me = glm.mueta(cfg.link, st.xb + st.zc)
-    gv = torch.clamp(glm.glmvar(cfg.dist, st.mu), min=1e-30)
+    gv = torch.clamp(glm.glmvar(cfg.dist, st.mu, nb_r=st.nb_r[:, None]),
+                     min=1e-30)
     w = torch.sqrt(me * me / gv) * st.cv_wts
     wx = xgk * w
     eta = numer / (wx * wx).sum(dim=1)
@@ -73,26 +74,39 @@ def _gradstep(data: FitData, cfg: FitConfig, st: IHTState, eta):
     return b_new, c_new, sel_idx, sel_valid, c_new != 0
 
 
-def _forward(op, data: FitData, b, c, sel_idx, sel_valid):
-    """xb = X[:, supp] b_supp; zc = Z c (reference src/utilities.jl:93-118;
-    the Normal family needs no clamp)."""
+def _forward(op, data: FitData, cfg: FitConfig, b, c, sel_idx, sel_valid):
+    """xb = X[:, supp] b_supp; zc = Z c; both clamped to +-20 for every
+    family but the normal (reference src/utilities.jl:93-118)."""
     gidx, gval = _split_sel(sel_idx, sel_valid, op.p)
     bcoef = _take_b(b, gidx, gval)
     xb = op.forward_sel(gidx, bcoef, gval.to(b.dtype))
-    return xb, c @ data.z.T
+    zc = c @ data.z.T
+    if cfg.dist != "normal":
+        xb = torch.clamp(xb, -20.0, 20.0)
+        zc = torch.clamp(zc, -20.0, 20.0)
+    return xb, zc
 
 
-def _loglik(data: FitData, cfg: FitConfig, mu, cv_wts):
+def _loglik(data: FitData, cfg: FitConfig, mu, cv_wts, nb_r):
     return glm.loglikelihood(cfg.dist, data.y[None, :], mu, cv_wts,
-                             data.n_true, dim=1)
+                             data.n_true, nb_r=nb_r[:, None], dim=1)
 
 
 def _score(op, data: FitData, cfg: FitConfig, st: IHTState):
     """df = X' W (y-mu), df2 = Z' W (y-mu) (reference
     src/utilities.jl:126-135)."""
     r = glm.score_residual(cfg.dist, cfg.link, data.y[None, :], st.mu,
-                           st.xb + st.zc, st.cv_wts)
+                           st.xb + st.zc, st.cv_wts, nb_r=st.nb_r[:, None])
     return op.xtr(r), r @ data.z
+
+
+def _maybe_update_r(data: FitData, cfg: FitConfig, mu, nb_r, cv_wts):
+    """The negative-binomial r re-estimated at mean mu (``cfg.est_r``), or
+    nb_r as it is."""
+    if cfg.est_r == "none":
+        return nb_r
+    return negbin.mle_for_r(cfg.est_r, data.y, mu, nb_r, data.sample_mask,
+                            cv_wts, data.n_true)
 
 
 def _save_prev(st: IHTState) -> IHTState:
@@ -110,11 +124,12 @@ def _take_step(op, data: FitData, cfg: FitConfig, st: IHTState, eta_t):
     """One projected gradient step + model refresh at stepsize eta_t (the
     body of the backtracking line search, reference src/fit.jl:213-263)."""
     b, c, sel_idx, sel_valid, idc = _gradstep(data, cfg, st, eta_t)
-    xb, zc = _forward(op, data, b, c, sel_idx, sel_valid)
+    xb, zc = _forward(op, data, cfg, b, c, sel_idx, sel_valid)
     mu = glm.linkinv(cfg.link, xb + zc)
-    logl = _loglik(data, cfg, mu, st.cv_wts)
+    nb_r = _maybe_update_r(data, cfg, mu, st.nb_r, st.cv_wts)
+    logl = _loglik(data, cfg, mu, st.cv_wts, nb_r)
     return dict(b=b, c=c, sel_idx=sel_idx, sel_valid=sel_valid, idc=idc,
-                xb=xb, zc=zc, mu=mu, logl=logl)
+                xb=xb, zc=zc, mu=mu, nb_r=nb_r, logl=logl)
 
 
 def _bt_need(act, old_logl, cur, n_bt, max_step):
@@ -203,7 +218,7 @@ def finalize_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
     best_c = _where_b(improved, st.c, st.best_c)
     best_logl = torch.where(improved, st.logl, st.best_logl)
     sel_idx, sel_valid = select_support(best_b, best_c, data.zkeep, cfg.S)
-    xb, zc = _forward(op, data, best_b, best_c, sel_idx, sel_valid)
+    xb, zc = _forward(op, data, cfg, best_b, best_c, sel_idx, sel_valid)
     mu = glm.linkinv(cfg.link, xb)     # genotype-only mean, used by pve
     return dataclasses.replace(
         st, b=best_b, c=best_c, best_b=best_b, best_c=best_c,
@@ -224,7 +239,8 @@ def predict_deviance(op, data: FitData, cfg: FitConfig, st: IHTState,
     src/cross_validation.jl:279-286): the full mean g^-1(xb + zc) against
     the held-out samples of each task."""
     mu = glm.linkinv(cfg.link, st.xb + st.zc)
-    return glm.deviance(cfg.dist, data.y[None, :], mu, test_wts, dim=1)
+    return glm.deviance(cfg.dist, data.y[None, :], mu, test_wts,
+                        nb_r=st.nb_r[:, None], dim=1)
 
 
 def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts):

@@ -20,7 +20,11 @@ def print_parameters(io, k, dist, link, tol, max_iter, min_iter, device):
     """The parameter block of a fit; weight scaling, group projection and
     debiasing are not ported yet, so they print as off."""
     io = io or sys.stdout
-    regression = {"normal": "linear"}.get(dist, dist)
+    regression = {
+        "normal": "linear", "bernoulli": "logistic", "poisson": "Poisson",
+        "negativebinomial": "NegativeBinomial",
+        "mvnormal": "Multivariate Gaussian",
+    }.get(dist, dist)
     print(f"Running sparse {regression} regression", file=io)
     print(f"Backend = torch {device}", file=io)
     print(f"Link function = {link}", file=io)

@@ -1,17 +1,23 @@
-"""Simulated packed genotypes at benchmark scale, generated on the host.
+"""Simulated genotypes and responses at benchmark scale, generated on the
+host.
 
 At 10k x 1M the dense code matrix would take 10 GB, so genotypes are drawn
 directly as packed bytes, chunk by chunk, and written straight into the
 quad-word storage.  For the same ``rng`` the bytes, stats and causal
 effects are those of the JAX package's benchmark generator
-(``bench.py::_gen_problem``).
+(``bench.py::_gen_problem``).  GLM responses over packed genotypes decode
+only the causal SNPs (:func:`simulate_random_response`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..genotype.snparray import _LANE, _ceil_to, _stats_from_counts
+from ..genotype.snparray import (PackedGenotypes, _LANE, _ceil_to,
+                                 _stats_from_counts, codes_to_values,
+                                 unpack_codes)
+from ..ops import glm
 
 _CHUNK = 8192          # SNP rows per generated chunk (a multiple of 4)
 
@@ -73,3 +79,86 @@ def simulate_packed_problem(rng: np.random.Generator, n: int, p: int,
     causal = rng.choice(p, size=k, replace=False)
     beta = rng.standard_normal(k)
     return words.view(np.int32), mu, inv_sd, bool(n_mis.sum() > 0), causal, beta
+
+
+def _standardized_columns(x, idx) -> np.ndarray:
+    """(n, len(idx)) float64 standardized, mean-imputed columns ``idx`` of
+    x: for packed genotypes, decoded from the quad words of those SNPs
+    alone (as ``to_dense_standardized`` decodes every column); else the
+    columns of the dense matrix x, used verbatim."""
+    if not isinstance(x, PackedGenotypes):
+        return np.asarray(x, np.float64)[:, idx]
+    on = torch.as_tensor(idx, device=x.device)
+    rows = x.words[on // 4].cpu().numpy()
+    quads = rows.astype(np.dtype("<i4"), copy=False).view(np.uint8)
+    quads = quads.reshape(len(idx), rows.shape[1], 4)
+    packed = quads[np.arange(len(idx)), :, idx % 4]           # (k, n4)
+    vals = codes_to_values(unpack_codes(packed, x.n))         # NaN = missing
+    mu = x.mu[on].cpu().double().numpy()
+    inv = x.inv_sd[on].cpu().double().numpy()
+    vals = np.where(np.isnan(vals), mu[:, None], vals)
+    return ((vals - mu[:, None]) * np.where(inv == 0, 1.0, inv)[:, None]).T
+
+
+def _linkinv_f32(link: str, eta: np.ndarray) -> np.ndarray:
+    """g^{-1}(eta) as the JAX simulator evaluates it: the identity returns
+    eta as it is; any other link runs in float32 (its jnp arithmetic without
+    64-bit mode)."""
+    if link == "identity":
+        return eta
+    return glm.linkinv(link, torch.from_numpy(eta).float()).numpy()
+
+
+def simulate_random_response(x, k: int, d=None, l=None, r=10, alpha=1,
+                             Zu=None, rng=None):
+    """Simulate a univariate GLM response with k causal SNPs (reference
+    src/simulate_utilities.jl:207-242; the JAX package's
+    ``utils/simulate.py::simulate_random_response`` draw for draw).  Returns
+    (y, true_b, correct_position).
+
+    ``x`` is a PackedGenotypes (on any device; only the k causal columns
+    are decoded, on the host, so 10k x 1M costs what 10 columns do) or a
+    dense (n, p) matrix.  Families: normal, bernoulli, poisson,
+    negativebinomial (``r``), gamma (``alpha``; log link), inversegaussian;
+    ``Zu`` (n,) is added to the linear predictor."""
+    rng = np.random.default_rng() if rng is None else rng
+    d = d if d is not None else glm.Normal()
+    dist = glm.dist_name(d)
+    link = glm.link_name(l) if l is not None else glm._CANONICAL[dist]
+    n, p = x.shape
+    if dist in ("negativebinomial", "gamma") and link != "log":
+        raise ValueError(f"Distribution {dist} must use LogLink!")
+    Zu = np.zeros(n) if Zu is None else np.asarray(Zu).reshape(n)
+
+    true_b = np.zeros(p)
+    scale = 0.3 if dist in ("poisson", "gamma", "negativebinomial") else 1.0
+    true_b[:k] = rng.normal(0, scale, size=k)
+    rng.shuffle(true_b)
+    correct_position = np.flatnonzero(true_b)
+
+    eta = (_standardized_columns(x, correct_position)
+           @ true_b[correct_position] + Zu)
+    if dist in ("normal", "poisson", "bernoulli"):
+        if dist == "normal":
+            y = rng.normal(np.clip(_linkinv_f32(link, eta), -1e20, 1e20), 1.0)
+        else:
+            mu = _linkinv_f32(link, np.clip(eta, -20, 20))
+            if dist == "poisson":
+                y = rng.poisson(np.clip(mu, 0, 1e8)).astype(np.float64)
+            else:
+                y = rng.binomial(1, np.clip(mu, 0, 1)).astype(np.float64)
+    elif dist == "negativebinomial":
+        mu = np.exp(np.clip(eta, -20, 20))
+        prob = 1.0 / (1.0 + mu / r)
+        y = rng.negative_binomial(r, prob).astype(np.float64)
+    elif dist == "gamma":
+        mu = np.exp(eta)
+        beta_rate = 1.0 / mu
+        y = rng.gamma(alpha, 1.0 / beta_rate)
+    elif dist == "inversegaussian":
+        # Wald sampling with unit shape, mean = linkinv(eta)
+        mu = _linkinv_f32(link, np.clip(eta, -20, 20))
+        y = rng.wald(np.clip(mu, 1e-3, 1e6), 1.0)
+    else:
+        raise ValueError(f"cannot simulate distribution {dist}")
+    return y.astype(np.float64), true_b, correct_position

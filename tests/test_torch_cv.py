@@ -460,16 +460,31 @@ def test_iht_run_many_models_matches_jax(plain_problem):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(est_r="MM"), "item 9"), (dict(group=[1, 2]), "item 9"),
+    (dict(group=np.ones(500, int)), "item 9"), (dict(group=[1, 2]), "item 9"),
     (dict(weight=[1.0]), "item 9"), (dict(zkeep=[True]), "item 9"),
     (dict(debias=True), "item 9"), (dict(init_beta=True), "item 9"),
     (dict(checkpoint_dir="ckpt"), "item 12"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=5), "item 12"),
-    (dict(d="bernoulli"), "item 9")])
+    (dict(weight=np.ones(500)), "item 9")])
 def test_cv_unported_arguments_raise(plain_problem, kwargs, item):
     x, y, _ = plain_problem
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         mt.cv_iht(y, _port(x), path=[1, 2], q=2, verbose=False, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(d="bernoulli"),
+    dict(d="negativebinomial", l="log", est_r="MM")])
+def test_cv_family_arguments_match_jax(plain_problem, kwargs):
+    """The family and est_r arguments, which raised NotImplementedError
+    before the families were ported: the cv runs on a response of the
+    family and agrees with the JAX package's within the Gaussian cv's
+    tolerance, with the same best k."""
+    x, _, folds = plain_problem
+    y, _, _ = m.simulate_random_response(x, 4, kwargs["d"], kwargs.get("l"),
+                                         r=2, rng=np.random.default_rng(56))
+    kw = dict(path=[2, 4, 6], q=3, folds=folds, verbose=False, **kwargs)
+    _assert_mse_agree(mt.cv_iht(y, _port(x), **kw), m.cv_iht(y, x, **kw))
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -42,8 +42,9 @@ def test_package_has_modules():
     names = {p.relative_to(PKG).as_posix() for p in MODULES}
     assert not (PKG / "csrc" / "xt_dots.cu").exists()     # kernel 1's f32
     assert not (PKG / "csrc" / "xt_dots_i8.cu").exists()  # kernel 6's mma.sync
-    assert {"ops/kernels.py", "ops/decode.py", "models/fit.py",
-            "models/cv.py", "utils/profiling.py",
+    assert {"ops/kernels.py", "ops/decode.py", "ops/glm.py", "ops/negbin.py",
+            "models/fit.py", "models/cv.py", "utils/profiling.py",
+            "utils/simulate.py",
             "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
     for src in ("xt_dots_t.cu", "read_probe.cu", "int_probe.cu",
                 "kernel_probe.cu", "i8_mma.cuh"):

@@ -248,14 +248,26 @@ def test_glm_batched_loglikelihood_matches_jax():
 
 
 def test_glm_names_and_unported_families():
+    """The names, and the families that raised before they were ported:
+    now equal to the JAX package's (tests/test_torch_glm.py holds every
+    family and link), and a name neither package knows raises ValueError
+    in both."""
     assert tglm.dist_name(tglm.Normal()) == jglm.dist_name(jglm.Normal())
     assert tglm.dist_name("Normal") == "normal"
     assert tglm.link_name(tglm.IdentityLink()) == "identity"
     assert tglm._CANONICAL == jglm._CANONICAL
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tglm.linkinv("logit", torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tglm.glmvar("poisson", torch.zeros(3))
+    x = np.linspace(-3.0, 3.0, 7).astype(np.float32)
+    np.testing.assert_allclose(tglm.linkinv("logit", torch.from_numpy(x)),
+                               jglm.linkinv("logit", jnp.asarray(x)),
+                               rtol=1e-6)
+    np.testing.assert_allclose(
+        tglm.glmvar("poisson", torch.from_numpy(np.exp(x))),
+        jglm.glmvar("poisson", jnp.asarray(np.exp(x))), rtol=1e-6)
+    for pkg, arr in ((tglm, torch.zeros(3)), (jglm, jnp.zeros(3))):
+        with pytest.raises(ValueError, match="unknown link"):
+            pkg.linkinv("cauchit", arr)
+        with pytest.raises(ValueError, match="unknown distribution"):
+            pkg.glmvar("tweedie", arr)
 
 
 def _distinct_bc(rng, B, p, q):
