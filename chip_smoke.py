@@ -29,6 +29,12 @@ result line):
               (the same body and work: within 10%); at the end of the run
               (after every profile phase, so that no other profiler session
               runs before one) the kernel launches of one call
+   moments    kernels 1 and 2 at the widths of ``PackedOp.col_moments``
+              (the init_beta warm start's score pass, m = 2B: 2 for a fit,
+              200 for the default cv) with the squared plane S on its R (0/1
+              masks beside W y), at 10k x 1M: each bit for bit against its
+              plain version and the two against each other, timed in turns
+              beside their bound and one plain call
 5. probe      kernel 3 (``read_words``) equal to its plain version on the
               10k x 1M words; the read ceiling through the profiling entry
               point, the plain rate, and ``kernel_roofline`` of both layouts
@@ -43,7 +49,11 @@ result line):
               CPU at that size (responses from ``simulate_random_response``,
               seed 2026 + the family's index): same support, iterations
               within one; and the Bernoulli cv, path 1:10, q=3: mse within
-              1e-4, same best k
+              1e-4, same best k; then each fit option on the card and on the
+              CPU at that size (init_beta, debias Gaussian and Bernoulli,
+              groups, weights with zkeep): same support, iterations within
+              one; and the init_beta cv, path 1:10, q=3: mse within 1e-4,
+              same best k
 8. fit        ``fit_iht`` at 10k x 1M, k=10 (the JAX package's headline
               size) through ``PackedOp`` (quad words, kernel 1) and through
               the genotypes (dual layout, kernel 2), cold then FIT_WARM warm
@@ -77,9 +87,11 @@ result line):
               operand), ``torch._int_mm``'s timed both ways beside it and
               kernel 3's cold read of the same words as the yardstick;
               int4 faster than int8 cold, int8 ahead of ``torch._int_mm``;
-              kernel 4's unpack and packed-rhs probe dot (``rhs_dot_kernel``)
-              each timed in turns with a zero fill of its output, the least
-              a launch that writes those bytes takes (its one-launch floor)
+              kernel 4's unpack and packed-rhs probe dot (``rhs_dot_kernel``,
+              its unguarded and its guarded instantiation) each timed in
+              turns with a zero fill of its output, the least a launch that
+              writes those bytes takes (its one-launch floor); the unguarded
+              one no slower than the guarded one
 12. kprobe    the round-3 kernel probe
               (``mendeliht_tpu_torch.tools.kernel_probe``) on the same 10k x
               1M genotypes: kernel 7 (``xt_i8_rounds``) equal to its plain
@@ -107,11 +119,23 @@ result line):
               exactly k selected, a finite logl, causal recovered, the
               estimated r, and a ``profiling.trace`` of one warm fit of
               every family (launches, syncs, device idle share)
+    options   the fit options on the same 10k x 1M genotypes: the init_beta
+              fit through both layouts, cold then OPT_FIT_WARM warm runs
+              (identical, exactly k selected, causal recovered); the
+              init_beta cv on the cv phase's folds, cold then OPT_CV_WARM
+              warm runs (finite mse, best k, kernel-2 launches, peak
+              memory); the debiased Gaussian and Bernoulli fits, the group
+              fit (1,000 groups of 1,000 SNPs, at most J = 5 groups of k = 2)
+              and the weighted fit (``maf_weights``) with a two-column z and
+              zkeep [True, False], each cold and warm with its selection
+              checked; a ``profiling.trace`` of a warm init_beta cv and a
+              warm debiased fit
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernels 2 and 1 vs plain
               bit for bit and equal to each other, timed at m=100 on them
-              beside their bound (6 planes); then ``profiling.trace`` of
-              one warm cv on them
+              beside their bound (6 planes), and at the moments phase's
+              widths with S and M; then ``profiling.trace`` of one warm cv
+              on them
 14. budget    past the 3 GiB dual-layout budget, after every other genotype
               is freed: 51,200 x 1,000,000 random quad words made on the card
               (12.8 GB, every crumb code), ``build_words_t`` of them (timed),
@@ -129,8 +153,10 @@ bit for bit, on the round-3 words of the kernel cases at m in {1, 8, 64}
 Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
 (kernel 1; ``cv_launches`` from the cv-quad run, ``family_launches`` from
-the Bernoulli quad-word fit), the cv (kernel 2; ``family_launches`` from
-each family's fit and the Bernoulli cv), the
+the Bernoulli quad-word fit, ``options_launches`` from the init_beta
+quad-word fit), the cv (kernel 2; ``family_launches`` from each family's
+fit and the Bernoulli cv, ``options_launches`` from each option's fit and
+the init_beta cv), the
 read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
 ``lab_launches`` of every kernel) and the probe's
 run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
@@ -155,7 +181,7 @@ import torch
 
 from mendeliht_tpu_torch import (Bernoulli, Gamma, InverseGaussian, LogLink,
                                  LogitLink, NegativeBinomial, PackedGenotypes,
-                                 Poisson, cv_iht, fit_iht)
+                                 Poisson, cv_iht, fit_iht, maf_weights)
 from mendeliht_tpu_torch.models import fit as fit_module, univariate
 from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.ops.linalg import PackedOp
@@ -170,8 +196,17 @@ P_KERNEL = 65_536                        # SNPs of the kernel-vs-plain cases
 N_DEEP, P_DEEP = 200_000, 4_096          # long per-SNP sums
 N_PARITY, P_PARITY = 2_000, 20_000       # the card-vs-CPU fit and cv
 CV_PATH, CV_Q = list(range(1, 21)), 5    # the reference-shaped cv grid
-FIT_WARM, CV_WARM, CVQ_WARM = 10, 5, 3   # warm runs after the cold one
-FAM_FIT_WARM, FAM_CV_WARM = 5, 3         # the families phase's
+# warm runs after the cold one, and of the plain versions' timings below:
+# few, so that the whole run keeps within its time budget (each warm run
+# is checked equal to the cold one; the medians print beside their range)
+FIT_WARM, CV_WARM, CVQ_WARM = 5, 3, 2
+FAM_FIT_WARM, FAM_CV_WARM = 3, 2         # the families phase's
+OPT_FIT_WARM, OPT_CV_WARM = 3, 2         # the options phase's
+PLAIN_REPS = 1                           # plain calls a timing, twice
+MOMENT_WIDTHS = (2, 200)                 # col_moments' m = 2B: fit, cv
+# the options phase's group fit: 1,000 groups of 1,000 consecutive SNPs,
+# at most J groups of at most GROUP_K SNPs each
+N_GROUPS, GROUP_J, GROUP_K = 1_000, 5, 2
 # the families phase, in its order: (label, family, link, est_r); the
 # response of each family comes from simulate_random_response with seed
 # SEED + its index in FAMILY_SEEDS (the two negative-binomial fits share one)
@@ -433,7 +468,7 @@ def time_widths(name, kernel, plain, arr, g, gen, widths=(1, 8, 100),
                                  f"{err}, bit-equal {equal}")
         ms, plain_ms, runs = interleaved(
             lambda: kernel(arr, rhs, **kw), lambda: plain(arr, rhs, **kw),
-            reps=20 if m == 1 else 5, plain_reps=2)
+            reps=20 if m == 1 else 5, plain_reps=PLAIN_REPS)
         times[m] = (ms, plain_ms, err, abs_err)
         share = ""
         if bound_of is not None:
@@ -518,6 +553,93 @@ def check_layouts(name, g, m, gen):
           f"A and M equal to kernel 2's {equal}", flush=True)
     if not equal:
         raise AssertionError(f"kernels 1 and 2 differ at m={m}")
+
+
+def moments_rhs(g, m, gen):
+    """The R of ``PackedOp.col_moments`` at width m = 2B, as it passes it
+    to the score: B 0/1 fold masks W beside W * y (y standard normal),
+    zero past the samples, as the (n_pad, m) transposed view of an (m,
+    n_pad) tensor."""
+    B = m // 2
+    W = (torch.rand((B, g.n_pad), generator=gen, device=g.device) < 0.8)
+    W = W.to(torch.float32)
+    W[:, g.n:] = 0.0
+    y = torch.randn((g.n_pad,), generator=gen, device=g.device)
+    return torch.cat([W, W * y[None, :]]).T
+
+
+def timed_call(fn):
+    """(fn's result, its device ms) of one call, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    sync()
+    return out, start.elapsed_time(end)
+
+
+def moment_widths(name, g, gen):
+    """Kernels 1 and 2 at the widths of ``PackedOp.col_moments`` (the
+    init_beta warm start: m = 2 for a fit, 200 for the default cv) with the
+    squared plane S, and the missing plane M where ``g`` misses calls, on
+    the R that col_moments makes: each bit for bit against its plain
+    version and the two against each other, then timed in turns (kernel 2,
+    kernel 1, kernel 1, kernel 2) beside their bound (the words, R and every
+    output moved once; 3 digit planes of int8 operations a wanted output, S
+    by its hi-bit plane) and one plain call; returns each kernel's fields
+    for the kernels line."""
+    out = {"xt_dots_words": {}, "xt_dots_words_t": {}}
+    kw = dict(want_missing=g.has_missing, want_sq=True, p=g.p)
+    key = "_missing" if g.has_missing else ""
+    for m in MOMENT_WIDTHS:
+        rhs = moments_rhs(g, m, gen)
+        calls, got = {}, {}
+        for kname, kern, plain, arr in (
+                ("xt_dots_words_t", kernels.xt_dots_words_t,
+                 decode.xt_dots_words_t, g.words_t),
+                ("xt_dots_words", kernels.xt_dots_words, decode.xt_dots_words,
+                 g.words)):
+            calls[kname] = (lambda k=kern, a=arr: k(a, rhs, **kw))
+            got[kname] = calls[kname]()
+            ref, plain_ms = timed_call(lambda: plain(arr, rhs, **kw))
+            pairs = [(a, b) for a, b in zip(got[kname], ref) if b is not None]
+            equal = all(same(a, b) for a, b in pairs)
+            abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+            del ref, pairs
+            if not equal:
+                raise AssertionError(f"{name}: {kname} with S at m={m} "
+                                     "differs from plain")
+            out[kname].update({f"plain_ms_m{m}_sq{key}": plain_ms,
+                               f"max_abs_err_m{m}_sq{key}": abs_err})
+        both = all(same(a, b) for a, b in zip(got["xt_dots_words"],
+                                              got["xt_dots_words_t"])
+                   if a is not None)
+        del got
+        if not both:
+            raise AssertionError(f"{name}: kernels 1 and 2 differ with S at "
+                                 f"m={m}")
+        reps = 10 if m == 2 else 3
+        r2 = [cuda_ms(calls["xt_dots_words_t"], reps)]
+        r1 = [cuda_ms(calls["xt_dots_words"], reps),
+              cuda_ms(calls["xt_dots_words"], reps)]
+        r2.append(cuda_ms(calls["xt_dots_words_t"], reps))
+        outs = 2 + g.has_missing                 # A, S and M: each written
+        b = bound(g.device, g.words.numel() * 4 + 4 * g.n_pad * m
+                  + 4 * g.p * m * outs, 3 * outs * 2 * g.n_pad * g.p * m,
+                  "int8")
+        for kname, runs in (("xt_dots_words_t", r2), ("xt_dots_words", r1)):
+            ms = sum(runs) / 2
+            out[kname].update({f"ms_m{m}_sq{key}": ms,
+                               f"bound_ms_m{m}_sq{key}": b["bound_ms"]})
+            print(f"[{name}] {kname} {g.n} x {g.p} m={m} with S, "
+                  f"missing={g.has_missing} (col_moments' R): bit-equal to "
+                  f"plain and to the other kernel; {ms:.3f} ms (runs "
+                  f"{runs[0]:.3f}, {runs[1]:.3f}), plain "
+                  f"{out[kname][f'plain_ms_m{m}_sq{key}']:.3f} ms (one "
+                  f"call), bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+                  f"{b['bound_ms'] / ms:.3f} of it", flush=True)
+    return out
 
 
 def phase_kernel_t(small, g, gen):
@@ -608,7 +730,7 @@ def phase_kernel_i8(small, g, gen):
         ms, plain_ms, runs = interleaved(
             lambda: kernels.xt_dots_T(g.words_t, rhs),
             lambda: decode.xt_dots_T(g.words_t, rhs),
-            reps=20 if m == 1 else 10, plain_reps=2)
+            reps=20 if m == 1 else 10, plain_reps=PLAIN_REPS)
         times[m] = (ms, plain_ms, 0.0, abs_err)
         b = score_bound(g, m, "int8", planes=3)
         print(f"[kernel-i8] {g.n} x {g.p} m={m}: kernel {ms:.3f} ms (runs "
@@ -992,6 +1114,128 @@ def phase_families(g, card):
     return launches
 
 
+def option_cases(g, y, yb, seed):
+    """(label, response, fit_iht keywords) of each fit option the options
+    and parity phases run on ``g``: the debiased Gaussian and Bernoulli
+    fits, the group fit (N_GROUPS groups of consecutive SNPs, at most
+    GROUP_J of GROUP_K SNPs each) and the weighted fit (``maf_weights``)
+    with an intercept and a covariate of which only the intercept is pinned
+    (``zkeep``; covariate N(0, 1) from ``seed``)."""
+    group = np.repeat(np.arange(1, N_GROUPS + 1), -(-g.p // N_GROUPS))[:g.p]
+    z = np.stack([np.ones(g.n),
+                  np.random.default_rng(seed).standard_normal(g.n)], axis=1)
+    return (("debias", y, dict(debias=True)),
+            ("debias bernoulli", yb, dict(debias=True, d=Bernoulli(),
+                                          l=LogitLink())),
+            ("group", y, dict(group=group, J=GROUP_J, k=GROUP_K)),
+            ("weight zkeep", y, dict(z=z, weight=maf_weights(g),
+                                     zkeep=[True, False])))
+
+
+def check_option_fit(label, r, kw):
+    """The selection an option promises: exactly K (SNPs and unpinned
+    covariates), or with groups at most GROUP_J groups of at most GROUP_K
+    SNPs, some selected; a finite logl."""
+    sel = np.flatnonzero(r.beta)
+    if "group" in kw:
+        groups, counts = np.unique(kw["group"][sel], return_counts=True)
+        ok = 0 < len(sel) and len(groups) <= GROUP_J and counts.max() <= GROUP_K
+    else:
+        free = ~np.asarray(kw.get("zkeep", [True] * len(r.c)))
+        ok = len(sel) + int((r.c[free] != 0).sum()) == K
+    if not (ok and np.isfinite(r.logl)):
+        raise AssertionError(f"the {label} fit failed its checks: "
+                             f"{len(sel)} selected, logl {r.logl}")
+    return sel
+
+
+def phase_option_parity(card_g, cpu_g, y):
+    """Every fit option on the card and on the CPU at the parity size: the
+    init_beta fit and the fits of ``option_cases``, the same support and
+    iterations within one; then the init_beta cv (path 1:10, q=3, fixed
+    folds), mse within CV_TOL and the same best k."""
+    t_phase = time.perf_counter()
+    yb, _, _ = simulate_random_response(cpu_g, K, Bernoulli(), LogitLink(),
+                                        rng=np.random.default_rng(SEED))
+    cases = (("init_beta", y, dict(init_beta=True)),
+             *option_cases(cpu_g, y, yb, SEED + 11))
+    for label, yy, kw in cases:
+        kw = {"k": K, **kw}
+        a = fit_iht(yy, card_g, verbose=False, **kw)
+        b = fit_iht(yy, cpu_g, verbose=False, **kw)
+        check_option_fit(label, a, kw)
+        sa, sb = set(np.flatnonzero(a.beta)), set(np.flatnonzero(b.beta))
+        print(f"[parity] option {label} n={card_g.n} p={card_g.p}: cuda logl "
+              f"{a.logl} iter {a.iter}, cpu logl {b.logl} iter {b.iter}, "
+              f"{len(sa)} selected, same support {sa == sb}", flush=True)
+        if sa != sb or abs(a.iter - b.iter) > 1:
+            raise AssertionError(f"option {label}: card and CPU fits "
+                                 "disagree")
+    folds = np.random.default_rng(5).integers(1, 4, size=card_g.n)
+    path = list(range(1, 11))
+    kw = dict(path=path, q=3, folds=folds, verbose=False, init_beta=True)
+    a, b = cv_iht(y, card_g, **kw), cv_iht(y, cpu_g, **kw)
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    ka, kb = path[int(np.argmin(a))], path[int(np.argmin(b))]
+    print(f"[cv-parity] init_beta n={card_g.n} p={card_g.p} path 1:10 q=3: "
+          f"cuda best k {ka}, cpu best k {kb}, mse rel err {err:.3g}",
+          flush=True)
+    if not err < CV_TOL or ka != kb:
+        raise AssertionError("card and CPU init_beta cv disagree")
+    print(f"[parity] options in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase_options(g, causal, y, card):
+    """The fit options at 10k x 1M on the card: the init_beta fit through
+    both layouts (identical, causal recovered), the init_beta cv on the cv
+    phase's folds, then the fits of ``option_cases`` on the dual layout,
+    each cold and warm with its selection checked, and a
+    ``profiling.trace`` of a warm init_beta cv and a warm debiased fit;
+    returns the score kernels' launches on each option's path."""
+    t_phase = time.perf_counter()
+    quad, dual = phase_fit(g, causal, y, card, name="options init_beta",
+                           warm=OPT_FIT_WARM, init_beta=True)
+    cv, _ = phase_cv("options init_beta cv", g, y, card, OPT_CV_WARM,
+                     init_beta=True)
+    launches = {"xt_dots_words": {"init_beta quad fit": quad},
+                "xt_dots_words_t": {"init_beta fit": dual,
+                                    "init_beta cv": cv}}
+    yb, _, causal_b = simulate_random_response(
+        g, K, Bernoulli(), LogitLink(), rng=np.random.default_rng(SEED))
+    for label, yy, kw in option_cases(g, y, yb, SEED + 11):
+        kw = {"k": K, **kw}
+        walls = []
+        for _ in range(2):                          # cold, then warm
+            for name in kernels.LAUNCHES:
+                kernels.LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            r = fit_iht(yy, g, verbose=False, **kw)
+            walls.append(time.perf_counter() - t0)
+            counts = dict(kernels.LAUNCHES)
+        sel = check_option_fit(label, r, kw)
+        truth = causal_b if "d" in kw else causal
+        found = len(set(sel) & set(truth.tolist()))
+        ran = min(r.iter, FIT_MAX_ITER - 1)
+        print(f"[options] {label} fit {N} x {P} on {card}: iter {r.iter}, "
+              f"logl {r.logl}, {len(sel)} selected, causal recovered "
+              f"{found}/{K}; cold {walls[0]:.4f} s, warm {walls[1]:.4f} s; "
+              f"kernel-2 launches {counts['xt_dots_words_t']}", flush=True)
+        if (counts["xt_dots_words_t"] < ran + 1
+                or counts["xt_dots_words"] != 0
+                or label == "debias" and found != K):
+            raise AssertionError(f"the {label} fit failed its checks")
+        launches["xt_dots_words_t"][f"{label} fit"] = \
+            counts["xt_dots_words_t"]
+    phase_profile(g, y, card, calls=(
+        ("init_beta cv", "xt_dots_t", lambda: run_cv(g, y, init_beta=True)),
+        ("debiased fit", "xt_dots_t",
+         lambda: fit_iht(y, g, k=K, debias=True, verbose=False))))
+    print(f"[options] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def phase_lab(g, card):
     """The kernel lab's entry points on the 10k x 1M genotypes, then its
     sweep of kernels 1, 2 and 6 and kernels 4 and 5 against their plain
@@ -1050,9 +1294,10 @@ def launch_floor(kern, match, out, reps=200):
 
 def lab_unpack(dev):
     """Kernel 4 at the probe's shapes: the unpack (32, 256) and the
-    packed-rhs probe dot (8, 256) x (256, 512) (``rhs_dot_kernel``) equal
-    to plain, each timed in turns with its one-launch floor, a zero fill
-    of its output."""
+    packed-rhs probe dot (8, 256) x (256, 512) (``rhs_dot_kernel``, its
+    unguarded instantiation for this shape and the guarded one) equal to
+    plain, each timed in turns with its one-launch floor, a zero fill of
+    its output."""
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(32, 256))
                          .astype(np.int32)).to(dev)
@@ -1069,9 +1314,26 @@ def lab_unpack(dev):
     a = torch.from_numpy(rng.integers(-128, 128, size=(8, 256))
                          .astype(np.int8)).to(dev)
     dot = lambda: kernels.int_dot_packed(w, a, 4, lhs_packed=False)  # noqa
-    if not torch.equal(dot(), decode.int_dot_packed(w, a, 4, False)):
+    gen = lambda: kernels.int_dot_packed(w, a, 4, False, general=True)  # noqa
+    want = decode.int_dot_packed(w, a, 4, False)
+    if not (torch.equal(dot(), want) and torch.equal(gen(), want)):
         raise AssertionError("the packed-rhs probe dot differs from plain")
-    dot_ms, dot_floor = launch_floor(dot, "rhs_dot_kernel", dot())
+    # its two instantiations in turns with the floor (fill, unguarded,
+    # guarded, guarded, unguarded, fill): the unguarded one is kept only
+    # for its time at this shape
+    out = dot()
+    floors = [device_ms(out.zero_, 200)]
+    exact = [device_ms(dot, 200, "rhs_dot_kernel")]
+    guarded = [device_ms(gen, 200, "rhs_dot_kernel"),
+               device_ms(gen, 200, "rhs_dot_kernel")]
+    exact.append(device_ms(dot, 200, "rhs_dot_kernel"))
+    floors.append(device_ms(out.zero_, 200))
+    dot_ms, gen_ms, dot_floor = (sum(v) / 2 for v in (exact, guarded, floors))
+    spread = max(abs(exact[0] - exact[1]), abs(guarded[0] - guarded[1]))
+    if dot_ms > gen_ms:
+        raise AssertionError(f"the unguarded rhs_dot_kernel ({dot_ms:.6f} "
+                             f"ms) is slower than the guarded one "
+                             f"({gen_ms:.6f} ms) at the shape it is for")
     dot_plain = device_ms(lambda: decode.int_dot_packed(w, a, 4, False), 20)
     dot_bound = bound(dev, w.numel() * 4 + a.numel() + 8 * 512 * 4,
                       2 * 8 * 256 * 512, "int8")
@@ -1082,16 +1344,20 @@ def lab_unpack(dev):
           f"floor), bytes bound {b['bound_ms'] * 1e3:.3f} us, plain "
           f"{plain_ms * 1e3:.3f} us of device time per call (profiler)",
           flush=True)
-    print(f"[lab] rhs_dot_kernel (8, 256) x int4 (256, 512): equal to plain "
-          f"(random operands); kernel {dot_ms * 1e3:.3f} us, a zero fill of "
-          f"its (8, 512) int32 output {dot_floor * 1e3:.3f} us "
-          f"({dot_ms / dot_floor:.2f}x the one-launch floor), bound "
-          f"{dot_bound['bound_ms'] * 1e3:.3f} us ({dot_bound['bound_by']}), "
-          f"plain {dot_plain * 1e3:.3f} us of device time per call",
-          flush=True)
+    print(f"[lab] rhs_dot_kernel (8, 256) x int4 (256, 512): both "
+          f"instantiations equal to plain (random operands); unguarded "
+          f"{dot_ms * 1e3:.3f} us, a zero fill of its (8, 512) int32 output "
+          f"{dot_floor * 1e3:.3f} us ({dot_ms / dot_floor:.3f}x the "
+          f"one-launch floor); guarded {gen_ms * 1e3:.3f} us "
+          f"({gen_ms / dot_floor:.3f}x), {(gen_ms - dot_ms) * 1e3:.3f} us "
+          f"slower against a spread of {spread * 1e3:.3f} us between turns; "
+          f"bound {dot_bound['bound_ms'] * 1e3:.3f} us "
+          f"({dot_bound['bound_by']}), plain {dot_plain * 1e3:.3f} us of "
+          f"device time per call", flush=True)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, shape=[32, 256],
                 **b, floor_ms=floor, library_ms=None, rhs_dot_ms=dot_ms,
-                rhs_dot_floor_ms=dot_floor,
+                rhs_dot_floor_ms=dot_floor, rhs_dot_guarded_ms=gen_ms,
+                rhs_dot_spread_ms=spread,
                 rhs_dot_bound_ms=dot_bound["bound_ms"],
                 rhs_dot_plain_ms=dot_plain)
 
@@ -1238,7 +1504,7 @@ def probe_rounds(g, w3, gen):
         ms, plain_ms, runs = interleaved(
             lambda: kernels.xt_i8_rounds(w3, rhs),
             lambda: decode.xt_i8_rounds(w3, rhs),
-            reps=20 if m == 1 else 10, plain_reps=1)
+            reps=20 if m == 1 else 10, plain_reps=PLAIN_REPS)
         b = score_bound(g, m, "int8", planes=3)
         out[m] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **b)
         print(f"[kprobe] kernel 7 {g.n} x {g.p} m={m}: bit-equal to plain "
@@ -1342,7 +1608,8 @@ def phase_missing(g, y, card, gen):
     """Kernels 2 and 1 with their missing plane at the cv width, each bit
     for bit against plain and equal to each other, then the cv, on 10k x 1M
     genotypes with missing calls; returns each kernel's (ms, plain ms, rel
-    err, abs err, bound ms) at m = 100."""
+    err, abs err, bound ms) at m = 100, and under "moments" their fields
+    at the widths of ``moment_widths`` with the missing plane."""
     g.with_dual_layout()
     bound_of = int8_bound_of(g, missing=True)
     out = {}
@@ -1355,6 +1622,7 @@ def phase_missing(g, y, card, gen):
                             widths=(100,), bound_of=bound_of)
         out[name] = (*times[100], bound_of(100)["bound_ms"])
     check_layouts("cv-miss", g, 100, gen)
+    out["moments"] = moment_widths("cv-miss", g, gen)
     phase_cv("cv-miss", g, y, card, warm=1)
     phase_profile(g, y, card,
                   calls=(("cv-miss", "xt_dots_t", lambda: run_cv(g, y)),))
@@ -1422,6 +1690,7 @@ def main(dev=None):
           f"packed) in {time.perf_counter() - t0:.1f} s", flush=True)
     k1 = phase_kernel(small, g, gen)
     k2 = phase_kernel_t(small, g, gen)
+    moments = moment_widths("moments", g, gen)
     k6 = phase_kernel_i8(small, g, gen)
     check_rounds(small, gen)
     del small
@@ -1429,6 +1698,7 @@ def main(dev=None):
     card_g, cpu_g, y_par = phase_parity(dev)
     phase_cv_parity(card_g, cpu_g, y_par)
     phase_family_parity(card_g, cpu_g)
+    phase_option_parity(card_g, cpu_g, y_par)
     del card_g, cpu_g
     y = phenotype(g, causal, beta, 7)
     k1["launches"], _ = phase_fit(g, causal, y, card)
@@ -1449,6 +1719,9 @@ def main(dev=None):
     fam = phase_families(g, card)
     k1["family_launches"] = fam["xt_dots_words"]
     k2["family_launches"] = fam["xt_dots_words_t"]
+    opts = phase_options(g, causal, y, card)
+    for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
+        st.update(moments[name], options_launches=opts[name])
     del g
     gm, causal_m, beta_m = genotypes(np.random.default_rng(SEED + 1), N, P,
                                      True, dev)
@@ -1456,6 +1729,7 @@ def main(dev=None):
     wrapper_launches(gm, gen)
     for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
         ms, plain_ms, err, abs_err, bound_ms = miss[name]
+        st.update(miss["moments"][name])
         st.update(ms_m100_missing=ms, plain_ms_m100_missing=plain_ms,
                   bound_ms_m100_missing=bound_ms,
                   max_rel_err=max(st["max_rel_err"], err),

@@ -7,12 +7,16 @@ this port is tested against; this package never imports it or jax.
 
 Ported so far: the resident univariate fit of every GLM family and link
 (Normal, Bernoulli, Poisson, NegativeBinomial with ``est_r`` "mm" or
-"newton", Gamma, InverseGaussian) and its cross-validation
+"newton", Gamma, InverseGaussian) and its cross-validation, with the JAX
+package's options ``init_beta``, ``debias``, ``group`` / ``J`` / a vector
+``k``, ``weight``, ``zkeep``, ``io`` and ``use_maf``
 
   - ``fit_iht(y, x: PackedGenotypes, z, k=..., d=..., l=...)``   (reference: src/fit.jl:60)
   - ``cv_iht(y, x, z, d=..., path=..., q=...)``  (src/cross_validation.jl:60)
   - ``iht_run_many_models(y, x, z, path=...)``   (:232)
   - ``utils.simulate.simulate_random_response``  (src/simulate_utilities.jl:207)
+  - ``maf``, ``maf_weights``, ``pve``, ``project_k``,
+    ``project_group_sparse``, ``allocate_fold_and_k``
 
 whose full-width score X'R runs through hand-written CUDA kernels when the
 genotypes live on a CUDA device (``csrc/xt_dots_t.cu``, one kernel body
@@ -30,10 +34,13 @@ the row-major words and the read and decode ceilings
 (``csrc/kernel_probe.cu``).
 """
 
-from .genotype.snparray import PackedGenotypes
-from .models.cv import cv_iht, iht_run_many_models
+from .genotype.snparray import PackedGenotypes, maf
+from .models.cv import allocate_fold_and_k, cv_iht, iht_run_many_models
 from .models.fit import fit_iht
+from .models.pve import pve_from_model as pve
 from .models.results import IHTResult
+from .ops.projections import project_group_sparse, project_k
+from .utils.weights import maf_weights
 from .ops.glm import (
     Normal, Bernoulli, Poisson, NegativeBinomial, Gamma, InverseGaussian,
     MvNormal, Binomial,
@@ -44,7 +51,8 @@ from .ops.glm import (
 __version__ = "0.1.0"
 
 __all__ = ["fit_iht", "cv_iht", "iht_run_many_models", "PackedGenotypes",
-           "IHTResult",
+           "IHTResult", "maf", "maf_weights", "pve", "project_k",
+           "project_group_sparse", "allocate_fold_and_k",
            "Normal", "Bernoulli", "Poisson", "NegativeBinomial", "Gamma",
            "InverseGaussian", "MvNormal", "Binomial",
            "IdentityLink", "LogitLink", "LogLink", "InverseLink", "SqrtLink",

@@ -54,12 +54,21 @@
 // reads copy bx % 8.  The warps' sums meet in shared memory in the output's
 // layout (exact), and each warp stores 8 whole 32-byte output rows.
 
-// The packed-rhs dot (kernel 4's dot_i8_lhs_i4_rhs probe): one block of 4
-// warps per 16 x 8 output tile, the warps splitting K in 32-sample steps and
-// adding their four accumulators through shared memory at the end.  A B
-// fragment register of the packed operand is one word (int8) or four nibble
-// sign-extensions (int4); y's are single 32-bit loads.  No atomics: results
-// repeat.
+// The packed-rhs dot (kernel 4's dot_i8_lhs_i4_rhs probe, (8, 256) x (256,
+// 512) at the lab's shape) is latency-bound: its bytes take 0.025 us, a
+// launch ~1 us.  So one warp, a block of its own, owns a 16 x 8 output tile
+// across all of K: it issues every load of a chunk of 8 K steps (256
+// samples) before its first MMA, keeps the chunk in registers and adds it
+// into one accumulator fragment; no shared memory, no barrier, one store a
+// fragment row.  The MMA's K order within a step is free as long as A and
+// B agree, so thread (g, t) takes samples k + 8t .. k + 8t + 7 of a step:
+// one 8-byte load of y's row (A registers a0 / a2 its low and high word,
+// a1 / a3 the row g + 8) and one whole word of the packed operand for int4
+// (its eight nibbles, in order; b0 the low four, b1 the high four) or two
+// for int8 (word rows k/4 + 2t and + 1).  A nibble becomes a byte in
+// registers: a byte permute doubles each byte, two masks keep one nibble
+// of each, and bit 3 times 0x1E sets the sign bits (8 x 0x1E = 0xF0 stays
+// inside its byte).
 
 #include "i8_mma.cuh"
 
@@ -84,14 +93,6 @@ __global__ void unpack_kernel(const int32_t* __restrict__ x,
       out[(kF * row + j) * c + col] =
           static_cast<int32_t>(w << (32 - BITS * (j + 1))) >> (32 - BITS);
   }
-}
-
-// field j of a word, sign-extended, as the low byte
-template <int BITS>
-__device__ __forceinline__ uint32_t field_byte(uint32_t w, int j) {
-  return static_cast<uint32_t>(
-             static_cast<int32_t>(w << (32 - BITS * (j + 1))) >> (32 - BITS)) &
-         0xFFu;
 }
 
 using i8mma::mma_s8;
@@ -308,74 +309,141 @@ int launch_ingest(const int32_t* x, const int8_t* y, int32_t* out, int M,
 // packed rhs: kernel 4's dot_i8_lhs_i4_rhs probe
 // ---------------------------------------------------------------------------
 
-// B fragment register: column `col`, K values k..k+3, four int8
-template <int BITS>
-__device__ __forceinline__ uint32_t load_b(const int32_t* xw, int col, int k,
-                                           int xc) {
-  constexpr int kF = 32 / BITS;
-  const uint32_t w =
-      static_cast<uint32_t>(__ldg(xw + static_cast<size_t>(k / kF) * xc + col));
-  if constexpr (BITS == 8) {
-    return w;                    // fields 0..3 are K values k..k+3
-  } else {
-    const int j0 = k % kF;       // 0 or 4
-    return field_byte<BITS>(w, j0) | (field_byte<BITS>(w, j0 + 1) << 8) |
-           (field_byte<BITS>(w, j0 + 2) << 16) |
-           (field_byte<BITS>(w, j0 + 3) << 24);
-  }
+constexpr int kRhsSteps = 8;       // K steps a chunk: 256 samples
+
+// int8 of fields 0..3 (half 0) or 4..7 (half 1) of an int4 word, field
+// 4h + i in byte i, sign-extended
+__device__ __forceinline__ uint32_t nibbles_to_bytes(uint32_t w, int half) {
+  const uint32_t p = __byte_perm(w, 0u, half ? 0x3322u : 0x1100u);
+  const uint32_t n = (p & 0x000F000Fu) | ((p >> 4) & 0x0F000F00u);
+  return n | ((n & 0x08080808u) * 0x1Eu);
 }
 
-// out (M, N) = y (M, K) int8 . unpack(x) (K, N), x (K*BITS/32, xc) words
-template <int BITS>
-__global__ void __launch_bounds__(kThreads)
+// Read-only loads as volatile asm with a memory clobber, and the MMA with
+// one: ptxas otherwise sinks half of a chunk's loads below its first MMAs,
+// a second round trip to L2 (seen in the SASS).  Guarded loads give 0
+// where !ok.
+template <bool kGuard>
+__device__ __forceinline__ uint32_t load_u32(const void* p, bool ok) {
+  uint32_t v;
+  if constexpr (kGuard)
+    asm volatile(
+        "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n mov.b32 %0, 0;\n"
+        " @q ld.global.nc.u32 %0, [%1];\n}\n"
+        : "=r"(v) : "l"(p), "r"(static_cast<int>(ok)) : "memory");
+  else
+    asm volatile("ld.global.nc.u32 %0, [%1];\n" : "=r"(v) : "l"(p)
+                 : "memory");
+  return v;
+}
+
+template <bool kGuard>
+__device__ __forceinline__ uint2 load_u64(const void* p, bool ok) {
+  uint2 v;
+  if constexpr (kGuard)
+    asm volatile(
+        "{\n .reg .pred q;\n setp.ne.b32 q, %3, 0;\n mov.b32 %0, 0;\n"
+        " mov.b32 %1, 0;\n @q ld.global.nc.v2.u32 {%0, %1}, [%2];\n}\n"
+        : "=r"(v.x), "=r"(v.y) : "l"(p), "r"(static_cast<int>(ok))
+        : "memory");
+  else
+    asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(v.x), "=r"(v.y) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mma_s8_after_loads(int (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1)
+      : "memory");
+}
+
+// out (M, N) = y (M, K) int8 . unpack(x) (K, N), x (K*BITS/32, xc) words;
+// K % 32 == 0, y 8-byte aligned.  Block (bx, by), one warp: output rows
+// 16bx.., columns 8by...  kExact (M == 8, K == 256, N % 8 == 0: the lab's
+// probe) drops every guard, the absent rows g + 8 and the chunk loop: in
+// a one-warp kernel bound by latency each instruction shows (the two
+// instantiations are timed in turns at that shape, `general` choosing the
+// guarded one).
+template <int BITS, bool kExact>
+__global__ void __launch_bounds__(32)
 rhs_dot_kernel(const int32_t* __restrict__ xw, const int8_t* __restrict__ y,
                int32_t* __restrict__ out, int M, int N, int K, int xc) {
-  __shared__ int red[kThreads / 32][32][4];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int row0 = blockIdx.x * 16;
-  const int col = blockIdx.y * 8 + g;
+  constexpr bool kGuard = !kExact;
+  const int g = threadIdx.x / 4;
+  const int t = threadIdx.x % 4;
+  const int row = blockIdx.x * 16 + g;          // and row + 8
+  const int col = blockIdx.y * 8 + g;           // the B column of (g, t)
+  const bool lo_ok = row < M, hi_ok = row + 8 < M, col_ok = col < N;
+  const int8_t* y_lo = y + static_cast<size_t>(row) * K + 8 * t;
+  const int8_t* y_hi = y_lo + static_cast<size_t>(8) * K;
+  const int32_t* x_col = xw + col;
   int acc[4] = {0, 0, 0, 0};
-  for (int k0 = 32 * warp; k0 < K; k0 += 32 * (kThreads / 32)) {
-    uint32_t a[4];
+  for (int k0 = 0; k0 < (kExact ? 32 * kRhsSteps : K);
+       k0 += 32 * kRhsSteps) {
+    uint2 a_lo[kRhsSteps], a_hi[kRhsSteps];
+    uint32_t w[kRhsSteps][2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + g + 8 * (r & 1);
-      a[r] = row < M ? __ldg(reinterpret_cast<const uint32_t*>(
-                           y + static_cast<size_t>(row) * K + k0 + 4 * t +
-                           16 * (r >> 1)))
-                     : 0u;
+    for (int s = 0; s < kRhsSteps; ++s) {   // every load of the chunk first
+      const int k = k0 + 32 * s;
+      const bool ok = k < K;
+      a_lo[s] = load_u64<kGuard>(y_lo + k, ok && lo_ok);
+      a_hi[s] = kExact ? make_uint2(0u, 0u)
+                       : load_u64<kGuard>(y_hi + k, ok && hi_ok);
+      // word row of samples k + 8t..: k/8 + t (int4), k/4 + 2t (int8)
+      const int wr = BITS == 4 ? k / 8 + t : k / 4 + 2 * t;
+      w[s][0] = load_u32<kGuard>(x_col + static_cast<size_t>(wr) * xc,
+                                 ok && col_ok);
+      if constexpr (BITS == 8)
+        w[s][1] = load_u32<kGuard>(x_col + static_cast<size_t>(wr + 1) * xc,
+                                   ok && col_ok);
     }
-    uint32_t b0 = 0u, b1 = 0u;
-    if (col < N) {
-      b0 = load_b<BITS>(xw, col, k0 + 4 * t, xc);
-      b1 = load_b<BITS>(xw, col, k0 + 16 + 4 * t, xc);
+#pragma unroll
+    for (int s = 0; s < kRhsSteps; ++s) {
+      const uint32_t a[4] = {a_lo[s].x, a_hi[s].x, a_lo[s].y, a_hi[s].y};
+      if constexpr (BITS == 8)
+        mma_s8_after_loads(acc, a, w[s][0], w[s][1]);
+      else
+        mma_s8_after_loads(acc, a, nibbles_to_bytes(w[s][0], 0),
+                           nibbles_to_bytes(w[s][0], 1));
     }
-    mma_s8(acc, a, b0, b1);
+  }
+  // accumulators c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+  const int c = blockIdx.y * 8 + 2 * t;
+  if constexpr (kExact) {
+    *reinterpret_cast<int2*>(out + static_cast<size_t>(row) * N + c) =
+        make_int2(acc[0], acc[1]);
+    return;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) red[warp][lane][i] = acc[i];
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][lane][i];
-    const int row = row0 + g + 8 * (i >> 1);
-    const int c = blockIdx.y * 8 + 2 * t + (i & 1);
-    if (row < M && c < N) out[static_cast<size_t>(row) * N + c] = s;
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= M || c >= N) continue;
+    int32_t* o = out + static_cast<size_t>(r) * N + c;
+    if (c + 1 < N && N % 2 == 0) {
+      *reinterpret_cast<int2*>(o) = make_int2(acc[2 * h], acc[2 * h + 1]);
+    } else {
+      o[0] = acc[2 * h];
+      if (c + 1 < N) o[1] = acc[2 * h + 1];
+    }
   }
 }
 
 template <int BITS>
 void launch_rhs(const int32_t* xw, const int8_t* y, int32_t* out, int M,
-                int N, int K, int xc, cudaStream_t stream) {
+                int N, int K, int xc, bool general, cudaStream_t stream) {
   const dim3 grid((M + 15) / 16, (N + 7) / 8);
-  rhs_dot_kernel<BITS><<<grid, kThreads, 0, stream>>>(xw, y, out, M, N, K,
-                                                      xc);
+  if (!general && M == 8 && K == 32 * kRhsSteps && N % 8 == 0)
+    rhs_dot_kernel<BITS, true><<<grid, 32, 0, stream>>>(xw, y, out, M, N, K,
+                                                        xc);
+  else
+    rhs_dot_kernel<BITS, false><<<grid, 32, 0, stream>>>(xw, y, out, M, N,
+                                                         K, xc);
 }
 
 }  // namespace
@@ -405,11 +473,12 @@ extern "C" int unpack_words(const void* x, void* out, long long r, long long c,
 
 // lhs_packed: x (M*bits/32, K) words, y y_copies identical (N, K) int8
 // (y transposed), one after the other; else: y (M, K) int8, x (K*bits/32,
-// N) words (y_copies unused).  K % 32 == 0, xc = x's columns, pointers
-// 16-byte aligned (the wrapper checks).
+// N) words (y_copies unused; general: the guarded rhs_dot_kernel at every
+// shape).  K % 32 == 0, xc = x's columns, pointers 16-byte aligned (the
+// wrapper checks).
 extern "C" int int_dot_packed(const void* x, const void* y, void* out, int M,
                               int N, int K, int xc, int bits, int lhs_packed,
-                              int y_copies, void* stream) {
+                              int y_copies, int general, void* stream) {
   if (M > 0 && N > 0) {
     const auto* xw = static_cast<const int32_t*>(x);
     const auto* yy = static_cast<const int8_t*>(y);
@@ -420,9 +489,9 @@ extern "C" int int_dot_packed(const void* x, const void* y, void* out, int M,
     if (bits == 4 && lhs_packed)
       return launch_ingest<4>(xw, yy, o, M, N, K, y_copies, st);
     if (bits == 8)
-      launch_rhs<8>(xw, yy, o, M, N, K, xc, st);
+      launch_rhs<8>(xw, yy, o, M, N, K, xc, general != 0, st);
     else if (bits == 4)
-      launch_rhs<4>(xw, yy, o, M, N, K, xc, st);
+      launch_rhs<4>(xw, yy, o, M, N, K, xc, general != 0, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -130,6 +130,9 @@ class PackedGenotypes:
     # (n4/4, 4*p4) of ops/kernels.build_words_t, built by with_dual_layout;
     # never used for gathers
     words_t: torch.Tensor | None = None
+    # host-side minor allele frequencies (float64) where the counts were
+    # seen (``from_codes``), else None: ``maf`` then derives them from mu
+    maf_: np.ndarray | None = None
 
     @property
     def shape(self):
@@ -188,11 +191,13 @@ class PackedGenotypes:
         n_het = (codes == 2).sum(axis=1)
         n_alt = (codes == 3).sum(axis=1)
         n_mis = (codes == 1).sum(axis=1)
-        mu, inv_sd, _ = _stats_from_counts(n - n_mis, n_het, n_alt)
-        return cls.from_numpy(
+        mu, inv_sd, maf_ = _stats_from_counts(n - n_mis, n_het, n_alt)
+        g = cls.from_numpy(
             _bytes_to_words(pack_codes(codes)), mu.astype(np.float32),
             inv_sd.astype(np.float32), n=n, p=p,
             has_missing=bool(n_mis.sum() > 0), device=device, dtype=dtype)
+        g.maf_ = maf_
+        return g
 
     @classmethod
     def from_packed(cls, packed: np.ndarray, mu, inv_sd, *, n: int, p: int,
@@ -232,3 +237,14 @@ class PackedGenotypes:
         inv = self.inv_sd.cpu().double().numpy()[None, :]
         vals = np.where(np.isnan(vals), mu, vals)
         return ((vals - mu) * np.where(inv == 0, 1.0, inv)).astype(dtype)
+
+
+def maf(x: PackedGenotypes) -> np.ndarray:
+    """Minor allele frequency per SNP (reference: SnpArrays.maf, used at
+    src/utilities.jl:693): the counts' float64 frequencies where the
+    genotypes were built from codes, else min(mu/2, 1 - mu/2) in mu's
+    dtype, as the JAX package's ``genotype.snparray.maf``."""
+    if x.maf_ is not None:
+        return np.asarray(x.maf_)
+    af = x.mu.cpu().numpy() / 2.0
+    return np.minimum(af, 1.0 - af)

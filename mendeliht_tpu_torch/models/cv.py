@@ -19,19 +19,11 @@ import numpy as np
 import torch
 
 from ..ops import glm
-from .fit import _NOT_PORTED, build_fit, check_dtype, check_not_ported
+from .fit import build_fit, check_dtype, check_univariate
 from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
 from .univariate import (cv_fused, finalize_iht, predict_deviance, run_iht,
                          run_segment)
-
-_CV_NOT_PORTED = {
-    **{name: _NOT_PORTED[name] for name in (
-        "group", "weight", "zkeep", "debias", "init_beta")},
-    "checkpoint_dir": ((None,), "Queue 1 item 12 (checkpointing)"),
-}
-_PATH_NOT_PORTED = {name: _NOT_PORTED[name] for name in (
-    "group", "weight", "use_maf", "debias")}
 
 
 def allocate_fold_and_k(q: int, path):
@@ -54,9 +46,11 @@ def meanloss(fitloss, q, folds):
 
 
 def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
-           folds=None, verbose=True, max_iter=100, min_iter=5,
+           group=None, weight=None, zkeep=None, folds=None, debias=False,
+           verbose=True, max_iter=100, min_iter=5, init_beta=False,
            memory_efficient=True, dtype=torch.float32, rng=None,
-           checkpoint_every=20, show_progress=False, **not_ported):
+           checkpoint_dir=None, checkpoint_every=20, show_progress=False,
+           use_maf=False):
     """q-fold cross validation over a path of sparsity levels; returns the
     vector of fold-size-weighted holdout deviances per k (reference
     src/cross_validation.jl:60-131).
@@ -64,23 +58,27 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     ``x`` is a PackedGenotypes (or a PackedOp); the solve runs on its
     device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
     Generator).  Every family and link of :func:`fit_iht` runs, with
-    ``est_r``, on the resident path; the holdout loss is the family's
-    deviance.  The JAX package's other arguments raise NotImplementedError
-    naming the ROADMAP item that ports them.  As in the JAX package,
-    ``memory_efficient`` is accepted and ignored, and so is
-    ``checkpoint_every`` without a ``checkpoint_dir``; ``dtype`` must be
-    float32."""
-    check_not_ported("cv_iht", not_ported, _CV_NOT_PORTED)
+    ``est_r``, ``group`` (one group kept, each path k a per-group cap, as
+    in the JAX package), ``weight``, ``zkeep``, ``debias`` and
+    ``init_beta`` (any family, as in the JAX package's cv); the holdout
+    loss is the family's deviance.  ``use_maf``, which the JAX package's
+    cv_iht does not take, is accepted and ignored as ``fit_iht`` ignores
+    it.  As in the JAX package, ``memory_efficient`` is accepted and
+    ignored, and so is ``checkpoint_every`` without a ``checkpoint_dir``;
+    ``dtype`` must be float32.  A ``checkpoint_dir`` and a multivariate y
+    raise NotImplementedError naming their ROADMAP item."""
+    check_univariate("cv_iht", y)
     check_dtype("cv_iht", dtype)
-    y_arr = np.asarray(y)
-    if y_arr.ndim == 2 and y_arr.shape[0] > 1 and y_arr.shape[1] > 1:
-        raise NotImplementedError("multivariate cv_iht is not ported yet: "
-                                  "ROADMAP Queue 1 item 10 (multivariate)")
+    if checkpoint_dir is not None:
+        raise NotImplementedError("cv_iht(checkpoint_dir=...) is not ported "
+                                  "yet: ROADMAP Queue 1 item 12 "
+                                  "(checkpointing)")
     d = d if d is not None else glm.Normal()
     path = list(path) if path is not None else list(range(1, 21))
-    op, data, cfg, _ = build_fit(y, x, z, k=max(path), d=d, l=l,
-                                 est_r=est_r, max_iter=max_iter,
-                                 min_iter=min_iter)
+    op, data, cfg, _ = build_fit(
+        y, x, z, k=max(path), d=d, l=l, group=group, weight=weight,
+        zkeep=zkeep, est_r=est_r, debias=debias, max_iter=max_iter,
+        min_iter=min_iter)
     if max(path) > op.p:
         raise ValueError("Sparsity level in `path` cannot be larger than "
                          "total number of variables")
@@ -105,9 +103,9 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
 
     t0 = _time.time()
     if show_progress:
-        mses = _cv_progress(op, data, cfg, ks, train, test)
+        mses = _cv_progress(op, data, cfg, ks, train, test, init_beta)
     else:
-        mses = cv_fused(op, data, cfg, ks, train, test)
+        mses = cv_fused(op, data, cfg, ks, train, test, init_beta=init_beta)
     mses = mses.cpu().numpy()
     elapsed = _time.time() - t0
 
@@ -119,7 +117,7 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     return mse
 
 
-def _cv_progress(op, data, cfg, ks, train, test, step=5):
+def _cv_progress(op, data, cfg, ks, train, test, init_beta, step=5):
     """Segmented solve with a live progress display to stderr (the
     reference's ProgressMeter over (fold, k) fits,
     src/cross_validation.jl:95; here tasks converge in lockstep, so
@@ -129,7 +127,7 @@ def _cv_progress(op, data, cfg, ks, train, test, step=5):
     # \r-style updates only on an interactive terminal; plain lines when
     # stderr is redirected to a file
     tty = getattr(sys.stderr, "isatty", lambda: False)()
-    st = init_state(op, data, cfg, ks, train)
+    st = init_state(op, data, cfg, ks, train, init_beta=init_beta)
     while st.iteration < cfg.max_iter - 1:
         st = run_segment(op, data, cfg, st,
                          min(st.iteration + step, cfg.max_iter - 1))
@@ -149,12 +147,14 @@ def _cv_progress(op, data, cfg, ks, train, test, step=5):
 
 
 def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
-                        est_r="none", verbose=True, parallel=True,
-                        max_iter=100, dtype=torch.float32, **not_ported):
+                        est_r="none", group=None, weight=None, use_maf=False,
+                        debias=False, verbose=True, parallel=True,
+                        max_iter=100, dtype=torch.float32):
     """Fit every k in ``path`` on the full data (no holdout) and return the
     loglikelihoods (reference src/cross_validation.jl:232-277).  All models
-    run as one batch of tasks; ``dtype`` must be float32."""
-    check_not_ported("iht_run_many_models", not_ported, _PATH_NOT_PORTED)
+    run as one batch of tasks; ``group``, ``weight`` and ``debias`` as in
+    :func:`cv_iht`, ``use_maf`` accepted and ignored as in the JAX
+    package; ``dtype`` must be float32."""
     check_dtype("iht_run_many_models", dtype)
     if not parallel:
         warnings.warn(
@@ -163,8 +163,9 @@ def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
             "serial mode.", stacklevel=2)
     d = d if d is not None else glm.Normal()
     path = list(path) if path is not None else list(range(1, 21))
-    op, data, cfg, _ = build_fit(y, x, z, k=max(path), d=d, l=l,
-                                 est_r=est_r, max_iter=max_iter)
+    op, data, cfg, _ = build_fit(y, x, z, k=max(path), d=d, l=l, group=group,
+                                 weight=weight, est_r=est_r, debias=debias,
+                                 max_iter=max_iter)
 
     B = len(path)
     cv_wts = data.sample_mask[None, :].expand(B, op.n_pad)

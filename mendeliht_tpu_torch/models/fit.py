@@ -1,5 +1,6 @@
 """Public ``fit_iht`` (reference src/fit.jl:60-127), the resident univariate
-fit of every GLM family on the genotypes' device."""
+fit of every GLM family, with the JAX package's options, on the genotypes'
+device."""
 
 from __future__ import annotations
 
@@ -17,19 +18,6 @@ from .results import IHTResult
 from .state import FitConfig, FitData
 from .univariate import finalize_iht, run_segment, _sparse_extract
 
-# arguments of the JAX package's fit_iht that the port does not take yet:
-# name -> (values that mean "not used", ROADMAP item that ports it)
-_NOT_PORTED = {
-    "J": ((1,), "Queue 1 item 9 (group projections)"),
-    "group": ((None,), "Queue 1 item 9 (group projections)"),
-    "weight": ((None,), "Queue 1 item 9 (weights)"),
-    "zkeep": ((None,), "Queue 1 item 9 (zkeep)"),
-    "use_maf": ((False,), "Queue 1 item 9 (weights)"),
-    "debias": ((False,), "Queue 1 item 9 (debias)"),
-    "init_beta": ((False,), "Queue 1 item 9 (init_beta)"),
-    "io": ((None,), "Queue 1 item 9 (teed progress lines)"),
-}
-
 
 def check_dtype(fn: str, dtype):
     """Accept the float32 ``dtype`` the JAX package defaults to (as
@@ -46,19 +34,35 @@ def check_dtype(fn: str, dtype):
                               "ROADMAP Queue 1 item 2 (float64 fits)")
 
 
-def check_not_ported(fn: str, kwargs: dict, table: dict):
-    """Raise TypeError for an argument ``fn`` does not know, and
-    NotImplementedError for one of ``table`` (name -> (values that mean
-    "not used", ROADMAP item)) given a value that would use it."""
-    for name, value in kwargs.items():
-        if name not in table:
-            raise TypeError(f"{fn}() got an unexpected keyword argument "
-                            f"{name!r}")
-        unused, item = table[name]
-        if not any(value is u or (type(value) is type(u) and value == u)
-                   for u in unused):
-            raise NotImplementedError(
-                f"{fn}({name}=...) is not ported yet: ROADMAP {item}")
+def is_multivariate(y) -> bool:
+    """Reference src/multivariate.jl:481-483."""
+    y = np.asarray(y)
+    return y.ndim == 2 and y.shape[0] > 1 and y.shape[1] > 1
+
+
+def check_univariate(fn: str, y):
+    """Raise NotImplementedError for a multivariate y (r, n), r > 1, which
+    the JAX package routes to its multivariate solver."""
+    if is_multivariate(y):
+        raise NotImplementedError(f"multivariate {fn} is not ported yet: "
+                                  "ROADMAP Queue 1 item 10 (multivariate)")
+
+
+def check_group(k, group):
+    """Reference src/utilities.jl:902-915."""
+    if isinstance(k, (list, tuple, np.ndarray)):
+        group = np.asarray(group)
+        if group.size <= 1:
+            raise ValueError("Doubly sparse projection specified (k is a "
+                             "vector) but there is no group information.")
+        for i, ki in enumerate(np.asarray(k), start=1):
+            members = int((group == i).sum())
+            if members < ki:
+                raise ValueError(f"Maximum predictors for group {i} was {ki} "
+                                 f"but the group has only {members} predictors.")
+    else:
+        if k < 0:
+            raise ValueError("Value of k (max predictors per group) must be nonnegative!")
 
 
 def checky(y, dist: str):
@@ -99,37 +103,85 @@ def _prepare_univariate(y, x, z):
     return op, y_pad, z_pad, mask
 
 
-def build_fit(y, x, z=None, *, k=10, d=None, l=None, est_r="none",
-              tol=1e-4, max_iter=200, min_iter=5, max_step=3):
-    """Shared setup: returns (op, data, cfg, k).  ``l`` None takes the
+def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
+              weight=None, zkeep=None, est_r="none", debias=False, tol=1e-4,
+              max_iter=200, min_iter=5, max_step=3):
+    """Shared setup: returns (op, data, cfg, k_scalar), k_scalar the total
+    sparsity (sum of a vector k; J * k with groups).  ``l`` None takes the
     family's canonical link; ``est_r`` ("none", "mm", "newton", any case,
     with or without a leading colon) re-estimates the negative-binomial
-    r."""
+    r.  ``group`` (p,) 1-based ids turn on the doubly-sparse projection
+    (with ``J`` and a scalar or per-group ``k``); ``weight`` (p or p + q)
+    scales the selection magnitudes; ``zkeep`` (q,) bool pins covariates
+    (default all)."""
     dist = glm.dist_name(d if d is not None else glm.Normal())
     link = glm.link_name(l) if l is not None else glm._CANONICAL[dist]
     checky(y, dist)
     op, y_pad, z_pad, mask = _prepare_univariate(y, x, z)
     p, q = op.p, z_pad.shape[1]
-    k = int(k)
-    zkeepn = q                           # every covariate is kept
-    S = max(min(k + q, p + q), 1)
+
+    if zkeep is None:
+        zkeep_arr = np.ones(q, bool)
+    else:
+        zkeep_arr = np.asarray(zkeep, bool)
+        if zkeep_arr.shape != (q,):
+            raise ValueError(f"zkeep must have length {q}")
+    zkeepn = int(zkeep_arr.sum())
+
+    use_group = group is not None and np.asarray(group).size > 0
+    group_k_is_vector = isinstance(k, (list, tuple, np.ndarray))
+    if use_group or group_k_is_vector:
+        check_group(k, group if group is not None else np.asarray([]))
     kw = dict(dtype=op.dtype, device=op.device)
+    extra = {}
+    n_groups = 0
+    if use_group:
+        group_arr = np.asarray(group, np.int64)
+        if group_arr.shape != (p,):
+            raise ValueError(f"group must have length {p}")
+        n_groups = int(group_arr.max())
+        if group_k_is_vector:
+            gks = np.asarray(k, np.int64)
+            k_scalar = int(np.sum(gks))
+        else:
+            gks = np.full(n_groups, int(k), np.int64)
+            k_scalar = int(J) * int(k)
+        extra.update(group=torch.as_tensor(group_arr, device=op.device),
+                     group_ks=torch.as_tensor(gks, device=op.device))
+    else:
+        k_scalar = int(k)
+
+    has_weight = weight is not None and np.asarray(weight).size > 0
+    if has_weight:
+        w = np.asarray(weight, np.float64).reshape(-1)
+        if w.shape[0] == p:
+            w = np.concatenate([w, np.ones(q)])
+        if w.shape[0] != p + q:
+            raise ValueError(f"weight must have length {p} or {p + q}")
+        extra["weight"] = torch.as_tensor(w, **kw)
+
+    S = max(min(k_scalar + q, p + q), 1)
     data = FitData(
         y=torch.as_tensor(y_pad, **kw), z=torch.as_tensor(z_pad, **kw),
-        zkeep=torch.ones(q, dtype=torch.bool, device=op.device),
-        sample_mask=torch.as_tensor(mask, **kw), n_true=op.n)
+        zkeep=torch.as_tensor(zkeep_arr, device=op.device),
+        sample_mask=torch.as_tensor(mask, **kw), n_true=op.n, **extra)
     cfg = FitConfig(dist=dist, link=link, S=int(S), zkeepn=zkeepn,
                     max_iter=int(max_iter), min_iter=int(min_iter),
                     max_step=int(max_step), tol=float(tol),
                     est_r=("none" if est_r in (None, "none", ":None") else
-                           str(est_r).lower().strip(":")))
-    return op, data, cfg, k
+                           str(est_r).lower().strip(":")),
+                    debias=bool(debias), use_group=bool(use_group),
+                    J=int(J), n_groups=n_groups,
+                    group_k_is_vector=group_k_is_vector,
+                    has_weight=bool(has_weight))
+    return op, data, cfg, k_scalar
 
 
-def fit_iht(y, x, z=None, k=10, d=None, l=None, est_r="none", verbose=True,
-            tol=1e-4, max_iter=200, min_iter=5, max_step=3,
-            memory_efficient=True, dtype=torch.float32, checkpoint_dir=None,
-            checkpoint_every=20, **not_ported):
+def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
+            weight=None, zkeep=None, est_r="none", use_maf=False,
+            debias=False, verbose=True, tol=1e-4, max_iter=200, min_iter=5,
+            max_step=3, io=None, init_beta=False, memory_efficient=True,
+            dtype=torch.float32, checkpoint_dir=None, checkpoint_every=20):
     """Fit one IHT model at sparsity k (reference src/fit.jl:60-118).
 
     ``x`` is a PackedGenotypes (standardization and mean imputation applied
@@ -138,32 +190,55 @@ def fit_iht(y, x, z=None, k=10, d=None, l=None, est_r="none", verbose=True,
     package (default Normal) and ``l`` any link (default the family's
     canonical one); ``est_r`` ("mm" or "newton") re-estimates the negative
     binomial's r at every step, and raises ValueError for another family.
-    The JAX package's other arguments raise NotImplementedError naming the
-    ROADMAP item that ports them.
+
+    The JAX package's options: ``group`` (p,) 1-based group ids with ``J``
+    groups kept and ``k`` a per-group cap (or a vector of caps), the
+    doubly-sparse projection; ``weight`` (p or p + q) scaling the selection
+    magnitudes (e.g. ``maf_weights(x)``); ``zkeep`` (q,) bool, the
+    covariates always kept; ``debias``, a refit on the support from the 5th
+    iteration on; ``init_beta`` (Gaussian only), the univariate-regression
+    warm start; ``io``, a file that the parameter block and the
+    per-iteration lines go to, the lines also to stdout (with ``verbose``).
+    ``use_maf`` only prints, as in the JAX package: weight scaling comes
+    through ``weight``.
 
     As in the JAX package, ``memory_efficient`` is accepted and ignored,
     and so are ``checkpoint_dir`` / ``checkpoint_every``, which only its
     streamed fits use (every fit here is resident); ``dtype`` must be
-    float32 (:func:`check_dtype`)."""
-    check_not_ported("fit_iht", not_ported, _NOT_PORTED)
+    float32 (:func:`check_dtype`).  A multivariate y raises
+    NotImplementedError naming its ROADMAP item."""
+    check_univariate("fit_iht", y)
     check_dtype("fit_iht", dtype)
     d = d if d is not None else glm.Normal()
     if glm.dist_name(d) != "negativebinomial" and cfg_est_r_requested(est_r):
         raise ValueError("Only negative binomial regression supports "
                          "nuisance parameter estimation")
-    op, data, cfg, k = build_fit(y, x, z, k=k, d=d, l=l, est_r=est_r,
-                                 tol=tol, max_iter=max_iter,
-                                 min_iter=min_iter, max_step=max_step)
+    op, data, cfg, k_scalar = build_fit(
+        y, x, z, k=k, J=J, d=d, l=l, group=group, weight=weight, zkeep=zkeep,
+        est_r=est_r, debias=debias, tol=tol, max_iter=max_iter,
+        min_iter=min_iter, max_step=max_step)
+    if init_beta and cfg.dist != "normal":
+        raise ValueError("Initializing beta values only works for Gaussian "
+                         "phenotypes! Sorry!")
     if verbose:
         from ..utils.printing import print_iht_signature, print_parameters
-        print_iht_signature()
-        print_parameters(None, k, cfg.dist, cfg.link, tol, max_iter,
-                         min_iter, op.device)
-        cfg = dataclasses.replace(cfg, log_iters=True)
+        print_iht_signature(io)
+        print_parameters(io, k, cfg.dist, cfg.link, use_maf, group, debias,
+                         tol, max_iter, min_iter, op.device)
+        # the per-iteration lines go to stdout, and to io when given
+        cfg = dataclasses.replace(cfg, log_iters=True, log_io=io)
 
     t0 = _time.time()
+    # the per-task k is the reference's v.k: the per-group cap with a
+    # scalar k and groups, the total sparsity otherwise (utilities.jl:255)
+    if cfg.group_k_is_vector:
+        k_task = 0
+    elif cfg.use_group:
+        k_task = int(k)
+    else:
+        k_task = k_scalar
     cv_wts = data.sample_mask[None, :]
-    st = init_state(op, data, cfg, [k], cv_wts)
+    st = init_state(op, data, cfg, [k_task], cv_wts, init_beta=init_beta)
     st = run_segment(op, data, cfg, st, cfg.max_iter - 1)
     st = finalize_iht(op, data, cfg, st)
     sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)
@@ -177,9 +252,12 @@ def fit_iht(y, x, z=None, k=10, d=None, l=None, est_r="none", verbose=True,
 
     if bool(failed):
         raise FloatingPointError("Loglikelihood function is NaN/Inf, aborting...")
-    result = IHTResult(time=tot_time, logl=float(logl), iter=int(iters),
-                       beta=b, c=c, J=1, k=k, group=np.array([], int), d=d,
-                       sigma_g=float(sg))
+    result = IHTResult(
+        time=tot_time, logl=float(logl), iter=int(iters), beta=b, c=c, J=J,
+        k=(list(np.asarray(k)) if cfg.group_k_is_vector else int(k)),
+        group=(np.asarray(group) if group is not None else np.array([], int)),
+        d=d, sigma_g=float(sg))
     if verbose:
         print(result)
     return result
+

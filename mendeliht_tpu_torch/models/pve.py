@@ -18,3 +18,26 @@ def pve(y, mu, sample_mask, n_true):
     """y (n_pad,); mu (n_pad,) or (B, n_pad) -> scalar or (B,)."""
     return (masked_var(mu, sample_mask, n_true)
             / masked_var(y, sample_mask, n_true))
+
+
+def pve_from_model(y, X, beta, l=None):
+    """Public ``pve(y, X, beta; l)`` (reference src/pve.jl:12-20):
+    Var(g^-1(X beta)) / Var(y) with the n-1 divisor, on the host in
+    float64.  X is a PackedGenotypes (standardized and mean-imputed here)
+    or a dense (n, p) array; y (n,) gives a float, y (n, r) a list of r."""
+    import numpy as np
+    import torch
+
+    from ..genotype.snparray import PackedGenotypes
+    from ..ops import glm
+
+    link = glm.link_name(l) if l is not None else "identity"
+    Xd = (X.to_dense_standardized() if isinstance(X, PackedGenotypes)
+          else np.asarray(X))
+    y = np.asarray(y)
+    mu = glm.linkinv(link, torch.from_numpy(
+        np.asarray(Xd @ np.asarray(beta)))).numpy()
+    if y.ndim == 1:
+        return float(np.var(mu, ddof=1) / np.var(y, ddof=1))
+    return [float(np.var(mu[:, i], ddof=1) / np.var(y[:, i], ddof=1))
+            for i in range(y.shape[1])]

@@ -59,8 +59,8 @@ class IHTState:
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Solver configuration (the subset of the JAX package's that the port
-    runs: every family and link, no group, weight or debias options)."""
+    """Solver configuration (the JAX package's, but for its sharded group
+    projection's candidate budget and its dtype: every fit here is f32)."""
     dist: str = "normal"
     link: str = "identity"
     S: int = 16                 # support slot count (>= max k + zkeepn)
@@ -70,7 +70,15 @@ class FitConfig:
     max_step: int = 3
     tol: float = 1e-4
     est_r: str = "none"         # "none" | "mm" | "newton"
+    debias: bool = False
+    use_group: bool = False
+    J: int = 1                  # groups kept by the group projection
+    n_groups: int = 0
+    group_k_is_vector: bool = False
+    has_weight: bool = False
     log_iters: bool = False     # print a progress line per iteration
+    # a file the progress lines also go to (fit_iht's io)
+    log_io: object = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,3 +89,7 @@ class FitData:
     zkeep: torch.Tensor        # (q,) bool
     sample_mask: torch.Tensor  # (n_pad,) 1.0 for true samples
     n_true: int                # true sample count
+    # read only where FitConfig says so (has_weight, use_group)
+    weight: torch.Tensor | None = None    # (p + q,) selection weights
+    group: torch.Tensor | None = None     # (p,) int64 1-based group ids
+    group_ks: torch.Tensor | None = None  # (n_groups,) int64 per-group k

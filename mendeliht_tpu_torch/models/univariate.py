@@ -18,7 +18,9 @@ import dataclasses
 import torch
 
 from ..ops import glm, negbin
-from ..ops.projections import project_topk_joint, select_support
+from ..ops.projections import (project_group_sparse_batched,
+                               project_group_sparse_per_task,
+                               project_topk_joint, select_support)
 from .state import IHTState, FitConfig, FitData
 
 _INF_STEP_GUARD = 1e-8
@@ -66,11 +68,25 @@ def _stepsize(op, data: FitData, cfg: FitConfig, st: IHTState):
 
 def _gradstep(data: FitData, cfg: FitConfig, st: IHTState, eta):
     """b = P_k(b0 + eta*df), c = P(c0 + eta*df2); returns (b, c, sel_idx,
-    sel_valid, idc) (reference src/utilities.jl:252-280, joint branch)."""
+    sel_valid, idc) (reference src/utilities.jl:252-280)."""
     b1 = st.b0 + eta[:, None] * st.df
     c1 = st.c0 + eta[:, None] * st.df2
+    if cfg.use_group:
+        # the group path projects the genetic coefficients alone
+        # (reference src/utilities.jl:267-269); a scalar per-group k is the
+        # task's own st.k, which cv varies per (fold, k) combo
+        if cfg.group_k_is_vector:
+            b_new = project_group_sparse_batched(
+                b1, data.group, cfg.J, data.group_ks, cfg.n_groups)
+        else:
+            b_new = project_group_sparse_per_task(
+                b1, data.group, cfg.J, st.k, cfg.n_groups)
+        sel_idx, sel_valid = select_support(b_new, torch.zeros_like(c1),
+                                            data.zkeep, cfg.S)
+        return b_new, c1, sel_idx, sel_valid, c1 != 0
     b_new, c_new, sel_idx, _, sel_valid = project_topk_joint(
-        b1, c1, st.k + cfg.zkeepn, data.zkeep, cfg.S)
+        b1, c1, st.k + cfg.zkeepn, data.zkeep, cfg.S,
+        weight=data.weight if cfg.has_weight else None)
     return b_new, c_new, sel_idx, sel_valid, c_new != 0
 
 
@@ -158,7 +174,8 @@ def _iteration(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
 
 def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
                n_bt) -> IHTState:
-    """Accept the line-search result: score, NaN guard, convergence."""
+    """Accept the line-search result: score, NaN guard, debias,
+    convergence."""
     act = st.active
     new = dataclasses.replace(
         st, **{k: _where_b(act, cur[k], getattr(st, k)) for k in cur},
@@ -173,18 +190,31 @@ def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
     # non-finite loglikelihood -> fail the task (reference throws, fit.jl:259)
     bad = act & (torch.isnan(new.logl) | torch.isinf(new.logl))
 
+    # debias from the 5th iteration on, where the support did not change
+    # (reference src/fit.jl:188, utilities.jl:1014-1020)
+    if cfg.debias and new.iteration + 1 >= 5:
+        from .debias import debias_refit
+        supp_same = ((new.b != 0) == (new.b0 != 0)).all(dim=1)
+        new = dataclasses.replace(new, b=_where_b(
+            act & supp_same, debias_refit(op, data, cfg, new), new.b))
+
     # convergence (reference src/utilities.jl:953-957, fit.jl:193-203)
     it = new.iteration + 1             # 1-based iteration just completed
     scaled = _scaled_change(new)
     done = act & (((it >= cfg.min_iter) & (scaled < cfg.tol)) | bad)
-    if cfg.log_iters:
-        print(f"Iteration {it}: loglikelihood = {float(new.logl[0])}, "
-              f"backtracks = {int(new.backtracks[0])}, "
-              f"tol = {float(scaled[0])}")
-    return dataclasses.replace(
+    new = dataclasses.replace(
         new, active=act & ~done, failed=new.failed | bad,
         iters=torch.where(done, torch.full_like(new.iters, it), new.iters),
         iteration=it)
+    if cfg.log_iters:
+        # task 0's line (reference fit.jl:194-196)
+        line = (f"Iteration {it}: loglikelihood = {float(new.logl[0])}, "
+                f"backtracks = {int(new.backtracks[0])}, "
+                f"tol = {float(scaled[0])}")
+        if cfg.log_io is not None:
+            print(line, file=cfg.log_io)
+        print(line)
+    return new
 
 
 def _scaled_change(st: IHTState):
@@ -243,12 +273,13 @@ def predict_deviance(op, data: FitData, cfg: FitConfig, st: IHTState,
                         nb_r=st.nb_r[:, None], dim=1)
 
 
-def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts):
+def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts,
+             init_beta: bool = False):
     """init + solve + finalize + holdout deviance of the whole
     cross-validation grid as one batch of tasks."""
     from .initialize import init_state
 
-    st = init_state(op, data, cfg, ks, train_wts)
+    st = init_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
     st = run_iht(op, data, cfg, st)
     return predict_deviance(op, data, cfg, st, test_wts)
 

@@ -52,14 +52,12 @@ _CHUNK_WORDS = 1 << 21
 
 
 def _plane_val_miss(crumbs: torch.Tensor, dtype, want_missing: bool):
-    """(..., n4) uint8 codes of one shift plane -> value, missing or None,
-    hi bit, hi&lo bit, each as ``dtype``."""
-    hi = crumbs >> 1
-    hl = hi & crumbs & 1
-    hi_f = hi.to(dtype)
-    hl_f = hl.to(dtype)
-    miss = (crumbs & 1).to(dtype) - hl_f if want_missing else None
-    return hi_f + hl_f, miss, hi_f, hl_f
+    """(..., n4) uint8 codes of one shift plane -> value (missing -> 0) and
+    missing indicator or None, each as ``dtype``: from the code c as a
+    float, value max(c - 1, 0) and missing c == 1, exact."""
+    c = crumbs.to(dtype)
+    val = torch.clamp(c - 1.0, min=0.0)
+    return val, (c == 1.0).to(dtype) if want_missing else None
 
 
 def quad_rows_bytes(words: torch.Tensor) -> torch.Tensor:
@@ -122,10 +120,9 @@ def xt_dots(words: torch.Tensor, rhs: torch.Tensor, *, want_missing: bool,
         by = row_bytes(lo, hi)                               # (c, n4) u8
         acc = [torch.zeros((hi - lo, m), **kw) if w else None for w in wanted]
         for s in range(4):
-            crumbs = (by >> (2 * s)) & 3
-            val, miss, hi_f, hl_f = _plane_val_miss(crumbs, rhs.dtype,
-                                                    want_missing)
-            sq = hi_f + 3.0 * hl_f if want_sq else None
+            val, miss = _plane_val_miss((by >> (2 * s)) & 3, rhs.dtype,
+                                        want_missing)
+            sq = val * val if want_sq else None
             for a, x in zip(acc, (val, miss, sq)):
                 if a is not None:
                     a += x @ planes[s]
@@ -180,9 +177,9 @@ def digit_sums(row_bytes, p_all: int, planes: torch.Tensor, *,
         acc = [torch.zeros((hi - lo, rows), **kw) if w else None
                for w in wanted]
         for q in range(4):
-            crumbs = (by >> (2 * q)) & 3
-            val, miss, hi_f, _ = _plane_val_miss(crumbs, torch.float64,
-                                                 want_missing)
+            val, miss = _plane_val_miss((by >> (2 * q)) & 3, torch.float64,
+                                        want_missing)
+            hi_f = (val > 0.0).to(torch.float64) if want_sq else None
             dq = d[:, q].T
             for a, x in zip(acc, (val, miss, hi_f)):
                 if a is not None:
@@ -458,6 +455,20 @@ def take_rows_bytes(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return ((g >> shift) & 0xFF).to(torch.uint8).reshape(B, S, words.shape[1])
 
 
+def gather_decode_rows(rows: torch.Tensor, dtype, *, want_missing: bool):
+    """Decode gathered SNP rows (B, S, n4) uint8 -> raw values (B, S, 4*n4)
+    and the missing plane (or None without ``want_missing``), in sample
+    order (``mendeliht_tpu.ops.decode.gather_decode_rows``)."""
+    vals, misses = [], []
+    for s in range(4):
+        val, miss = _plane_val_miss((rows >> (2 * s)) & 3, dtype,
+                                    want_missing)
+        vals.append(val)
+        misses.append(miss)
+    return (torch.cat(vals, dim=2),
+            torch.cat(misses, dim=2) if want_missing else None)
+
+
 def sparse_forward_rows(rows: torch.Tensor, idx: torch.Tensor,
                         coef: torch.Tensor, mu: torch.Tensor, *,
                         want_missing: bool) -> torch.Tensor:
@@ -472,7 +483,7 @@ def sparse_forward_rows(rows: torch.Tensor, idx: torch.Tensor,
     out = []
     for s in range(4):
         crumbs = (rows >> (2 * s)) & 3
-        val, miss, _, _ = _plane_val_miss(crumbs, dtype, want_missing)
+        val, miss = _plane_val_miss(crumbs, dtype, want_missing)
         xb_s = torch.einsum("bjn,bj->bn", val, coef)
         if want_missing:
             xb_s = xb_s + torch.einsum("bjn,bj->bn", miss, mus)

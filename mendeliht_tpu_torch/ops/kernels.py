@@ -438,14 +438,21 @@ def unpack_words(x: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
-                   lhs_packed: bool = True) -> torch.Tensor:
+                   lhs_packed: bool = True,
+                   general: bool = False) -> torch.Tensor:
     """Exact int32 dot with one packed operand: the ``bits``-wide fields of
     x_words (``unpack_words``) against y cast to int8, as the left operand
     (``lhs_packed``: (32/bits*r, c) . (c, N)) or the right one ((M, K) .
     (32/bits*r, c)).  The bodies ``k_dot_i4_i8`` / ``k_dot_i8_weights_i4``
     of ``tools/kernel_lab5.py::probe_int4`` and ``bench_int4_ingestion``'s
     kernel.  Mismatched contracting dimensions raise dot_general's
-    TypeError before any launch."""
+    TypeError before any launch.  ``general`` (packed rhs only) launches
+    the guarded ``rhs_dot_kernel`` also at the lab probe's shape, which
+    otherwise takes its unguarded instantiation: the same result, to time
+    the two against each other."""
+    if general and lhs_packed:
+        raise ValueError("general selects a packed-rhs instantiation; "
+                         "pass lhs_packed=False")
     if x_words.dtype != torch.int32 or x_words.dim() != 2:
         raise ValueError(f"x_words must be 2-D int32, got {x_words.dtype} "
                          f"{tuple(x_words.shape)}")
@@ -477,11 +484,11 @@ def int_dot_packed(x_words: torch.Tensor, y: torch.Tensor, bits: int,
     _check_card_tensor("y", y8, torch.int8)
     out = torch.empty((M, N), dtype=torch.int32, device=x_words.device)
     fn = _entry("int_probe", "int_dot_packed",
-                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7
+                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8
                 + (ctypes.c_void_p,))
     _launch("int_dot_packed", fn, x_words.device, x_words.data_ptr(),
             y8.data_ptr(), out.data_ptr(), M, N, K, xc, bits,
-            int(lhs_packed), _Y_COPIES)
+            int(lhs_packed), _Y_COPIES, int(general))
     return out
 
 

@@ -108,6 +108,47 @@ class PackedOp:
         const = (coef_s * g.mu[idx]).sum(dim=1)                # (B,)
         return raw - const[:, None]
 
+    def gather_cols(self, idx: torch.Tensor, valid: torch.Tensor):
+        """Standardized columns X[:, idx] -> (B, S, n_pad), invalid slots
+        zeroed: the debias refit's small design (plain torch ops, as XLA
+        runs the JAX package's ``PackedOp.gather_cols``)."""
+        g = self.geno
+        rows = decode.take_rows_bytes(g.words, idx)
+        val, miss = decode.gather_decode_rows(rows, self.dtype,
+                                              want_missing=g.has_missing)
+        mu = g.mu[idx][:, :, None]
+        inv = g.inv_sd[idx][:, :, None]
+        if g.has_missing:
+            val = val + mu * miss
+        return (val - mu) * inv * valid[:, :, None]
+
+    def col_moments(self, W: torch.Tensor, WY: torch.Tensor):
+        """Per-SNP weighted moments of the standardized columns, W and WY
+        (B, n_pad) -> Sx, Sxx, Sxy, each (B, p):
+        ``Sx = sum_i w_i x_ij``, ``Sxx = sum_i w_i x_ij^2``,
+        ``Sxy = sum_i (wy)_i x_ij``.
+
+        One score pass at width 2B with the squared plane S (and M where
+        the genotypes miss calls): on the card kernel 2 (or kernel 1), whose
+        int8 digits carry a 0/1 W exactly and quantise the WY columns to 21
+        bits against their max; on the CPU the f32 ``decode.xt_dots``."""
+        g = self.geno
+        B = W.shape[0]
+        R = torch.stack([W, WY], dim=0).reshape(2 * B, -1)   # (2B, n_pad)
+        A, M, Sq = self._xt_dots(R.T, want_sq=True)
+        A = A.T.reshape(2, B, -1)
+        Sq = Sq.T.reshape(2, B, -1)
+        M = M.T.reshape(2, B, -1) if g.has_missing else torch.zeros_like(A)
+        mu, inv = g.mu[None, :], g.inv_sd[None, :]
+        sumW = W.sum(dim=1)[:, None]
+        sumWY = WY.sum(dim=1)[:, None]
+        Sx = inv * (A[0] + mu * (M[0] - sumW))
+        Sxy = inv * (A[1] + mu * (M[1] - sumWY))
+        # Sxx = inv^2 (Sq_w - 2 mu A_w - mu^2 M_w + mu^2 sumW)
+        Sxx = inv * inv * (Sq[0] - 2.0 * mu * A[0] - mu * mu * M[0]
+                           + mu * mu * sumW)
+        return Sx, Sxx, Sxy
+
 
 def make_operator(x):
     """Wrap a design matrix in its operator (packed genotypes only, so far).

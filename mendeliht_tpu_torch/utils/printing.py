@@ -16,9 +16,10 @@ def print_iht_signature(io=None):
     print("", file=io)
 
 
-def print_parameters(io, k, dist, link, tol, max_iter, min_iter, device):
-    """The parameter block of a fit; weight scaling, group projection and
-    debiasing are not ported yet, so they print as off."""
+def print_parameters(io, k, dist, link, use_maf, group, debias, tol,
+                     max_iter, min_iter, device):
+    """The parameter block of a fit, as the JAX package prints it but for
+    the backend line."""
     io = io or sys.stdout
     regression = {
         "normal": "linear", "bernoulli": "logistic", "poisson": "Poisson",
@@ -28,9 +29,16 @@ def print_parameters(io, k, dist, link, tol, max_iter, min_iter, device):
     print(f"Running sparse {regression} regression", file=io)
     print(f"Backend = torch {device}", file=io)
     print(f"Link function = {link}", file=io)
-    print(f"Sparsity parameter (k) = {k}", file=io)
-    print("Prior weight scaling = off", file=io)
-    print("Doubly sparse projection = off", file=io)
-    print("Debias = off", file=io)
+    if isinstance(k, (list, tuple)):
+        print("Sparsity parameter (k) = using group membership specified in "
+              "k", file=io)
+    else:
+        print(f"Sparsity parameter (k) = {k}", file=io)
+    print(f"Prior weight scaling = {'on' if use_maf else 'off'}", file=io)
+    has_group = group is not None and len(group) > 0
+    print(f"Doubly sparse projection = {'on' if has_group else 'off'}",
+          file=io)
+    print(f"Debias = {'on' if debias else 'off'}", file=io)
     print(f"Max IHT iterations = {max_iter}", file=io)
-    print(f"Converging when tol < {tol} and iteration >= {min_iter}:\n", file=io)
+    print(f"Converging when tol < {tol} and iteration >= {min_iter}:\n",
+          file=io)

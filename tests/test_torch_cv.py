@@ -23,11 +23,18 @@ import torch
 import mendeliht_tpu as m
 from mendeliht_tpu.genotype import snparray as jsnp
 from mendeliht_tpu.models import cv as jcv
+from mendeliht_tpu.models import fit as jfit
+from mendeliht_tpu.models import streamed as jstreamed
+from mendeliht_tpu.models import univariate as juni
+from mendeliht_tpu.models.initialize import init_state as jinit_state
 from mendeliht_tpu.ops import decode as jdecode
 from mendeliht_tpu.ops import pallas_kernels as jpk
 
 import mendeliht_tpu_torch as mt
 from mendeliht_tpu_torch.models import cv as tcv
+from mendeliht_tpu_torch.models import fit as tfit
+from mendeliht_tpu_torch.models import univariate as tuni
+from mendeliht_tpu_torch.models.initialize import init_state as tinit_state
 from mendeliht_tpu_torch.ops import decode as tdecode
 from mendeliht_tpu_torch.ops import kernels as tkernels
 from mendeliht_tpu_torch.ops import linalg as tlinalg
@@ -467,9 +474,108 @@ def test_iht_run_many_models_matches_jax(plain_problem):
     (dict(checkpoint_dir="ckpt", checkpoint_every=5), "item 12"),
     (dict(weight=np.ones(500)), "item 9")])
 def test_cv_unported_arguments_raise(plain_problem, kwargs, item):
-    x, y, _ = plain_problem
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        mt.cv_iht(y, _port(x), path=[1, 2], q=2, verbose=False, **kwargs)
+    """Arguments that raised NotImplementedError naming their ROADMAP item.
+    A ``checkpoint_dir`` (item 12) still does; the options of item 9, since
+    ported, give the JAX package's call: its ValueError for a group or
+    weight of the wrong length, else its mse within this file's tolerance
+    and the same best k.  With ``debias`` a task's best iterate is chosen by
+    the loglikelihood of the iterate before its refit (the reference's
+    quirk), and a refit leaves the next iterates' loglikelihoods a few f32
+    roundings apart, so the two packages may keep different iterates of a
+    task: its holdout deviance is held to the JAX package's where both keep
+    the same iterate, and where they do not, the two iterates'
+    loglikelihoods must tie within the packages' agreement
+    (``_debiased_tasks``)."""
+    x, y, folds = plain_problem
+    kw = dict(path=[1, 2], q=3, folds=folds, verbose=False, **kwargs)
+    if item != "item 9":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 {item}"):
+            mt.cv_iht(y, _port(x), **kw)
+        return
+    try:
+        want = m.cv_iht(y, x, **kw)
+    except ValueError as err:
+        with pytest.raises(ValueError) as got:
+            mt.cv_iht(y, _port(x), **kw)
+        assert str(got.value) == str(err)
+        return
+    got = mt.cv_iht(y, _port(x), **kw)
+    if "debias" not in kwargs:
+        _assert_mse_agree(got, want)
+        return
+    dev_j, dev_t, same = _debiased_tasks(x, y, folds, [1, 2], 3)
+    np.testing.assert_allclose(want, jcv.meanloss(dev_j, 3, folds),
+                               rtol=1e-4)
+    np.testing.assert_allclose(got, tcv.meanloss(dev_t, 3, folds),
+                               rtol=1e-6)
+    np.testing.assert_allclose(dev_t[same], dev_j[same], rtol=1e-4)
+    ks = np.array([k for _, k in tcv.allocate_fold_and_k(3, [1, 2])])
+    for i, k in enumerate([1, 2]):
+        if same[ks == k].all():
+            np.testing.assert_allclose(got[i], want[i], rtol=1e-4)
+    assert int(np.argmin(got)) == int(np.argmin(want))
+
+
+LOGL_ULPS = 4
+
+
+def _debiased_tasks(x, y, folds, path, q):
+    """Each (fold, k) task of a debiased cv, stepped from the host in both
+    packages: its holdout deviance in each, and whether both keep the same
+    iterate.  Every iterate's loglikelihood agrees within ``LOGL_ULPS`` f32
+    roundings (the sums of the two packages differ by up to two); where the
+    kept iterates differ, each package's loglikelihoods of the two lie as
+    close, so the choice is made below the packages' agreement."""
+    combos = jcv.allocate_fold_and_k(q, path)
+    ks = np.array([k for _, k in combos], np.int32)
+    n = len(y)
+    jop, jdata, jcfg, _ = jfit.build_fit(y, x, None, k=max(path),
+                                         debias=True, max_iter=100)
+    op, data, cfg, _ = tfit.build_fit(y, _port(x), None, k=max(path),
+                                      debias=True, max_iter=100)
+    train = np.zeros((len(ks), op.n_pad), np.float32)
+    test = np.zeros_like(train)
+    for i, (fold, _) in enumerate(combos):
+        train[i, :n] = folds != fold
+        test[i, :n] = folds == fold
+    runs = {
+        "jax": (jinit_state(jop, jdata, jcfg, jnp.asarray(ks),
+                            jnp.asarray(train)),
+                lambda st: jstreamed._iteration_host(jop, jdata, jcfg, st),
+                lambda st: juni.predict_deviance.__wrapped__(
+                    jop, jdata, jcfg,
+                    juni.finalize_iht.__wrapped__(jop, jdata, jcfg, st),
+                    jnp.asarray(test))),
+        "port": (tinit_state(op, data, cfg, torch.from_numpy(ks),
+                             torch.from_numpy(train)),
+                 lambda st: tuni._iteration(op, data, cfg, st),
+                 lambda st: tuni.predict_deviance(
+                     op, data, cfg, tuni.finalize_iht(op, data, cfg, st),
+                     torch.from_numpy(test)))}
+    logls, devs = {}, {}
+    for name, (st, step, deviance) in runs.items():
+        # the iterates each task's best is chosen from: the first (its
+        # loglikelihood -inf), then every one it reaches while active
+        seq = [[v] for v in np.asarray(st.logl)]
+        while np.asarray(st.active).any() and int(st.iteration) < 99:
+            was = np.asarray(st.active)
+            st = step(st)
+            for b in np.flatnonzero(was):
+                seq[b].append(np.asarray(st.logl)[b])
+        logls[name] = [np.array(s, np.float32) for s in seq]
+        devs[name] = np.asarray(deviance(st), np.float64)
+    same = np.zeros(len(ks), bool)
+    for b, (lj, lt) in enumerate(zip(logls["jax"], logls["port"])):
+        ulps = LOGL_ULPS * np.spacing(np.abs(lj[np.isfinite(lj)]).max())
+        assert lt.shape == lj.shape and np.array_equal(np.isinf(lt),
+                                                       np.isinf(lj))
+        assert np.all(np.abs(lt - lj)[np.isfinite(lj)] <= ulps)
+        ij, it = int(np.argmax(lj)), int(np.argmax(lt))
+        same[b] = ij == it
+        for seq_ in (lj, lt):
+            assert abs(seq_[ij] - seq_[it]) <= ulps
+    return devs["jax"], devs["port"], same
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -530,8 +636,22 @@ def test_cv_unported_inputs_raise(plain_problem):
                   verbose=False)
     with pytest.raises(NotImplementedError, match="item 13"):
         mt.cv_iht(y, object(), path=[1], q=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # use_maf raised NotImplementedError before it was accepted; as in the
+    # JAX package it is ignored
+    np.testing.assert_array_equal(
         mt.iht_run_many_models(y, _port(x), path=[1], use_maf=True,
-                               verbose=False)
+                               verbose=False),
+        mt.iht_run_many_models(y, _port(x), path=[1], verbose=False))
     with pytest.raises(TypeError, match="unexpected keyword"):
         mt.cv_iht(y, _port(x), path=[1], q=2, no_such_argument=1)
+
+
+def test_fit_multivariate_y_raises(plain_problem):
+    """A y of shape (r, n), r > 1, which the JAX package routes to its
+    multivariate solver: fit_iht raises cv_iht's NotImplementedError
+    naming the multivariate item, not a length error."""
+    x, y, _ = plain_problem
+    with pytest.raises(NotImplementedError, match="item 10 \\(multivariate"):
+        mt.fit_iht(np.stack([y, y]), _port(x), k=2, verbose=False)
+    with pytest.raises(NotImplementedError, match="item 10 \\(multivariate"):
+        mt.cv_iht(np.stack([y, y]), _port(x), path=[1], q=2, verbose=False)

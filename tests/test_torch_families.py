@@ -273,16 +273,17 @@ def test_verbose_family_fit_prints_its_regression(geno, capsys):
     (dict(d="binomial"), ValueError, "unknown distribution binomial"),
     (dict(d="gamma"), FloatingPointError, "NaN/Inf"),
     (dict(d="inversegaussian"), FloatingPointError, "NaN/Inf"),
-    (dict(d="negativebinomial", init_beta=True), NotImplementedError,
-     "ROADMAP")], ids=["est_r-normal", "est_r-poisson", "bernoulli-y",
+    (dict(d="negativebinomial", init_beta=True), ValueError,
+     "only works for Gaussian")], ids=["est_r-normal", "est_r-poisson", "bernoulli-y",
                        "binomial", "gamma-inverse", "invgauss-inversesquare",
                        "init_beta"])
 def test_errors_match_jax(geno, kwargs, exc, match):
     """The JAX package's errors: est_r off the negative binomial, a
     Bernoulli y that is not 0/1, a Binomial fit (its deviance is not
     defined), and the inverse-type canonical links of Gamma and inverse
-    Gaussian, whose intercept starts at an infinite mean; init_beta is not
-    ported and raises first."""
+    Gaussian, whose intercept starts at an infinite mean; init_beta off
+    the Gaussian family (it raised NotImplementedError before init_beta
+    was ported)."""
     x, t = geno
     y, _, _ = m.simulate_random_response(x, K, "gamma", "log",
                                          rng=np.random.default_rng(3))

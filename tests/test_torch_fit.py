@@ -7,8 +7,10 @@ betas within 1e-4 of max|beta| and loglikelihoods within 1e-4 relative.
 """
 
 import dataclasses
+import types
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -157,9 +159,44 @@ def test_verbose_fit_prints_progress(small_sim, capsys):
                                     dict(group=[1, 2]), dict(init_beta=True),
                                     dict(J=2)])
 def test_unported_arguments_raise(small_sim, kwargs):
+    """Arguments that raised NotImplementedError before the fit options
+    were ported: each call now equals the JAX package's.  A weight or group
+    of the wrong length raises its ValueError; ``zkeep``, ``use_maf`` (which
+    only prints), ``debias`` and ``J`` without groups (unused) fit as
+    fit_iht does, and ``init_beta`` as the JAX package's host-stepped driver
+    does (the port's drives its steps from the host too, and the fused
+    driver ends this fit on another of its loglikelihood ties), all to this
+    file's tolerances."""
     x, y, _, _ = small_sim
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.fit_iht(y, _port_genotypes(x), k=5, verbose=False, **kwargs)
+    g = _port_genotypes(x)
+    try:
+        want = m.fit_iht(y, x, k=5, verbose=False, **kwargs)
+    except ValueError as err:
+        with pytest.raises(ValueError) as got:
+            mt.fit_iht(y, g, k=5, verbose=False, **kwargs)
+        assert str(got.value) == str(err)
+        return
+    got = mt.fit_iht(y, g, k=5, verbose=False, **kwargs)
+    if "init_beta" in kwargs:
+        want = _jax_host_fit(y, x, k=5, init_beta=True)
+    _assert_fits_agree(want, got)
+
+
+def _jax_host_fit(y, g, *, k, init_beta):
+    """The JAX package's fit_iht through its host-stepped driver (which
+    fit_iht runs for streamed genotypes): (beta, c, logl, iter, sigma_g)."""
+    op, data, cfg, k_scalar = jfit.build_fit(y, g, None, k=k)
+    cv_wts = jnp.broadcast_to(data.sample_mask[None, :], (1, op.n_pad))
+    idx, valid, bc, c, logl, iters, _, sg = jax.device_get(
+        jstreamed.fit_fused_sparse_host(op, data, cfg,
+                                        jnp.asarray([k_scalar], jnp.int32),
+                                        cv_wts, init_beta=init_beta))
+    beta = np.zeros(op.p, np.float32)
+    keep = valid[0] & (idx[0] < op.p)
+    beta[idx[0][keep]] = bc[0][keep]
+    return types.SimpleNamespace(beta=beta, c=np.asarray(c[0]),
+                                 logl=float(logl[0]), iter=int(iters[0]),
+                                 sigma_g=float(sg[0]))
 
 
 @pytest.mark.parametrize("kwargs", [dict(d="bernoulli"), dict(d="poisson"),

@@ -248,6 +248,35 @@ def test_score_kernels_hold_bound_at_large_n(cuda_device, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 200])
+def test_score_kernels_squared_plane_at_moment_widths_on_card(cuda_device,
+                                                              m):
+    """The widths of ``PackedOp.col_moments`` (the init_beta warm start's
+    score pass, m = 2B: 2 for a fit, 200 for the default cv), with the
+    squared plane S and the missing plane M: kernels 1 and 2 bit for bit
+    against their plain versions and each other, the R of col_moments (a
+    0/1 W over WY) included."""
+    words, rhs = _case(11, n=1000, p=4099, m=m)
+    w = (rhs[:, : m // 2] > 0).to(torch.float32)
+    rhs[:, : m // 2] = w
+    rhs[:, m // 2:] = w * rhs[:, m // 2:]
+    words, rhs = words.to(cuda_device), rhs.to(cuda_device)
+    words_t = kernels.build_words_t(words, 4099)
+    for want_missing in (False, True):
+        kw = dict(want_missing=want_missing, want_sq=True, p=4099)
+        quad = kernels.xt_dots_words(words, rhs, **kw)
+        dual = kernels.xt_dots_words_t(words_t, rhs, **kw)
+        ref = decode.xt_dots_words_t(words_t, rhs, **kw)
+        ref_q = decode.xt_dots_words(words, rhs, **kw)
+        torch.cuda.synchronize()
+        for q, d, r, rq in zip(quad, dual, ref, ref_q):
+            assert (q is None) == (r is None)
+            if q is not None:
+                assert q.shape == (4099, m)
+                assert _same(q, r) and _same(d, r) and _same(rq, r)
+
+
+@pytest.mark.cuda
 def test_build_words_t_on_card_matches_cpu(cuda_device):
     words, _ = _case(5, n=700, p=45)
     want = kernels.build_words_t(words, 45, chunk_q=4)
@@ -369,6 +398,33 @@ def test_ingestion_kernel_on_full_range_operands_on_card(cuda_device, bits):
     torch.cuda.synchronize()
     assert torch.equal(got, decode.int_dot_packed(x, y, bits))
     assert kernels.LAUNCHES["int_dot_packed"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", [(8, 256, 512), (8, 256, 24), (8, 512, 24),
+                                   (40, 96, 20), (16, 512, 8), (3, 32, 9)])
+def test_rhs_dot_kernel_equals_plain_on_card(cuda_device, bits, shape):
+    """Kernel 4's packed-rhs dot (``rhs_dot_kernel``, one warp a 16 x 8
+    tile over all of K) on full-range words and int8 y: the lab's probe
+    shape and another of its unguarded instantiation (8 rows, one K chunk,
+    whole column tiles), ragged rows, columns and K chunks, and K past one
+    chunk; with ``general`` the guarded instantiation at every shape; one
+    launch a call."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + bits)
+    x = torch.from_numpy(_full_range(bits + 7, (K * bits // 32, N))).to(
+        cuda_device)
+    y = torch.from_numpy(rng.integers(-128, 128, size=(M, K), dtype=np.int64)
+                         .astype(np.int8)).to(cuda_device)
+    want = decode.int_dot_packed(x, y, bits, False)
+    for general in (False, True):
+        before = kernels.LAUNCHES["int_dot_packed"]
+        got = kernels.int_dot_packed(x, y, bits, lhs_packed=False,
+                                     general=general)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert kernels.LAUNCHES["int_dot_packed"] == before + 1
 
 
 @pytest.mark.cuda

@@ -203,6 +203,21 @@ def test_int_dot_packed_wraps_y_to_int8():
     assert int(kernels.int_dot_packed(x, y, 8)[0, 0]) == 32
 
 
+def test_int_dot_packed_general_selects_a_packed_rhs_instantiation():
+    """``general`` picks the guarded packed-rhs kernel: the same function
+    (on the CPU, the plain version), and refused for a packed lhs."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=(32, 512),
+                                      dtype=np.int64).astype(np.int32))
+    y = torch.from_numpy(rng.integers(-128, 128, size=(8, 256),
+                                      dtype=np.int64).astype(np.int8))
+    assert torch.equal(
+        kernels.int_dot_packed(x, y, 4, lhs_packed=False, general=True),
+        kernels.int_dot_packed(x, y, 4, lhs_packed=False))
+    with pytest.raises(ValueError, match="lhs_packed=False"):
+        kernels.int_dot_packed(x, y.T.contiguous(), 4, general=True)
+
+
 # ---------------------------------------------------------------------------
 # a numpy model of kernel 5's packed-lhs dot (csrc/int_probe.cu,
 # ingest_dot_kernel): the copies each thread makes, its fragment registers,
@@ -443,6 +458,115 @@ def test_ingest_model_equals_int_dot_packed(bits, shape):
     want = decode.int_dot_packed(torch.from_numpy(x), torch.from_numpy(y),
                                  bits).numpy()
     np.testing.assert_array_equal(_ingest_model(x, y, bits), want)
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of kernel 4's packed-rhs dot (csrc/int_probe.cu,
+# rhs_dot_kernel): each thread's loads of a chunk, its fragment registers
+# (the K order within a step that A and B share), the m16n8k32 MMA's
+# fragment layout and the stores
+# ---------------------------------------------------------------------------
+
+RHS_STEPS = 8                   # kRhsSteps: K steps of a chunk
+RHS_SHAPES = [(8, 256, 512), (8, 512, 24), (40, 96, 20), (16, 512, 8),
+              (3, 32, 9)]
+
+
+def _nibbles_to_bytes(w, half):
+    """``nibbles_to_bytes``: fields 4*half .. 4*half + 3 of int4 words w
+    (uint32) as four int8 in a uint32, field 4*half + i in byte i."""
+    p = _byte_perm(w, np.zeros_like(w), 0x3322 if half else 0x1100)
+    n = (p & np.uint32(0x000F000F)) | ((p >> np.uint32(4))
+                                        & np.uint32(0x0F000F00))
+    return n | ((n & np.uint32(0x08080808)) * np.uint32(0x1E))
+
+
+def _rhs_fragments(x, y, bits):
+    """Every thread's registers a K step, for the K steps of whole chunks:
+    A (bx, g, t, step, 4) uint32 (a0..a3) and B (by, g, t, step, 2) uint32
+    (b0, b1), loads of absent rows, columns and samples as zeros."""
+    M, K = y.shape
+    N = x.shape[1]
+    nbx, nby = -(-M // 16), -(-N // 8)
+    steps = -(-K // (32 * RHS_STEPS)) * RHS_STEPS
+    yb = np.zeros((nbx * 16 + 16, steps * 32), np.int8)
+    yb[:M, :K] = y
+    xw = np.zeros((steps * 32 * bits // 32 + 2, nby * 8), np.uint32)
+    xw[:x.shape[0], :N] = x.view(np.uint32)
+    g, t, s = np.ix_(np.arange(8), np.arange(4), np.arange(steps))
+    k = 32 * s
+    A = np.zeros((nbx, 8, 4, steps, 4), np.uint32)
+    for bx in range(nbx):
+        for h in range(2):                     # rows g and g + 8
+            row = 16 * bx + g + 8 * h
+            run = yb[row[..., None], (k + 8 * t)[..., None] + np.arange(8)]
+            words = np.ascontiguousarray(run).view(np.uint32)   # lo, hi
+            A[bx, ..., h] = words[..., 0]      # a0 / a1: samples 8t..8t+3
+            A[bx, ..., 2 + h] = words[..., 1]  # a2 / a3: 8t+4..8t+7
+    B = np.zeros((nby, 8, 4, steps, 2), np.uint32)
+    for by in range(nby):
+        col = 8 * by + g
+        if bits == 4:
+            w = xw[k // 8 + t, col]
+            B[by, ..., 0] = _nibbles_to_bytes(w, 0)
+            B[by, ..., 1] = _nibbles_to_bytes(w, 1)
+        else:
+            B[by, ..., 0] = xw[k // 4 + 2 * t, col]
+            B[by, ..., 1] = xw[k // 4 + 2 * t + 1, col]
+    return A, B
+
+
+def _rhs_model(x, y, bits):
+    """Kernel 4's packed-rhs path, y (M, K) int8 . unpack(x) (K, N), as the
+    kernel computes it -> (M, N) int64."""
+    M, N = y.shape[0], x.shape[1]
+    A, B = _rhs_fragments(x, y, bits)
+    nbx, nby, steps = A.shape[0], B.shape[0], A.shape[3]
+    # MMA A row g + 8(j & 1), column 16(j >> 1) + 4t + i <- byte i of a_j;
+    # B row 16j + 4t + i, column g <- byte i of b_j
+    ab = np.ascontiguousarray(A).view(np.int8).reshape(nbx, 8, 4, steps, 2,
+                                                       2, 4)  # bx g t s hi r i
+    a = ab.transpose(0, 3, 5, 1, 4, 2, 6).reshape(nbx, steps, 16, 32)
+    bb = np.ascontiguousarray(B).view(np.int8).reshape(nby, 8, 4, steps, 2, 4)
+    b = bb.transpose(0, 3, 4, 2, 5, 1).reshape(nby, steps, 32, 8)
+    d = np.einsum("xsmk,ysko->xymo", a.astype(np.int64), b.astype(np.int64))
+    # thread (g, t)'s c0, c1 (row g, columns 2t, 2t + 1) and c2, c3 (row
+    # g + 8) go to output row 16bx + g (+ 8), columns 8by + 2t, + 1
+    out = np.zeros((nbx * 16, nby * 8), np.int64)
+    for gg in range(8):
+        for tt in range(4):
+            for c in range(4):
+                r, cc = gg + 8 * (c >> 1), 2 * tt + (c & 1)
+                for bx in range(nbx):
+                    out[16 * bx + r, cc::8] = d[bx, :, r, cc]
+    return out[:M, :N]
+
+
+def test_nibbles_to_bytes_sign_extends_every_field():
+    """Byte i of ``nibbles_to_bytes(w, h)`` is field 4h + i of w as int8,
+    for every nibble value in every position."""
+    w = _full_words(9, (512,)).view(np.uint32)
+    w[:16] = np.uint32(0x11111111) * np.arange(16, dtype=np.uint32)
+    fields = decode.unpack_words(torch.from_numpy(w.view(np.int32))[None],
+                                 4).numpy().reshape(8, 512).T
+    for h in range(2):
+        got = _nibbles_to_bytes(w, h).view(np.int8).reshape(512, 4)
+        np.testing.assert_array_equal(got, fields[:, 4 * h:4 * h + 4])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", RHS_SHAPES)
+def test_rhs_model_equals_int_dot_packed(bits, shape):
+    """The model of kernel 4's packed-rhs dot equals the plain version on
+    full-range words and int8 y, at the lab's probe shape (8, 256) x (256,
+    512) and at ragged ones (absent rows, columns and K steps)."""
+    M, K, N = shape
+    x = _full_words(M + K + bits, (K * bits // 32, N))
+    y = np.random.default_rng(N).integers(-128, 128, size=(M, K),
+                                          dtype=np.int64).astype(np.int8)
+    want = decode.int_dot_packed(torch.from_numpy(x), torch.from_numpy(y),
+                                 bits, lhs_packed=False).numpy()
+    np.testing.assert_array_equal(_rhs_model(x, y, bits), want)
 
 
 # ---------------------------------------------------------------------------

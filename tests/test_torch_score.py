@@ -223,3 +223,26 @@ def test_digit_rows_in_kernel_order(m, want_missing):
         ps, kt, q, kc, rg, r8, j = (int(i) for i in idx)
         assert st[ps, kt, q, kc, rg, r8, j] == digits[
             ps * rows + 8 * rg + r8, q, 32 * kt + 16 * kc + j]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plane_decode_equals_bit_formula(dtype):
+    """``decode._plane_val_miss`` (the value and missing planes of every
+    plain score, forward and gather) and the planes ``xt_dots`` and
+    ``digit_sums`` derive from its value (S's square, the hi bit) equal the
+    bit formula they are written against: hi = c >> 1, hl = hi & c & 1,
+    value hi + hl, missing (c & 1) - hl, square hi + 3 hl.  All four crumb
+    codes, at every shift of a byte."""
+    by = torch.arange(256, dtype=torch.uint8).reshape(4, 64)
+    for s in range(4):
+        c = (by >> (2 * s)) & 3
+        hi, hl = c >> 1, (c >> 1) & c & 1
+        val, miss = decode._plane_val_miss(c, dtype, True)
+        assert val.dtype == miss.dtype == dtype
+        assert torch.equal(val, (hi + hl).to(dtype))
+        assert torch.equal(miss, ((c & 1) - hl).to(dtype))
+        assert torch.equal(val * val, (hi + 3 * hl).to(dtype))
+        assert torch.equal((val > 0.0).to(dtype), hi.to(dtype))
+        val2, none = decode._plane_val_miss(c, dtype, False)
+        assert none is None and torch.equal(val2, val)
+    assert sorted(set(((by >> 2) & 3).flatten().tolist())) == [0, 1, 2, 3]
