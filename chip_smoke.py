@@ -54,6 +54,19 @@ result line):
               groups, weights with zkeep): same support, iterations within
               one; and the init_beta cv, path 1:10, q=3: mse within 1e-4,
               same best k
+   mv-parity  the multivariate fit (3 traits, k=12, the flagship response
+              below; plain and with init_beta) on the card and on the CPU
+              at that size, each line search traced: same (trait, SNP)
+              support, logl within 4 f32 roundings before every iteration
+              up to the first whose backtracks differ and at the end, Sigma
+              within 1e-3 and B within 3e-3 of their max, iterations within
+              one, or within 6 where the first difference is a
+              loglikelihood tie (the full step's logl within 4 roundings of
+              the last on both devices; both traces printed from three
+              iterations before it); the CPU fit with the score left
+              without Gamma (a known fault) outside those bounds; then the
+              mv cv, path 2:2:20, q=3, fixed folds: mse within 1e-4, same
+              best k
 8. fit        ``fit_iht`` at 10k x 1M, k=10 (the JAX package's headline
               size) through ``PackedOp`` (quad words, kernel 1) and through
               the genotypes (dual layout, kernel 2), cold then FIT_WARM warm
@@ -130,6 +143,23 @@ result line):
               zkeep [True, False], each cold and warm with its selection
               checked; a ``profiling.trace`` of a warm init_beta cv and a
               warm debiased fit
+    mv        kernels 1 and 2 at the mv path's widths on the same 10k x 1M
+              genotypes (m = 3, the fit's score; 45, a 15-task cv chunk's;
+              30 with S, the chunk's init_beta col_moments), as the moments
+              phase holds them; then the JAX package's flagship
+              multivariate protocol on them (``bench.py::run_flagship``): a
+              3-trait response from ``default_rng(31)`` (10 shared causal SNPs,
+              effects N(0, 0.5^2), B X by ``forward_sel_multi`` on the card,
+              noise of covariance ``random_covariance_matrix``); the fit
+              (k=12, init_beta, min_iter=10) through both layouts, cold then
+              MV_FIT_WARM warm runs each (identical support, iterations and
+              logl; exactly 12 entries; causal SNP columns recovered); the
+              UKBB-protocol cv (path 100:100:1000, q=3, init_beta,
+              min_iter=10, folds from ``default_rng(5)``: 30 tasks in two
+              chunks of 15, every score pass at m=45), cold then MV_CV_WARM
+              warm runs (the same mse; best k, iterations, kernel-2
+              launches, peak memory); a ``profiling.trace`` of a warm fit
+              and of the first chunk of a warm cv
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernels 2 and 1 vs plain
               bit for bit and equal to each other, timed at m=100 on them
@@ -156,7 +186,9 @@ each kernel serves, with the counts set to 0 just before: the quad-word fit
 the Bernoulli quad-word fit, ``options_launches`` from the init_beta
 quad-word fit), the cv (kernel 2; ``family_launches`` from each family's
 fit and the Bernoulli cv, ``options_launches`` from each option's fit and
-the init_beta cv), the
+the init_beta cv), ``mv_launches`` of kernels 1 and 2 from the mv phase's
+quad-word fit, and its dual fit and cv (their ``*_mv`` fields are the mv
+widths' times), the
 read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
 ``lab_launches`` of every kernel) and the probe's
 run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
@@ -180,9 +212,10 @@ import numpy as np
 import torch
 
 from mendeliht_tpu_torch import (Bernoulli, Gamma, InverseGaussian, LogLink,
-                                 LogitLink, NegativeBinomial, PackedGenotypes,
-                                 Poisson, cv_iht, fit_iht, maf_weights)
-from mendeliht_tpu_torch.models import fit as fit_module, univariate
+                                 LogitLink, MvNormal, NegativeBinomial,
+                                 PackedGenotypes, Poisson, cv_iht, fit_iht,
+                                 maf_weights, random_covariance_matrix)
+from mendeliht_tpu_torch.models import fit as fit_module, mv, univariate
 from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.ops.linalg import PackedOp
 from mendeliht_tpu_torch.tools import kernel_lab5 as lab
@@ -204,6 +237,9 @@ FAM_FIT_WARM, FAM_CV_WARM = 3, 2         # the families phase's
 OPT_FIT_WARM, OPT_CV_WARM = 3, 2         # the options phase's
 PLAIN_REPS = 1                           # plain calls a timing, twice
 MOMENT_WIDTHS = (2, 200)                 # col_moments' m = 2B: fit, cv
+# the mv phase's score widths, (m, with S): m = T·r, 3 for the fit and 45
+# for a 15-task cv chunk, and the chunk's init_beta col_moments, m = 2T
+MV_WIDTHS = ((3, False), (45, False), (30, True))
 # the options phase's group fit: 1,000 groups of 1,000 consecutive SNPs,
 # at most J groups of at most GROUP_K SNPs each
 N_GROUPS, GROUP_J, GROUP_K = 1_000, 5, 2
@@ -218,6 +254,24 @@ FAMILIES = (("bernoulli", Bernoulli(), LogitLink(), "none"),
             ("invgauss", InverseGaussian(), LogLink(), "none"))
 FAMILY_SEEDS = ("bernoulli", "poisson", "negativebinomial", "gamma",
                 "inversegaussian")
+# the multivariate phases: the JAX package's flagship mv protocol
+# (bench.py::run_flagship (b)-(c)), the reference's UKBB hypertension cv:
+# a 3-trait response over 10 shared causal SNPs, the fit at k = 12 and the
+# cv on path 100:100:1000 with q = 3, both with init_beta and min_iter 10
+MV_TRAITS, MV_K, MV_MIN_ITER = 3, 12, 10
+MV_PATH, MV_Q = list(range(100, 1001, 100)), 3
+MV_PARITY_PATH = list(range(2, 21, 2))
+MV_FIT_WARM, MV_CV_WARM = 2, 1
+# card vs CPU: Sigma within MV_SIGMA_TOL of its max and B within MV_B_TOL
+# of its max, the loglikelihood within MV_LOGL_ULPS f32 roundings, before
+# every iteration up to the first whose line searches differ and at the
+# end.  An mv fit crawls to its end on a loglikelihood plateau (a scaled
+# change ~0.8 of the last); there a tie between two f32 sums decides a
+# backtrack, whose halved step can end one fit several iterations before
+# the other: iterations within one, or within MV_ITER_SPREAD where the
+# first difference is such a tie.  The phase prints the readings of a
+# known fault beside them (the score without Gamma), which must fail
+MV_SIGMA_TOL, MV_B_TOL, MV_LOGL_ULPS, MV_ITER_SPREAD = 1e-3, 3e-3, 4, 6
 N_BIG = 51_200                           # past the budget: 12.8 GB of words
 CV_MAX_ITER = 100                        # cv_iht's default
 FIT_MAX_ITER = 200                       # fit_iht's default
@@ -319,16 +373,23 @@ def device_ms(fn, reps, match=None, skip=()):
     calls so short that CUDA events would time the host's launches
     instead."""
     fn()
-    with profiling.trace(top=64) as s:
-        for _ in range(reps):
-            fn()
-    if match is None and not skip:
-        return s["device_busy_ms"] / reps
-    hits = [ms for name, ms, _ in s["kernels"]
-            if (match is None or match in name) and name not in skip]
-    if not hits:
-        raise AssertionError(f"no {match} kernel in the trace: {s['kernels']}")
-    return sum(hits) / reps
+    for _ in range(3):
+        with profiling.trace(top=64) as s:
+            for _ in range(reps):
+                fn()
+        if match is None and not skip:
+            return s["device_busy_ms"] / reps
+        hits = [(ms, n) for name, ms, n in s["kernels"]
+                if (match is None or match in name) and name not in skip]
+        count = sum(n for _, n in hits)
+        # the trace must hold every call's kernels: a trace that lost
+        # records would time a fraction of the calls
+        if count and count % reps == 0:
+            return sum(ms for ms, _ in hits) / reps
+        print(f"[trace] {count} {match or 'timed'} kernels traced over "
+              f"{reps} calls: traced again", flush=True)
+    raise AssertionError(f"no whole trace of {reps} calls of {match}: "
+                         f"{s['kernels']}")
 
 
 def interleaved(kern, plain, reps, plain_reps):
@@ -579,21 +640,23 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
-def moment_widths(name, g, gen):
-    """Kernels 1 and 2 at the widths of ``PackedOp.col_moments`` (the
-    init_beta warm start: m = 2 for a fit, 200 for the default cv) with the
-    squared plane S, and the missing plane M where ``g`` misses calls, on
-    the R that col_moments makes: each bit for bit against its plain
-    version and the two against each other, then timed in turns (kernel 2,
-    kernel 1, kernel 1, kernel 2) beside their bound (the words, R and every
-    output moved once; 3 digit planes of int8 operations a wanted output, S
-    by its hi-bit plane) and one plain call; returns each kernel's fields
-    for the kernels line."""
+def paired_widths(name, g, gen, widths, tag=""):
+    """Kernels 1 and 2 at each (m, with S) of ``widths``, with the missing
+    plane M where ``g`` misses calls: with S on the R that col_moments makes
+    (``moments_rhs``), else on a random R; each bit for bit against its
+    plain version and the two against each other, then timed in turns
+    (kernel 2, kernel 1, kernel 1, kernel 2) beside their bound (the words,
+    R and every output moved once; 3 digit planes of int8 operations a
+    wanted output, S by its hi-bit plane) and one plain call; returns each
+    kernel's fields for the kernels line, keyed ``ms_m{m}`` with ``_sq``
+    for S, ``tag``, and ``_missing`` for M."""
     out = {"xt_dots_words": {}, "xt_dots_words_t": {}}
-    kw = dict(want_missing=g.has_missing, want_sq=True, p=g.p)
-    key = "_missing" if g.has_missing else ""
-    for m in MOMENT_WIDTHS:
-        rhs = moments_rhs(g, m, gen)
+    for m, sq in widths:
+        kw = dict(want_missing=g.has_missing, want_sq=sq, p=g.p)
+        key = (f"m{m}{'_sq' if sq else ''}{tag}"
+               f"{'_missing' if g.has_missing else ''}")
+        what = "with S (col_moments' R)" if sq else "(a random R)"
+        rhs = moments_rhs(g, m, gen) if sq else rhs_on(g, m, gen)
         calls, got = {}, {}
         for kname, kern, plain, arr in (
                 ("xt_dots_words_t", kernels.xt_dots_words_t,
@@ -608,38 +671,45 @@ def moment_widths(name, g, gen):
             abs_err = max(float((a - b).abs().max()) for a, b in pairs)
             del ref, pairs
             if not equal:
-                raise AssertionError(f"{name}: {kname} with S at m={m} "
+                raise AssertionError(f"{name}: {kname} {what} at m={m} "
                                      "differs from plain")
-            out[kname].update({f"plain_ms_m{m}_sq{key}": plain_ms,
-                               f"max_abs_err_m{m}_sq{key}": abs_err})
+            out[kname].update({f"plain_ms_{key}": plain_ms,
+                               f"max_abs_err_{key}": abs_err})
         both = all(same(a, b) for a, b in zip(got["xt_dots_words"],
                                               got["xt_dots_words_t"])
                    if a is not None)
         del got
         if not both:
-            raise AssertionError(f"{name}: kernels 1 and 2 differ with S at "
+            raise AssertionError(f"{name}: kernels 1 and 2 differ {what} at "
                                  f"m={m}")
-        reps = 10 if m == 2 else 3
+        reps = 10 if m <= 8 else 5 if m <= 64 else 3
         r2 = [cuda_ms(calls["xt_dots_words_t"], reps)]
         r1 = [cuda_ms(calls["xt_dots_words"], reps),
               cuda_ms(calls["xt_dots_words"], reps)]
         r2.append(cuda_ms(calls["xt_dots_words_t"], reps))
-        outs = 2 + g.has_missing                 # A, S and M: each written
+        outs = 1 + sq + g.has_missing            # A, S and M: each written
         b = bound(g.device, g.words.numel() * 4 + 4 * g.n_pad * m
                   + 4 * g.p * m * outs, 3 * outs * 2 * g.n_pad * g.p * m,
                   "int8")
         for kname, runs in (("xt_dots_words_t", r2), ("xt_dots_words", r1)):
             ms = sum(runs) / 2
-            out[kname].update({f"ms_m{m}_sq{key}": ms,
-                               f"bound_ms_m{m}_sq{key}": b["bound_ms"]})
-            print(f"[{name}] {kname} {g.n} x {g.p} m={m} with S, "
-                  f"missing={g.has_missing} (col_moments' R): bit-equal to "
-                  f"plain and to the other kernel; {ms:.3f} ms (runs "
-                  f"{runs[0]:.3f}, {runs[1]:.3f}), plain "
-                  f"{out[kname][f'plain_ms_m{m}_sq{key}']:.3f} ms (one "
-                  f"call), bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+            out[kname].update({f"ms_{key}": ms,
+                               f"bound_ms_{key}": b["bound_ms"]})
+            print(f"[{name}] {kname} {g.n} x {g.p} m={m} {what}, "
+                  f"missing={g.has_missing}: bit-equal to plain and to the "
+                  f"other kernel; {ms:.3f} ms (runs {runs[0]:.3f}, "
+                  f"{runs[1]:.3f}), plain "
+                  f"{out[kname][f'plain_ms_{key}']:.3f} ms (one call), "
+                  f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
                   f"{b['bound_ms'] / ms:.3f} of it", flush=True)
     return out
+
+
+def moment_widths(name, g, gen):
+    """Kernels 1 and 2 at the widths of ``PackedOp.col_moments`` (the
+    init_beta warm start: m = 2 for a fit, 200 for the default cv) with the
+    squared plane S (``paired_widths``)."""
+    return paired_widths(name, g, gen, [(m, True) for m in MOMENT_WIDTHS])
 
 
 def phase_kernel_t(small, g, gen):
@@ -880,16 +950,18 @@ def phase_fit(g, causal, y, card, name="fit", warm=FIT_WARM, min_found=K,
 
 
 @contextlib.contextmanager
-def solver_states(module=univariate, name="run_iht"):
-    """Collects the state that every call of ``module.name`` returns: by
-    default every full solve (``univariate.run_iht``; cv_iht's default path
-    runs one for all its (fold, k) tasks); ``fit_module.finalize_iht`` gives
-    the final state of every ``fit_iht``."""
+def solver_states(module=univariate, name="run_iht", keep=lambda st: st):
+    """Collects ``keep`` of the state that every call of ``module.name``
+    returns: by default every full solve (``univariate.run_iht``; cv_iht's
+    default path runs one for all its (fold, k) tasks);
+    ``fit_module.finalize_iht`` gives the final state of every ``fit_iht``,
+    ``mv.finalize_mv_iht`` that of every chunk of a multivariate cv."""
     states, fn = [], getattr(module, name)
 
     def recording(*args, **kwargs):
-        states.append(fn(*args, **kwargs))
-        return states[-1]
+        st = fn(*args, **kwargs)
+        states.append(keep(st))
+        return st
 
     setattr(module, name, recording)
     try:
@@ -1234,6 +1306,318 @@ def phase_options(g, causal, y, card):
     print(f"[options] phase in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
+
+
+def mv_response(g, r, rng, k_causal=10, scale=0.5):
+    """The JAX package's flagship mv response (``bench.py::_mv_response``)
+    through the port: ``k_causal`` causal SNPs shared by the ``r`` traits,
+    effects N(0, scale^2), B X by ``PackedOp.forward_sel_multi`` on the
+    genotypes' device, plus noise of covariance ``random_covariance_matrix``;
+    returns (Y (r, n), the causal SNPs)."""
+    causal = rng.choice(g.p, size=k_causal, replace=False)
+    beta = rng.standard_normal((r, k_causal)) * scale
+    idx = torch.as_tensor(causal[None, :], device=g.device)
+    coef = torch.as_tensor(beta[None], dtype=torch.float32, device=g.device)
+    bx = PackedOp(g).forward_sel_multi(idx, coef,
+                                       torch.ones_like(coef[:, 0]))
+    bx = bx[0, :, :g.n].cpu().double().numpy()
+    sigma = random_covariance_matrix(r, rng=rng)
+    noise = np.linalg.cholesky(sigma) @ rng.standard_normal((r, g.n))
+    return np.ascontiguousarray(bx + noise), causal
+
+
+def mv_entries(r):
+    """The (trait, SNP) support of a multivariate result."""
+    return set(zip(*map(list, np.nonzero(r.beta))))
+
+
+def trace_text(s):
+    return (f"wall {s['wall_ms']:.1f} ms, device busy "
+            f"{s['device_busy_ms']:.1f} ms, idle share {s['idle_share']:.3f}; "
+            f"{s['launches']} kernel launches ({s['launch_host_ms']:.1f} ms "
+            f"of host), {s['syncs']} syncs waiting {s['sync_wait_ms']:.1f} ms")
+
+
+def mv_fit_traced(Y, g, **kw):
+    """``fit_iht`` of the mv response Y on ``g`` with its line searches
+    recorded: (result, one [logl before, the full step's logl, backtracks]
+    an iteration)."""
+    rows, need = [], mv._mv_bt_need
+
+    def recording(act, old_logl, cur, n_bt, max_step):
+        out = need(act, old_logl, cur, n_bt, max_step)
+        if not bool(n_bt.any()):                 # an iteration's first check
+            rows.append([float(old_logl[0]), float(cur["logl"][0]), 0])
+        rows[-1][2] += int(out.any())
+        return out
+
+    mv._mv_bt_need = recording
+    try:
+        return fit_iht(Y, g, **kw), rows
+    finally:
+        mv._mv_bt_need = need
+
+
+def f32_ulps(a, b):
+    """|a - b| in f32 roundings of b (0 where they are equal, as the -inf
+    loglikelihood before a first iteration)."""
+    if a == b:
+        return 0.0
+    return abs(a - b) / float(np.spacing(np.float32(abs(b))))
+
+
+def mv_trace_check(label, a_rows, b_rows, a_iter, b_iter):
+    """Holds two traced mv fits (card a, CPU b) to one trajectory: the
+    loglikelihood before every common iteration up to the first whose
+    backtracks differ (the split) within MV_LOGL_ULPS f32 roundings; and
+    where the iteration counts differ by more than one, at most
+    MV_ITER_SPREAD, the split a tie (on both devices the full step's
+    loglikelihood within MV_LOGL_ULPS roundings of the one before, so the
+    rounding of two f32 sums decides the backtrack).  Prints both traces
+    from three iterations before the split."""
+    split = next((i for i, (u, v) in enumerate(zip(a_rows, b_rows))
+                  if u[2] != v[2]), min(len(a_rows), len(b_rows)))
+    drift = max((f32_ulps(u[0], v[0]) for u, v in
+                 zip(a_rows[:split + 1], b_rows[:split + 1])), default=0.0)
+    tie = split < min(len(a_rows), len(b_rows)) and all(
+        f32_ulps(r[split][1], r[split][0]) <= MV_LOGL_ULPS
+        for r in (a_rows, b_rows))
+    for i in range(max(0, split - 3), max(len(a_rows), len(b_rows))):
+        cells = [" / ".join(f"{x}" for x in r[i]) if i < len(r) else "-"
+                 for r in (a_rows, b_rows)]
+        print(f"[mv-parity] {label} iteration {i + 1} (logl before / full "
+              f"step / backtracks): cuda {cells[0]}; cpu {cells[1]}",
+              flush=True)
+    print(f"[mv-parity] {label}: split at iteration {split + 1}, logl "
+          f"before each iteration up to it at most {drift:.0f} f32 roundings "
+          f"apart, a tie there {tie}", flush=True)
+    spread = abs(a_iter - b_iter)
+    if drift > MV_LOGL_ULPS or spread > MV_ITER_SPREAD or (
+            spread > 1 and not tie):
+        raise AssertionError(f"mv {label}: card and CPU trajectories differ "
+                             f"({a_iter} against {b_iter} iterations)")
+
+
+def mv_diff(a, b):
+    """(the same (trait, SNP) support, logl f32 roundings apart, B and Sigma
+    rel err of b's max) of two mv results."""
+    err_b, err_s = (float(np.abs(u - v).max() / np.abs(v).max())
+                    for u, v in ((a.beta, b.beta), (a.Sigma, b.Sigma)))
+    return mv_entries(a) == mv_entries(b), f32_ulps(a.logl, b.logl), err_b, \
+        err_s
+
+
+def mv_diff_text(diff):
+    same, ulps, err_b, err_s = diff
+    return (f"same support {same}, logl {ulps:.0f} f32 roundings apart, B "
+            f"rel err {err_b:.3g}, Sigma rel err {err_s:.3g}")
+
+
+def mv_agree(diff):
+    same, ulps, err_b, err_s = diff
+    return (same and ulps <= MV_LOGL_ULPS and err_b < MV_B_TOL
+            and err_s < MV_SIGMA_TOL)
+
+
+def phase_mv_parity(card_g, cpu_g):
+    """The multivariate fit (3 traits, k = MV_K, plain and with
+    init_beta) on the card and on the CPU at the parity size, each line
+    search traced: the same (trait, SNP) support, the same loglikelihood
+    plateau (MV_LOGL_ULPS), B within MV_B_TOL and Sigma within
+    MV_SIGMA_TOL, one trajectory (``mv_trace_check``), and the CPU fit
+    with a known fault (the score without Gamma) outside those bounds; then
+    the mv cv (path 2:2:20, q=3, fixed folds): mse within CV_TOL, the same
+    best k."""
+    t_phase = time.perf_counter()
+    Y, _ = mv_response(cpu_g, MV_TRAITS, np.random.default_rng(SEED + 31))
+    for label, kw in (("plain", {}), ("init_beta", dict(init_beta=True))):
+        kw = dict(k=MV_K, d=MvNormal(), verbose=False, **kw)
+        (a, a_rows), (b, b_rows) = (mv_fit_traced(Y, x, **kw)
+                                    for x in (card_g, cpu_g))
+        diff = mv_diff(a, b)
+        print(f"[mv-parity] {label} fit n={card_g.n} p={card_g.p} r="
+              f"{MV_TRAITS} k={MV_K}: cuda logl {a.logl} iter {a.iter}, cpu "
+              f"logl {b.logl} iter {b.iter}; {mv_diff_text(diff)}",
+              flush=True)
+        if not mv_agree(diff):
+            raise AssertionError(f"mv {label}: card and CPU fits disagree")
+        mv_trace_check(label, a_rows, b_rows, a.iter, b.iter)
+        # the comparison's room against a fault: the CPU fit with the score
+        # left without Gamma must fail it
+        score = mv._score_mv
+        mv._score_mv = lambda op, data, gamma, resid: score(
+            op, data, torch.eye(gamma.shape[-1], dtype=gamma.dtype)
+            .expand_as(gamma).contiguous(), resid)
+        try:
+            f = fit_iht(Y, cpu_g, **kw)
+        finally:
+            mv._score_mv = score
+        fault = mv_diff(f, b)
+        print(f"[mv-parity] {label} fault reading, the CPU fit with the score "
+              f"without Gamma: iter {f.iter}; {mv_diff_text(fault)}",
+              flush=True)
+        if mv_agree(fault):
+            raise AssertionError(f"mv {label}: the comparison passes a score "
+                                 "without Gamma")
+    folds = np.random.default_rng(5).integers(1, 4, size=card_g.n)
+    kw = dict(path=MV_PARITY_PATH, q=3, folds=folds, verbose=False)
+    kernels.LAUNCHES["xt_dots_words_t"] = 0
+    a = cv_iht(Y, card_g, **kw)
+    launches = kernels.LAUNCHES["xt_dots_words_t"]
+    b = cv_iht(Y, cpu_g, **kw)
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    ka = MV_PARITY_PATH[int(np.argmin(a))]
+    kb = MV_PARITY_PATH[int(np.argmin(b))]
+    print(f"[mv-parity] cv n={card_g.n} p={card_g.p} path 2:2:20 q=3: cuda "
+          f"best k {ka}, cpu best k {kb}, mse rel err {err:.3g}, kernel-2 "
+          f"launches {launches}; phase in {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    if not err < CV_TOL or ka != kb or launches < 2:
+        raise AssertionError("card and CPU mv cv disagree")
+
+
+def run_mv_cv(g, Y, traced=None):
+    """The flagship mv cv on ``g`` (folds from ``default_rng(5)``): (mse,
+    wall s, launches of every kernel from 0, each chunk's (T, iters,
+    iterations run)); with ``traced`` (a dict) its first chunk runs inside
+    ``profiling.trace``, whose summary and score launches fill it."""
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    solve = mv.cv_mv
+
+    def first_chunk_traced(*args, **kwargs):
+        if traced is None or traced:
+            return solve(*args, **kwargs)
+        before = kernels.LAUNCHES["xt_dots_words_t"]
+        with profiling.trace() as s:
+            out = solve(*args, **kwargs)
+        traced.update(s, score_launches=kernels.LAUNCHES["xt_dots_words_t"]
+                      - before)
+        return out
+
+    mv.cv_mv = first_chunk_traced
+    try:
+        with solver_states(mv, "finalize_mv_iht", keep=lambda st: (
+                int(st.iters.shape[0]), st.iters.cpu().numpy(),
+                st.iteration)) as chunks:
+            t0 = time.perf_counter()
+            mse = cv_iht(Y, g, path=MV_PATH, q=MV_Q, d=MvNormal(),
+                         init_beta=True, min_iter=MV_MIN_ITER,
+                         rng=np.random.default_rng(5), verbose=False)
+            wall = time.perf_counter() - t0
+    finally:
+        mv.cv_mv = solve
+    return mse, wall, dict(kernels.LAUNCHES), chunks
+
+
+def phase_mv(g, card, gen):
+    """The JAX package's flagship multivariate protocol at 10k x 1M: the
+    3-trait fit (k = MV_K, init_beta, min_iter 10) through both layouts,
+    cold then MV_FIT_WARM warm runs each (identical support, iterations
+    and logl; exactly MV_K entries; causal SNP columns recovered), then the
+    UKBB-protocol cv (path 100:100:1000, q = 3, init_beta, min_iter 10),
+    cold then MV_CV_WARM warm runs on the same folds (two chunks of 15
+    tasks, score passes at m = 45; best k, iterations, peak memory), and a
+    ``profiling.trace`` of a warm fit and of the first chunk of a warm cv;
+    kernels 1 and 2 first held to plain at the path's widths (MV_WIDTHS);
+    returns the score kernels' launches on each path and their fields at
+    those widths."""
+    t_phase = time.perf_counter()
+    widths = paired_widths("mv", g, gen, MV_WIDTHS, "_mv")
+    Y, causal = mv_response(g, MV_TRAITS, np.random.default_rng(31))
+    kw = dict(k=MV_K, d=MvNormal(), init_beta=True, min_iter=MV_MIN_ITER,
+              verbose=False)
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    res = {}
+    for layout, x in (("quad", quad), ("dual", g)):
+        mine = "xt_dots_words" if layout == "quad" else "xt_dots_words_t"
+        other = "xt_dots_words_t" if layout == "quad" else "xt_dots_words"
+        walls = []
+        for run in range(1 + MV_FIT_WARM):
+            for name in kernels.LAUNCHES:
+                kernels.LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            r = fit_iht(Y, x, **kw)
+            walls.append(time.perf_counter() - t0)
+            launches = dict(kernels.LAUNCHES)
+            cols = set(np.flatnonzero(r.beta.any(axis=0)).tolist())
+            found = len(cols & set(causal.tolist()))
+            got = (mv_entries(r), r.iter, r.logl, launches[mine])
+            if run == 0:
+                print(f"[mv] {layout} cold fit {N} x {P} r={MV_TRAITS} "
+                      f"k={MV_K} init_beta: {walls[0]:.4f} s on {card}; iter "
+                      f"{r.iter}, logl {r.logl}, {len(got[0])} entries in "
+                      f"{len(cols)} SNP columns, causal SNP columns recovered "
+                      f"{found}/{len(causal)}, launches {launches[mine]} "
+                      f"({mine}), {launches[other]} ({other})", flush=True)
+            if (len(got[0]) != MV_K or not np.isfinite(r.logl)
+                    or launches[mine] < r.iter + 1 or launches[other] != 0
+                    or run and got != res[layout]):
+                raise AssertionError(f"mv: the {layout} fit failed its "
+                                     "checks")
+            res[layout] = got
+        walls = np.array(walls[1:])
+        print(f"[mv] {layout} {MV_FIT_WARM} warm fits: median "
+              f"{np.median(walls):.4f} s, range {walls.min():.4f}-"
+              f"{walls.max():.4f} s, each the same result", flush=True)
+    if res["quad"][:3] != res["dual"][:3]:
+        raise AssertionError("mv: quad and dual fits differ")
+    print(f"[mv] quad and dual fits identical: {res['dual'][1]} iterations, "
+          f"logl {res['dual'][2]}", flush=True)
+
+    # cv_mv_iht's default task chunk, the JAX package's budget: 15 at
+    # 3 traits x 1M SNPs, so two chunks of the 30 tasks
+    per_chunk = max(1, int(6e9 / (32.0 * MV_TRAITS * g.p * 4.0)))
+    n_tasks = MV_Q * len(MV_PATH)
+    sizes = [min(per_chunk, n_tasks - lo)
+             for lo in range(0, n_tasks, per_chunk)]
+    torch.cuda.reset_peak_memory_stats()
+    first = None
+    for run in range(1 + MV_CV_WARM):
+        mse, wall, counts, chunks = run_mv_cv(g, Y)
+        launches = counts["xt_dots_words_t"]
+        best = MV_PATH[int(np.argmin(mse))]
+        iters = np.concatenate([it for _, it, _ in chunks])
+        text = ", ".join(f"{t} tasks, {ran} iterations run, "
+                         f"{int((it < CV_MAX_ITER).sum())} converged"
+                         for t, it, ran in chunks)
+        if (not np.all(np.isfinite(mse)) or [t for t, _, _ in chunks]
+                != sizes or counts["xt_dots_words"] != 0
+                or launches < sum(ran + 1 for _, _, ran in chunks)
+                or run and not np.array_equal(mse, first)):
+            raise AssertionError(f"the mv cv failed its checks: chunks "
+                                 f"{text}, {launches} kernel-2 launches")
+        print(f"[mv] {'cold' if run == 0 else 'warm'} cv_iht {N} x {P} "
+              f"r={MV_TRAITS} path {MV_PATH[0]}:{MV_PATH[1] - MV_PATH[0]}:"
+              f"{MV_PATH[-1]} q={MV_Q} init_beta: "
+              f"{wall:.4f} s on {card}; chunks: {text}; iterations per task "
+              f"{int(iters.min())}-{int(iters.max())}; kernel-2 launches "
+              f"{launches}; best k {best}", flush=True)
+        if run == 0:
+            first = mse
+            mse_s = np.array2string(mse, precision=6, max_line_width=400)
+            print(f"[mv] cv mse {mse_s}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[mv] cv peak device memory {peak / 2**30:.2f} GiB "
+          "(torch.cuda.max_memory_allocated)", flush=True)
+
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    with profiling.trace() as s:
+        fit_iht(Y, g, **kw)
+    print(f"[mv] traced warm fit on {card}: {trace_text(s)}; kernel-2 "
+          f"launches {kernels.LAUNCHES['xt_dots_words_t']}", flush=True)
+    chunk = {}
+    run_mv_cv(g, Y, traced=chunk)
+    print(f"[mv] traced first chunk of a warm cv ({sizes[0]} tasks) on "
+          f"{card}: {trace_text(chunk)}; kernel-2 launches "
+          f"{chunk['score_launches']}", flush=True)
+    for name, ms, count in chunk["kernels"]:
+        print(f"[mv]   {ms:9.3f} ms {count:6d}x  {name[:110]}", flush=True)
+    print(f"[mv] phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"xt_dots_words": {"mv quad fit": res["quad"][3]},
+             "xt_dots_words_t": {"mv fit": res["dual"][3],
+                                 "mv cv": launches}}, widths)
 
 
 def phase_lab(g, card):
@@ -1699,6 +2083,7 @@ def main(dev=None):
     phase_cv_parity(card_g, cpu_g, y_par)
     phase_family_parity(card_g, cpu_g)
     phase_option_parity(card_g, cpu_g, y_par)
+    phase_mv_parity(card_g, cpu_g)
     del card_g, cpu_g
     y = phenotype(g, causal, beta, 7)
     k1["launches"], _ = phase_fit(g, causal, y, card)
@@ -1720,8 +2105,11 @@ def main(dev=None):
     k1["family_launches"] = fam["xt_dots_words"]
     k2["family_launches"] = fam["xt_dots_words_t"]
     opts = phase_options(g, causal, y, card)
+    mvl, mvw = phase_mv(g, card, gen)
     for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
-        st.update(moments[name], options_launches=opts[name])
+        st.update(moments[name])
+        st.update(mvw[name], options_launches=opts[name],
+                  mv_launches=mvl[name])
     del g
     gm, causal_m, beta_m = genotypes(np.random.default_rng(SEED + 1), N, P,
                                      True, dev)

@@ -9,14 +9,20 @@ Ported so far: the resident univariate fit of every GLM family and link
 (Normal, Bernoulli, Poisson, NegativeBinomial with ``est_r`` "mm" or
 "newton", Gamma, InverseGaussian) and its cross-validation, with the JAX
 package's options ``init_beta``, ``debias``, ``group`` / ``J`` / a vector
-``k``, ``weight``, ``zkeep``, ``io`` and ``use_maf``
+``k``, ``weight``, ``zkeep``, ``io`` and ``use_maf``; the resident
+multivariate Gaussian (MvNormal) fit and cross-validation, for a
+trait-major y (r, n) with z (q, n), with ``zkeep`` and ``init_beta``
 
   - ``fit_iht(y, x: PackedGenotypes, z, k=..., d=..., l=...)``   (reference: src/fit.jl:60)
   - ``cv_iht(y, x, z, d=..., path=..., q=...)``  (src/cross_validation.jl:60)
   - ``iht_run_many_models(y, x, z, path=...)``   (:232)
-  - ``utils.simulate.simulate_random_response``  (src/simulate_utilities.jl:207)
+  - ``simulate_random_response``  (src/simulate_utilities.jl:207),
+    ``simulate_random_multivariate_response`` (:266),
+    ``random_covariance_matrix`` (:319)
   - ``maf``, ``maf_weights``, ``pve``, ``project_k``,
     ``project_group_sparse``, ``allocate_fold_and_k``
+  - ``compat``: ``loglikelihood``, ``deviance``, ``score``, ``mle_for_r``,
+    ``initialize_beta``, ``cv_iht_distribute_fold``
 
 whose full-width score X'R runs through hand-written CUDA kernels when the
 genotypes live on a CUDA device (``csrc/xt_dots_t.cu``, one kernel body
@@ -35,11 +41,16 @@ the row-major words and the read and decode ceilings
 """
 
 from .genotype.snparray import PackedGenotypes, maf
+from .compat import (cv_iht_distribute_fold, deviance, initialize_beta,
+                     loglikelihood, mle_for_r, score)
 from .models.cv import allocate_fold_and_k, cv_iht, iht_run_many_models
 from .models.fit import fit_iht
 from .models.pve import pve_from_model as pve
-from .models.results import IHTResult
+from .models.results import IHTResult, MIHTResult
 from .ops.projections import project_group_sparse, project_k
+from .utils.simulate import (random_covariance_matrix,
+                             simulate_random_multivariate_response,
+                             simulate_random_response)
 from .utils.weights import maf_weights
 from .ops.glm import (
     Normal, Bernoulli, Poisson, NegativeBinomial, Gamma, InverseGaussian,
@@ -51,8 +62,13 @@ from .ops.glm import (
 __version__ = "0.1.0"
 
 __all__ = ["fit_iht", "cv_iht", "iht_run_many_models", "PackedGenotypes",
-           "IHTResult", "maf", "maf_weights", "pve", "project_k",
-           "project_group_sparse", "allocate_fold_and_k",
+           "IHTResult", "MIHTResult", "maf", "maf_weights", "pve",
+           "project_k", "project_group_sparse", "allocate_fold_and_k",
+           "simulate_random_response",
+           "simulate_random_multivariate_response",
+           "random_covariance_matrix",
+           "loglikelihood", "deviance", "score", "mle_for_r",
+           "initialize_beta", "cv_iht_distribute_fold",
            "Normal", "Bernoulli", "Poisson", "NegativeBinomial", "Gamma",
            "InverseGaussian", "MvNormal", "Binomial",
            "IdentityLink", "LogitLink", "LogLink", "InverseLink", "SqrtLink",

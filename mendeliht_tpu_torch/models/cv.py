@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import glm
-from .fit import build_fit, check_dtype, check_univariate
+from .fit import build_fit, check_dtype, is_multivariate
 from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
 from .univariate import (cv_fused, finalize_iht, predict_deviance, run_iht,
@@ -45,6 +45,28 @@ def meanloss(fitloss, q, folds):
     return loss
 
 
+def _task_masks(op, q, path, folds, rng):
+    """The (fold, k) tasks of a cv on ``op``'s samples: (folds (n,), drawn
+    from ``rng`` as the JAX package draws them when None; each task's k
+    (B,); its 0/1 train and test masks (B, n_pad)), on ``op``'s device."""
+    n = op.n
+    if folds is None:
+        rng = np.random.default_rng() if rng is None else rng
+        folds = rng.integers(1, q + 1, size=n)
+    folds = np.asarray(folds)
+    combos = allocate_fold_and_k(q, path)
+    train = np.zeros((len(combos), op.n_pad), np.float32)
+    test = np.zeros_like(train)
+    for i, (fold, _) in enumerate(combos):
+        train[i, :n] = folds != fold
+        test[i, :n] = folds == fold
+    ks = torch.as_tensor([k for _, k in combos], dtype=torch.int64,
+                         device=op.device)
+    kw = dict(dtype=op.dtype, device=op.device)
+    return (folds, ks, torch.as_tensor(train, **kw),
+            torch.as_tensor(test, **kw))
+
+
 def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
            group=None, weight=None, zkeep=None, folds=None, debias=False,
            verbose=True, max_iter=100, min_iter=5, init_beta=False,
@@ -65,9 +87,21 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     cv_iht does not take, is accepted and ignored as ``fit_iht`` ignores
     it.  As in the JAX package, ``memory_efficient`` is accepted and
     ignored, and so is ``checkpoint_every`` without a ``checkpoint_dir``;
-    ``dtype`` must be float32.  A ``checkpoint_dir`` and a multivariate y
-    raise NotImplementedError naming their ROADMAP item."""
-    check_univariate("cv_iht", y)
+    ``dtype`` must be float32.  A ``checkpoint_dir`` raises
+    NotImplementedError naming its ROADMAP item.
+
+    A y of shape (r, n), r > 1, is a multivariate cv
+    (``models/mv.py::cv_mv_iht``, as the JAX package routes it): z is then
+    (q, n), the loss the holdout mse, and ``d``, ``l``, ``est_r``,
+    ``group``, ``weight`` and ``use_maf`` are ignored."""
+    if is_multivariate(y):
+        from .mv import cv_mv_iht
+        return cv_mv_iht(y, x, z, path=path, q=q, folds=folds, zkeep=zkeep,
+                         debias=debias, verbose=verbose, max_iter=max_iter,
+                         min_iter=min_iter, init_beta=init_beta, dtype=dtype,
+                         rng=rng, checkpoint_dir=checkpoint_dir,
+                         checkpoint_every=checkpoint_every,
+                         show_progress=show_progress)
     check_dtype("cv_iht", dtype)
     if checkpoint_dir is not None:
         raise NotImplementedError("cv_iht(checkpoint_dir=...) is not ported "
@@ -83,23 +117,7 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
         raise ValueError("Sparsity level in `path` cannot be larger than "
                          "total number of variables")
 
-    n = op.n
-    if folds is None:
-        rng = np.random.default_rng() if rng is None else rng
-        folds = rng.integers(1, q + 1, size=n)
-    folds = np.asarray(folds)
-
-    combos = allocate_fold_and_k(q, path)
-    B = len(combos)
-    ks = torch.as_tensor([k for _, k in combos], dtype=torch.int64,
-                         device=op.device)
-    train = np.zeros((B, op.n_pad), np.float32)
-    test = np.zeros((B, op.n_pad), np.float32)
-    for i, (fold, _) in enumerate(combos):
-        train[i, :n] = folds != fold
-        test[i, :n] = folds == fold
-    kw = dict(dtype=op.dtype, device=op.device)
-    train, test = torch.as_tensor(train, **kw), torch.as_tensor(test, **kw)
+    folds, ks, train, test = _task_masks(op, q, path, folds, rng)
 
     t0 = _time.time()
     if show_progress:

@@ -40,14 +40,6 @@ def is_multivariate(y) -> bool:
     return y.ndim == 2 and y.shape[0] > 1 and y.shape[1] > 1
 
 
-def check_univariate(fn: str, y):
-    """Raise NotImplementedError for a multivariate y (r, n), r > 1, which
-    the JAX package routes to its multivariate solver."""
-    if is_multivariate(y):
-        raise NotImplementedError(f"multivariate {fn} is not ported yet: "
-                                  "ROADMAP Queue 1 item 10 (multivariate)")
-
-
 def check_group(k, group):
     """Reference src/utilities.jl:902-915."""
     if isinstance(k, (list, tuple, np.ndarray)):
@@ -205,9 +197,20 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
     As in the JAX package, ``memory_efficient`` is accepted and ignored,
     and so are ``checkpoint_dir`` / ``checkpoint_every``, which only its
     streamed fits use (every fit here is resident); ``dtype`` must be
-    float32 (:func:`check_dtype`).  A multivariate y raises
-    NotImplementedError naming its ROADMAP item."""
-    check_univariate("fit_iht", y)
+    float32 (:func:`check_dtype`).
+
+    A y of shape (r, n), r > 1, is a multivariate fit
+    (``models/mv.py::fit_mv_iht``, as the JAX package routes it): z is
+    then (q, n), and ``J``, ``l``, ``group``, ``weight``, ``est_r`` and
+    ``use_maf`` are ignored."""
+    if is_multivariate(y):
+        from .mv import fit_mv_iht
+        return fit_mv_iht(y, x, z, k=k, d=d, verbose=verbose, tol=tol,
+                          max_iter=max_iter, min_iter=min_iter,
+                          max_step=max_step, zkeep=zkeep, io=io,
+                          init_beta=init_beta, debias=debias, dtype=dtype,
+                          checkpoint_dir=checkpoint_dir,
+                          checkpoint_every=checkpoint_every)
     check_dtype("fit_iht", dtype)
     d = d if d is not None else glm.Normal()
     if glm.dist_name(d) != "negativebinomial" and cfg_est_r_requested(est_r):

@@ -50,6 +50,46 @@ class IHTResult:
     __repr__ = __str__
 
 
+@dataclasses.dataclass
+class MIHTResult:
+    """Multivariate IHT result (reference mIHTResult,
+    data_structures.jl:263-275)."""
+    time: float
+    logl: float
+    iter: int
+    beta: np.ndarray          # (r, p)
+    c: np.ndarray             # (r, q)
+    k: int
+    traits: int
+    Sigma: np.ndarray         # (r, r) estimated trait covariance
+    sigma_g: np.ndarray       # (r,) per-trait PVE
+
+    def __str__(self):
+        lines = [
+            "",
+            f"Compute time (sec):     {self.time}",
+            f"Final loglikelihood:    {self.logl}",
+            f"Iterations:             {self.iter}",
+        ]
+        for r in range(self.traits):
+            lines.append(f"Trait {r+1}'s SNP PVE:      {self.sigma_g[r]}")
+        lines += ["", "Estimated trait covariance:",
+                  str(np.asarray(self.Sigma))]
+        for r in range(self.traits):
+            b1, c1 = self.beta[r], self.c[r]
+            sp, cp = np.flatnonzero(b1), np.flatnonzero(c1)
+            lines += [
+                "",
+                f"Trait {r+1}: IHT estimated {len(sp)} nonzero SNP predictors",
+                _table(sp + 1, b1[sp]),
+                f"Trait {r+1}: IHT estimated {len(cp)} non-genetic predictors",
+                _table(cp + 1, c1[cp]),
+            ]
+        return "\n".join(lines)
+
+    __repr__ = __str__
+
+
 def _table(positions, values):
     rows = [" Row │ Position  Estimated_β"]
     rows.append("─" * 30)

@@ -45,16 +45,23 @@ class IHTState:
         """Build from host arrays keyed by field name, e.g. the fields of
         the JAX package's IHTState as numpy (extra keys are ignored).
         Integer fields become int64 and boolean fields stay boolean."""
-        out = {}
-        for f in dataclasses.fields(cls):
-            a = np.asarray(arrays[f.name])
-            if f.name == "iteration":
-                out[f.name] = int(a)
-            elif np.issubdtype(a.dtype, np.integer):
-                out[f.name] = torch.tensor(a.astype(np.int64), device=device)
-            else:
-                out[f.name] = torch.tensor(a, device=device)
-        return cls(**out)
+        return state_from_numpy(cls, arrays, device)
+
+
+def state_from_numpy(cls, arrays: dict, device):
+    """The state dataclass ``cls`` from host arrays keyed by its field
+    names (extra keys are ignored): ``iteration`` a host int, integer
+    fields int64 tensors, the rest tensors of their own dtype."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        a = np.asarray(arrays[f.name])
+        if f.name == "iteration":
+            out[f.name] = int(a)
+        elif np.issubdtype(a.dtype, np.integer):
+            out[f.name] = torch.tensor(a.astype(np.int64), device=device)
+        else:
+            out[f.name] = torch.tensor(a, device=device)
+    return cls(**out)
 
 
 @dataclasses.dataclass(frozen=True)

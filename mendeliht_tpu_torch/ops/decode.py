@@ -489,3 +489,36 @@ def sparse_forward_rows(rows: torch.Tensor, idx: torch.Tensor,
             xb_s = xb_s + torch.einsum("bjn,bj->bn", miss, mus)
         out.append(xb_s)
     return torch.cat(out, dim=1)
+
+
+def sparse_forward_rows_multi(rows: torch.Tensor, idx: torch.Tensor,
+                              coef: torch.Tensor, mu: torch.Tensor, *,
+                              want_missing: bool) -> torch.Tensor:
+    """Multi-trait raw sparse forward product (multivariate IHT).
+
+    rows (B, S, n4) gathered byte rows; idx (B, S) SNP indices shared by
+    the traits; coef (B, R, S) per-trait coefficients already scaled by
+    inv_sd and masked.  Returns (B, R, 4*n4): each selected row is decoded
+    once and contracted against all R traits
+    (``mendeliht_tpu.ops.decode.sparse_forward_rows_multi``).  The caller
+    subtracts the constant ``sum_j coef[b,r,j]*mu[idx[b,j]]``."""
+    dtype = coef.dtype
+    mus = mu[idx][:, None, :] * coef                         # (B, R, S)
+    out = []
+    for s in range(4):
+        crumbs = (rows >> (2 * s)) & 3
+        val, miss = _plane_val_miss(crumbs, dtype, want_missing)
+        xb_s = torch.einsum("bsn,brs->brn", val, coef)
+        if want_missing:
+            xb_s = xb_s + torch.einsum("bsn,brs->brn", miss, mus)
+        out.append(xb_s)
+    return torch.cat(out, dim=2)
+
+
+def sparse_forward_raw_multi(words: torch.Tensor, idx: torch.Tensor,
+                             coef: torch.Tensor, mu: torch.Tensor, *,
+                             want_missing: bool) -> torch.Tensor:
+    """:func:`sparse_forward_rows_multi` of the rows ``idx`` gathered from
+    the quad words (``take_rows_bytes``)."""
+    return sparse_forward_rows_multi(take_rows_bytes(words, idx), idx, coef,
+                                     mu, want_missing=want_missing)

@@ -108,6 +108,19 @@ class PackedOp:
         const = (coef_s * g.mu[idx]).sum(dim=1)                # (B,)
         return raw - const[:, None]
 
+    def forward_sel_multi(self, idx: torch.Tensor, coef: torch.Tensor,
+                          valid: torch.Tensor) -> torch.Tensor:
+        """Multi-trait standardized forward product: idx (B, S) SNP
+        indices shared by the traits, coef (B, R, S), valid (B, S) 0/1 ->
+        (B, R, n_pad); each selected row decoded once for all R traits."""
+        g = self.geno
+        coef_s = coef * (g.inv_sd[idx] * valid)[:, None, :]
+        rows = decode.take_rows_bytes(g.words, idx)
+        raw = decode.sparse_forward_rows_multi(rows, idx, coef_s, g.mu,
+                                               want_missing=g.has_missing)
+        const = (coef_s * g.mu[idx][:, None, :]).sum(dim=2)    # (B, R)
+        return raw - const[:, :, None]
+
     def gather_cols(self, idx: torch.Tensor, valid: torch.Tensor):
         """Standardized columns X[:, idx] -> (B, S, n_pad), invalid slots
         zeroed: the debias refit's small design (plain torch ops, as XLA

@@ -162,3 +162,67 @@ def simulate_random_response(x, k: int, d=None, l=None, r=10, alpha=1,
     else:
         raise ValueError(f"cannot simulate distribution {dist}")
     return y.astype(np.float64), true_b, correct_position
+
+
+def random_covariance_matrix(n: int, kappa: float = 10.0, rng=None):
+    """Random SPD matrix with condition number <= kappa (reference
+    src/simulate_utilities.jl:319-326; the JAX package's draws)."""
+    rng = np.random.default_rng() if rng is None else rng
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    sigma = rng.uniform(1, np.sqrt(kappa), size=n)
+    A = Q @ np.diag(sigma) @ Q.T
+    return A.T @ A
+
+
+def simulate_random_multivariate_response(x, k: int, traits: int, Zu=None,
+                                          overlap: int = 0, Sigma=None,
+                                          rng=None):
+    """Multi-trait Gaussian phenotypes with k causal SNPs in all and
+    ``overlap`` causal SNPs shared by every trait (reference
+    src/simulate_utilities.jl:266-308; the JAX package's
+    ``utils/simulate.py::simulate_random_multivariate_response`` draw for
+    draw, but that with ``overlap=0`` the drawn effects are kept).
+    ``Sigma`` fixes the trait covariance instead of drawing one.
+    ``x`` as in :func:`simulate_random_response`: only the causal columns
+    are decoded.
+
+    Returns (Y (n, traits), Sigma, true_b (p, traits), correct_position)."""
+    rng = np.random.default_rng() if rng is None else rng
+    n, p = x.shape
+    if traits * overlap > k:
+        raise ValueError("traits * overlap cannot exceed k!")
+    Zu = np.zeros((n, traits)) if Zu is None else np.asarray(Zu)
+
+    true_b = np.zeros((p, traits))
+    if overlap == 0:
+        # k entries of the column-major (p, traits) matrix, as the
+        # reference's linear indexing places them.  The JAX package draws
+        # the same numbers but writes them into the copy that ravel(order=
+        # "F") returns, so its true_b stays zero (ROADMAP Queue 3)
+        causal = rng.choice(traits * p, size=k, replace=False)
+        tb = true_b.ravel(order="F")
+        tb[causal] = rng.standard_normal(k)
+        true_b = tb.reshape(p, traits, order="F")
+    else:
+        shared = rng.choice(p, size=overlap, replace=False)
+        for t in range(traits):
+            true_b[shared, t] = rng.standard_normal(overlap)
+        flat_ok = np.ones(traits * p, bool)
+        for t in range(traits):
+            flat_ok[t * p + shared] = False
+        rest = rng.choice(np.flatnonzero(flat_ok), size=k - traits * overlap,
+                          replace=False)
+        tb = true_b.ravel(order="F")
+        tb[rest] = rng.standard_normal(k - traits * overlap)
+        true_b = tb.reshape(p, traits, order="F")
+    correct_position = np.argwhere(true_b != 0)
+
+    if Sigma is None:
+        Sigma = random_covariance_matrix(traits, rng=rng)
+    else:
+        Sigma = np.asarray(Sigma, np.float64)
+    cols = np.flatnonzero((true_b != 0).any(axis=1))
+    mu = _standardized_columns(x, cols) @ true_b[cols] + Zu
+    L = np.linalg.cholesky(Sigma)
+    Y = mu + rng.standard_normal((n, traits)) @ L.T
+    return Y, Sigma, true_b, correct_position

@@ -631,9 +631,6 @@ def test_float64_dtype_raises_in_cv_and_path(plain_problem):
 
 def test_cv_unported_inputs_raise(plain_problem):
     x, y, _ = plain_problem
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mt.cv_iht(np.stack([y, y, y]), _port(x), path=[1], q=2,
-                  verbose=False)
     with pytest.raises(NotImplementedError, match="item 13"):
         mt.cv_iht(y, object(), path=[1], q=2, verbose=False)
     # use_maf raised NotImplementedError before it was accepted; as in the
@@ -647,11 +644,24 @@ def test_cv_unported_inputs_raise(plain_problem):
 
 
 def test_fit_multivariate_y_raises(plain_problem):
-    """A y of shape (r, n), r > 1, which the JAX package routes to its
-    multivariate solver: fit_iht raises cv_iht's NotImplementedError
-    naming the multivariate item, not a length error."""
-    x, y, _ = plain_problem
-    with pytest.raises(NotImplementedError, match="item 10 \\(multivariate"):
-        mt.fit_iht(np.stack([y, y]), _port(x), k=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="item 10 \\(multivariate"):
-        mt.cv_iht(np.stack([y, y]), _port(x), path=[1], q=2, verbose=False)
+    """A y of shape (r, n), r > 1, which raised NotImplementedError before
+    the multivariate solver was ported: fit_iht and cv_iht route it to
+    ``fit_mv_iht`` / ``cv_mv_iht``, as the JAX package does, with the
+    arguments the JAX package passes on, and give their results exactly."""
+    from mendeliht_tpu_torch.models import mv as tmv
+    x, y, folds = plain_problem
+    Y = np.stack([y, 0.5 * y + np.random.default_rng(57).standard_normal(
+        len(y))])
+    kw = dict(verbose=False, min_iter=3, max_iter=40)
+    got = mt.fit_iht(Y, _port(x), k=3, d=mt.MvNormal(), init_beta=True,
+                     zkeep=[True], **kw)
+    want = tmv.fit_mv_iht(Y, _port(x), k=3, init_beta=True, zkeep=[True],
+                          **kw)
+    assert isinstance(got, mt.MIHTResult) and got.traits == 2
+    np.testing.assert_array_equal(got.beta, want.beta)
+    np.testing.assert_array_equal(got.Sigma, want.Sigma)
+    assert (got.iter, got.logl) == (want.iter, want.logl)
+    kw.update(path=[1, 2], q=3, folds=folds)
+    np.testing.assert_array_equal(
+        mt.cv_iht(Y, _port(x), init_beta=True, **kw),
+        tmv.cv_mv_iht(Y, _port(x), init_beta=True, **kw))

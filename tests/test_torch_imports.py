@@ -43,7 +43,8 @@ def test_package_has_modules():
     assert not (PKG / "csrc" / "xt_dots.cu").exists()     # kernel 1's f32
     assert not (PKG / "csrc" / "xt_dots_i8.cu").exists()  # kernel 6's mma.sync
     assert {"ops/kernels.py", "ops/decode.py", "ops/glm.py", "ops/negbin.py",
-            "models/fit.py", "models/cv.py", "utils/profiling.py",
+            "models/fit.py", "models/cv.py", "models/mv.py", "compat.py",
+            "utils/profiling.py",
             "utils/simulate.py",
             "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
     for src in ("xt_dots_t.cu", "read_probe.cu", "int_probe.cu",
@@ -510,3 +511,86 @@ def test_decode_only_at_scale_on_card(cuda_device, seed, tw):
     got = kernels.decode_only(x, s, tw=tw)
     torch.cuda.synchronize()
     assert torch.equal(got, decode.decode_only(x, s, kernels.TP, tw or 2048))
+
+
+def _mv_genotypes(device):
+    """(card genotypes, CPU genotypes, a 3-trait Y (3, n)) of one simulated
+    problem: 1,000 x 3,000 with missing calls, two of nine causal SNPs
+    shared by every trait."""
+    from mendeliht_tpu_torch.utils.simulate import (
+        simulate_packed_problem, simulate_random_multivariate_response)
+    words, mu, inv_sd, hm, _, _ = simulate_packed_problem(
+        np.random.default_rng(7), 1000, 3000, missing=True)
+    card, cpu = (mendeliht_tpu_torch.PackedGenotypes.from_numpy(
+        words, mu, inv_sd, n=1000, p=3000, has_missing=hm, device=d)
+        for d in (device, "cpu"))
+    Y, _, _, _ = simulate_random_multivariate_response(
+        cpu, 9, 3, overlap=2, rng=np.random.default_rng(8))
+    return card, cpu, np.ascontiguousarray(Y.T)
+
+
+def _mv_fit_traced(Y, g, **kw):
+    """``fit_iht`` of the mv response Y on ``g`` with its line searches
+    recorded: (result, one [logl before, the full step's logl, backtracks]
+    an iteration)."""
+    from mendeliht_tpu_torch.models import mv
+    rows, need = [], mv._mv_bt_need
+
+    def recording(act, old_logl, cur, n_bt, max_step):
+        out = need(act, old_logl, cur, n_bt, max_step)
+        if not bool(n_bt.any()):                 # an iteration's first check
+            rows.append([float(old_logl[0]), float(cur["logl"][0]), 0])
+        rows[-1][2] += int(out.any())
+        return out
+
+    mv._mv_bt_need = recording
+    try:
+        return mendeliht_tpu_torch.fit_iht(Y, g, **kw), rows
+    finally:
+        mv._mv_bt_need = need
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init_beta", [False, True])
+def test_mv_fit_on_card_matches_cpu(cuda_device, init_beta):
+    """The multivariate fit on the card (every score pass at m = 3 through
+    kernel 2, R in 21-bit digits) against the CPU's f32 score: the same
+    (trait, SNP) support, logl within 4 f32 roundings at the end and before
+    every iteration up to the first whose backtracks differ (the split), B
+    and Sigma within 1e-3 of their max, iterations within one, or within 6
+    where the split is a loglikelihood tie (on both devices the full step's
+    logl within 4 roundings of the last: the plateau where an mv fit ends,
+    on which f32 roundings decide a backtrack)."""
+    card, cpu, Y = _mv_genotypes(cuda_device)
+    kw = dict(k=9, d=mendeliht_tpu_torch.MvNormal(), init_beta=init_beta,
+              verbose=False)
+    before = kernels.LAUNCHES["xt_dots_words_t"]
+    a, ra = _mv_fit_traced(Y, card, **kw)
+    launches = kernels.LAUNCHES["xt_dots_words_t"] - before
+    b, rb = _mv_fit_traced(Y, cpu, **kw)
+    ulps = lambda x, y: abs(x - y) / np.spacing(np.float32(abs(y)))  # noqa
+    assert set(zip(*np.nonzero(a.beta))) == set(zip(*np.nonzero(b.beta)))
+    assert ulps(a.logl, b.logl) <= 4
+    for u, v in ((a.beta, b.beta), (a.Sigma, b.Sigma)):
+        assert np.abs(u - v).max() <= 1e-3 * np.abs(v).max()
+    assert launches >= a.iter + 1
+    split = next((i for i, (u, v) in enumerate(zip(ra, rb)) if u[2] != v[2]),
+                 min(len(ra), len(rb)))
+    assert all(u[0] == v[0] or ulps(u[0], v[0]) <= 4
+               for u, v in zip(ra[:split + 1], rb[:split + 1]))
+    if abs(a.iter - b.iter) > 1:
+        assert abs(a.iter - b.iter) <= 6 and split < min(len(ra), len(rb))
+        assert all(ulps(r[split][1], r[split][0]) <= 4 for r in (ra, rb))
+
+
+@pytest.mark.cuda
+def test_mv_cv_on_card_matches_cpu(cuda_device):
+    """The multivariate cv on the card against the CPU: mse within 1e-4
+    relative, the same best k."""
+    card, cpu, Y = _mv_genotypes(cuda_device)
+    kw = dict(path=[3, 6, 9, 12], q=3, verbose=False,
+              folds=np.random.default_rng(9).integers(1, 4, size=1000))
+    a = mendeliht_tpu_torch.cv_iht(Y, card, **kw)
+    b = mendeliht_tpu_torch.cv_iht(Y, cpu, **kw)
+    np.testing.assert_allclose(a, b, rtol=1e-4)
+    assert int(np.argmin(a)) == int(np.argmin(b))
