@@ -160,6 +160,35 @@ result line):
               warm runs (the same mse; best k, iterations, kernel-2
               launches, peak memory); a ``profiling.trace`` of a warm fit
               and of the first chunk of a warm cv
+    io        the file-level API on the same 10k x 1M genotypes, in a
+              temporary directory removed after: a PLINK trio written from
+              the card words (``write_plink_bed``, a chunk of SNPs at a
+              time) with the fit's y in ``.fam`` column 6, and a second
+              ``.fam`` with the mv phase's three traits; ``read_plink`` on
+              the card, its words and mu / inv_sd bit-equal to the
+              genotypes', its wall split into the file read, the upload and
+              the repack; ``iht(prefix, 10, Normal)`` bit-equal to
+              ``fit_iht`` in memory (beta, c, logl, iterations; kernel-2
+              launches; a beta file of p rows); ``cross_validate`` (path
+              1:20, q=5, the cv phase's folds) bit-equal to the cv phase's
+              mse, best k 10; the 3-trait ``iht`` (k=12, phenotypes=[6, 7,
+              8]) bit-equal to ``fit_iht`` on the same Y, its covariance
+              file written; then at 2,003 x 20,000 with missing calls (n %
+              4 = 3) the card's read equal to the CPU's
+    dense     the dense design (``DenseOp``): a VCF (GT) of the parity
+              genotypes, ``parse_genotypes`` within 1e-12 of the PLINK
+              trio's standardized matrix, its ``iht`` on the card and on the
+              CPU (same support, iterations within one) and the same
+              support as the PLINK ``iht`` on the card, no score kernel
+              launched by the dense fits; ``grm`` on the card at 2,000 x
+              20,000 within 1e-4 relative of the CPU's float64 loop; then
+              100,000 f32 standardized columns of the 10k x 1M genotypes
+              (every causal SNP among them, made by ``gather_cols`` on the
+              card): ``DenseOp.xtr`` with TF32 switched on bit-equal to it
+              with TF32 off, ``fit_iht`` (k=10) and ``cv_iht`` (path 1:20,
+              q=5), cold then DENSE_WARM warm runs (identical; causal
+              recovery against the packed fit's; best k 10; peak memory),
+              and a ``profiling.trace`` of a warm fit and a warm cv
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernels 2 and 1 vs plain
               bit for bit and equal to each other, timed at m=100 on them
@@ -188,7 +217,8 @@ quad-word fit), the cv (kernel 2; ``family_launches`` from each family's
 fit and the Bernoulli cv, ``options_launches`` from each option's fit and
 the init_beta cv), ``mv_launches`` of kernels 1 and 2 from the mv phase's
 quad-word fit, and its dual fit and cv (their ``*_mv`` fields are the mv
-widths' times), the
+widths' times), ``io_launches`` of kernel 2 from the io phase's ``iht``,
+``cross_validate`` and multivariate ``iht``, the
 read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
 ``lab_launches`` of every kernel) and the probe's
 run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
@@ -202,8 +232,11 @@ Needs a CUDA device and nvcc; imports nothing of JAX.
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -213,11 +246,15 @@ import torch
 
 from mendeliht_tpu_torch import (Bernoulli, Gamma, InverseGaussian, LogLink,
                                  LogitLink, MvNormal, NegativeBinomial,
-                                 PackedGenotypes, Poisson, cv_iht, fit_iht,
-                                 maf_weights, random_covariance_matrix)
+                                 Normal, PackedGenotypes, Poisson,
+                                 cross_validate, cv_iht, fit_iht, grm, iht,
+                                 maf_weights, make_bim_fam_files,
+                                 parse_genotypes, random_covariance_matrix,
+                                 read_plink, write_plink_bed)
+from mendeliht_tpu_torch.genotype import plink, snparray
 from mendeliht_tpu_torch.models import fit as fit_module, mv, univariate
 from mendeliht_tpu_torch.ops import decode, kernels
-from mendeliht_tpu_torch.ops.linalg import PackedOp
+from mendeliht_tpu_torch.ops.linalg import DenseOp, PackedOp
 from mendeliht_tpu_torch.tools import kernel_lab5 as lab
 from mendeliht_tpu_torch.tools import kernel_probe as probe
 from mendeliht_tpu_torch.utils import profiling
@@ -272,6 +309,11 @@ MV_FIT_WARM, MV_CV_WARM = 2, 1
 # first difference is such a tie.  The phase prints the readings of a
 # known fault beside them (the score without Gamma), which must fail
 MV_SIGMA_TOL, MV_B_TOL, MV_LOGL_ULPS, MV_ITER_SPREAD = 1e-3, 3e-3, 4, 6
+# the io phase's second read: n % 4 == 3, missing calls, at P_PARITY SNPs
+IO_N = 2_003
+# the dense phase: the standardized columns of the flagship genotypes that
+# its fit and cv run on (4 GB of f32 at N samples), and their warm runs
+DENSE_P, DENSE_WARM = 100_000, 2
 N_BIG = 51_200                           # past the budget: 12.8 GB of words
 CV_MAX_ITER = 100                        # cv_iht's default
 FIT_MAX_ITER = 200                       # fit_iht's default
@@ -1620,6 +1662,365 @@ def phase_mv(g, card, gen):
                                  "mv cv": launches}}, widths)
 
 
+def reset_launches():
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+
+
+def write_trio(prefix, g, y):
+    """A PLINK trio of genotypes g: the ``.bed`` from their words through
+    the port's packer (``write_plink_bed``, a chunk of SNPs at a time on
+    their device), ``.bim`` / ``.fam`` by ``make_bim_fam_files`` with y
+    ((n,) or (n, traits)) from ``.fam`` column 6; returns the seconds."""
+    t0 = time.perf_counter()
+    write_plink_bed(prefix + ".bed", g)
+    make_bim_fam_files(g, y, prefix)
+    return time.perf_counter() - t0
+
+
+def same_genotypes(a, b):
+    """Words and per-SNP stats bit for bit, on any devices."""
+    return (torch.equal(a.words.cpu(), b.words.cpu())
+            and torch.equal(a.mu.cpu(), b.mu.cpu())
+            and torch.equal(a.inv_sd.cpu(), b.inv_sd.cpu())
+            and a.has_missing == b.has_missing)
+
+
+def timed_read(prefix, dev):
+    """``read_plink`` on ``dev``, its wall split: the ``.bed`` file read
+    (``_bed_payload`` alone), the upload of the payload in the repack's
+    chunks (alone, synchronised), the upload and repack together
+    (``from_bed_bytes`` alone), and the whole call; returns (SnpData,
+    {part: s})."""
+    t0 = time.perf_counter()
+    payload, n, p = plink._bed_payload(prefix)
+    t_read = time.perf_counter() - t0
+    rows = payload.reshape(p, -1)
+    t0 = time.perf_counter()
+    for lo in range(0, p, snparray._CHUNK_P):
+        torch.from_numpy(rows[lo:lo + snparray._CHUNK_P]).to(dev)
+    sync_on(dev)
+    t_upload = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    PackedGenotypes.from_bed_bytes(payload, n, p, device=dev)
+    sync_on(dev)
+    t_repack = time.perf_counter() - t0
+    del payload, rows
+    t0 = time.perf_counter()
+    snp = read_plink(prefix, device=dev)
+    sync_on(dev)
+    t_all = time.perf_counter() - t0
+    return snp, {"file read": t_read, "upload": t_upload,
+                 "upload + repack": t_repack, "read_plink": t_all}
+
+
+def sync_on(dev):
+    if torch.device(dev).type == "cuda":
+        sync()
+
+
+def phase_io(g, y, dual_mse, card, dev):
+    """The file-level API at 10k x 1M: a PLINK trio written from the card
+    words, ``read_plink`` on the card (the words and stats bit-equal to
+    ``g``'s, its wall split), ``iht`` from it against ``fit_iht`` in memory
+    (bit-equal), ``cross_validate`` against phase 9's mse (bit-equal),
+    the 3-trait ``iht`` with its covariance file against ``fit_iht``; then
+    at IO_N x P_PARITY with missing calls the card's read equal to the
+    CPU's; returns kernel 2's launches on each path."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mendeliht_io_")
+    launches = {}
+    try:
+        prefix = os.path.join(tmp, "flagship")
+        t_write = write_trio(prefix, g, y)
+        Y, _ = mv_response(g, MV_TRAITS, np.random.default_rng(31))
+        prefix2 = os.path.join(tmp, "flagship_mv")
+        os.link(prefix + ".bed", prefix2 + ".bed")
+        make_bim_fam_files(g, Y.T, prefix2)
+        print(f"[io] wrote the PLINK trio of {N} x {P} "
+              f"({os.path.getsize(prefix + '.bed') / 1e9:.3f} GB .bed) in "
+              f"{t_write:.2f} s", flush=True)
+        snp, parts = timed_read(prefix, dev)
+        same = same_genotypes(snp.snparray, g)
+        print(f"[io] read_plink on {card}: words and mu / inv_sd equal to "
+              f"the card genotypes' bit for bit {same}; "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+              + f" (repack alone ~{parts['upload + repack'] - parts['upload']:.3f}"
+              " s)", flush=True)
+        if not same or snp.snparray.words.device.type != dev.type:
+            raise AssertionError("io: read_plink differs from the genotypes "
+                                 "it was written from")
+
+        out = {k: os.path.join(tmp, k) for k in
+               ("summary", "beta", "cov", "cvsummary")}
+        reset_launches()
+        t0 = time.perf_counter()
+        a = iht(prefix, K, Normal, summaryfile=out["summary"],
+                betafile=out["beta"], verbose=False, device=dev)
+        t_iht = time.perf_counter() - t0
+        launches["iht"] = kernels.LAUNCHES["xt_dots_words_t"]
+        b = fit_iht(y, g, np.ones(g.n), k=K, verbose=False)
+        with open(out["beta"]) as f:
+            rows = sum(1 for _ in f) - 1
+        same = (np.array_equal(a.beta, b.beta) and np.array_equal(a.c, b.c)
+                and a.logl == b.logl and a.iter == b.iter)
+        print(f"[io] iht(prefix, {K}, Normal) on {card}: {t_iht:.3f} s, iter "
+              f"{a.iter}, logl {a.logl}, kernel-2 launches {launches['iht']}; "
+              f"beta, c, logl and iterations equal to fit_iht in memory bit "
+              f"for bit {same}; beta file {rows} rows", flush=True)
+        if not same or rows != P or launches["iht"] < a.iter + 1:
+            raise AssertionError("io: iht differs from fit_iht")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        mse = cross_validate(prefix, Normal, path=CV_PATH, q=CV_Q,
+                             cv_summaryfile=out["cvsummary"], verbose=False,
+                             max_iter=CV_MAX_ITER,
+                             rng=np.random.default_rng(SEED), device=dev)
+        t_cv = time.perf_counter() - t0
+        launches["cross_validate"] = kernels.LAUNCHES["xt_dots_words_t"]
+        best = CV_PATH[int(np.argmin(mse))]
+        same = np.array_equal(mse, dual_mse)
+        print(f"[io] cross_validate(prefix, Normal, path 1:{CV_PATH[-1]}, "
+              f"q={CV_Q}) on {card}: {t_cv:.3f} s, best k {best}, kernel-2 "
+              f"launches {launches['cross_validate']}; mse equal to the cv "
+              f"phase's bit for bit {same}", flush=True)
+        if not same or best != K or launches["cross_validate"] < 2:
+            raise AssertionError("io: cross_validate differs from cv_iht")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        a = iht(prefix2, MV_K, MvNormal, phenotypes=[6, 7, 8],
+                summaryfile=out["summary"], betafile=out["beta"],
+                covariancefile=out["cov"], verbose=False, device=dev)
+        t_mv = time.perf_counter() - t0
+        launches["mv iht"] = kernels.LAUNCHES["xt_dots_words_t"]
+        b = fit_iht(Y, g, np.ones((1, g.n)), k=MV_K, d=MvNormal(),
+                    verbose=False)
+        sigma = np.loadtxt(out["cov"])
+        same = (np.array_equal(a.beta, b.beta) and np.array_equal(a.c, b.c)
+                and np.array_equal(a.Sigma, b.Sigma) and a.logl == b.logl
+                and a.iter == b.iter)
+        print(f"[io] iht(prefix2, {MV_K}, MvNormal, phenotypes=[6, 7, 8]) on "
+              f"{card}: {t_mv:.3f} s, iter {a.iter}, logl {a.logl}, "
+              f"kernel-2 launches {launches['mv iht']}; equal to fit_iht on "
+              f"the same Y bit for bit {same}; covariance file "
+              f"{sigma.shape}", flush=True)
+        if (not same or sigma.shape != (MV_TRAITS, MV_TRAITS)
+                or not np.allclose(sigma, a.Sigma, rtol=1e-7)):
+            raise AssertionError("io: the multivariate iht differs")
+        del snp
+
+        # n % 4 == 3 and missing calls: the card's read equals the CPU's
+        words, mu, inv_sd, hm, _, _ = simulate_packed_problem(
+            np.random.default_rng(SEED + 5), IO_N, P_PARITY, missing=True)
+        small = PackedGenotypes.from_numpy(words, mu, inv_sd, n=IO_N,
+                                           p=P_PARITY, has_missing=hm,
+                                           device=dev)
+        prefix3 = os.path.join(tmp, "missing")
+        write_trio(prefix3, small, np.zeros(IO_N))
+        on_card = read_plink(prefix3, device=dev).snparray
+        on_cpu = read_plink(prefix3, device="cpu").snparray
+        same = (same_genotypes(on_card, on_cpu)
+                and same_genotypes(on_card, small)
+                and np.array_equal(on_card.n_missing, on_cpu.n_missing))
+        print(f"[io] read_plink at {IO_N} x {P_PARITY} (n % 4 = {IO_N % 4}, "
+              f"missing calls {on_cpu.has_missing}): the card's words and "
+              f"stats equal to the CPU's and to the written genotypes' "
+              f"{same}", flush=True)
+        if not same or not on_cpu.has_missing:
+            raise AssertionError("io: the card's read differs from the CPU's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[io] phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def write_vcf(path, codes):
+    """A GT VCF of (n, p) PLINK codes (01 missing as ./.)."""
+    gt = np.array(["0/0", "./.", "0/1", "1/1"])
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\t"
+                + "\t".join(f"s{i}" for i in range(codes.shape[0])) + "\n")
+        for j in range(codes.shape[1]):
+            f.write(f"1\t{100 * (j + 1)}\tsnp{j + 1}\t1\t2\t.\tPASS\t.\tGT\t"
+                    + "\t".join(gt[codes[:, j]]) + "\n")
+
+
+def dense_columns(g, cols, chunk=4096):
+    """The (n, len(cols)) f32 standardized columns ``cols`` of g, made on
+    g's device by ``PackedOp.gather_cols`` a chunk at a time."""
+    op = PackedOp(g)
+    X = torch.empty((g.n, len(cols)), dtype=torch.float32, device=g.device)
+    for lo in range(0, len(cols), chunk):
+        idx = torch.as_tensor(cols[lo:lo + chunk], device=g.device)[None]
+        Z = op.gather_cols(idx, torch.ones(idx.shape, device=g.device))
+        X[:, lo:lo + idx.shape[1]] = Z[0, :, :g.n].T
+    return X
+
+
+def phase_dense(g, causal, y, card, dev):
+    """The dense design (``DenseOp``): at N_PARITY x P_PARITY a VCF of the
+    parity genotypes, ``parse_genotypes`` against the PLINK trio's
+    standardized matrix (1e-12), ``iht`` of it on the card and on the CPU
+    (same support, iterations within one) and against the PLINK ``iht`` on
+    the card (same support), TF32 switched on leaving DenseOp's products
+    unchanged, ``grm`` on the card within 1e-4 of the CPU's float64 loop;
+    then at N x DENSE_P the standardized columns of g (every causal SNP
+    among them), ``fit_iht`` and ``cv_iht`` on them, cold then warm, no
+    score kernel launched, every causal SNP found (as phase_fit holds the
+    packed fit to all K), and a ``profiling.trace`` of a warm fit and cv."""
+    t_phase = time.perf_counter()
+    n, p = N_PARITY, P_PARITY
+    words, mu, inv_sd, hm, pc, pb = simulate_packed_problem(
+        np.random.default_rng(3), n, p, k=K, missing=True)
+    cpu_g = PackedGenotypes.from_numpy(words, mu, inv_sd, n=n, p=p,
+                                       has_missing=hm, device="cpu")
+    yp = phenotype(cpu_g, pc, pb, 4)
+    tmp = tempfile.mkdtemp(prefix="mendeliht_dense_")
+    try:
+        vcf, prefix, phen = (os.path.join(tmp, s) for s in
+                             ("parity.vcf", "parity", "parity.phen"))
+        t0 = time.perf_counter()
+        write_vcf(vcf, cpu_g.to_codes())
+        write_trio(prefix, cpu_g, yp)
+        np.savetxt(phen, yp, fmt="%.17g")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        X = parse_genotypes(vcf, device=dev)[0]
+        t_parse = time.perf_counter() - t0
+        ref = read_plink(prefix, dtype=torch.float64, device="cpu")
+        err = float(np.abs(X - ref.snparray.to_dense_standardized()).max())
+        print(f"[dense] VCF (GT) of the {n} x {p} parity genotypes written "
+              f"with its PLINK trio in {t_write:.2f} s, parse_genotypes "
+              f"{t_parse:.2f} s; max |VCF - PLINK standardized| {err:.3g}",
+              flush=True)
+        if not err <= 1e-12:
+            raise AssertionError("dense: the VCF and PLINK matrices differ")
+        del X, ref
+        kw = dict(phenotypes=phen, summaryfile=os.path.join(tmp, "s"),
+                  betafile=os.path.join(tmp, "b"), verbose=False)
+        reset_launches()
+        fits = {}
+        for label, target, device in (("vcf card", vcf, dev),
+                                      ("vcf cpu", vcf, "cpu"),
+                                      ("plink card", prefix, dev)):
+            t0 = time.perf_counter()
+            r = iht(target, K, Normal, device=device, **kw)
+            fits[label] = (set(np.flatnonzero(r.beta).tolist()), r.iter,
+                           time.perf_counter() - t0)
+            if label == "vcf cpu":
+                dense_launches = sum(kernels.LAUNCHES.values())
+        (sa, ia, ta), (sb, ib, tb), (sc, ic, tc) = fits.values()
+        print(f"[dense] iht of the VCF on {card}: iter {ia}, {ta:.3f} s; on "
+              f"the CPU: iter {ib}, {tb:.3f} s; same support {sa == sb}; the "
+              f"PLINK trio's iht on the card: iter {ic}, same support "
+              f"{sa == sc}; score-kernel launches of the dense fits "
+              f"{dense_launches}", flush=True)
+        if sa != sb or abs(ia - ib) > 1 or sa != sc or dense_launches:
+            raise AssertionError("dense: the VCF fits disagree")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    card_g = PackedGenotypes.from_numpy(words, mu, inv_sd, n=n, p=p,
+                                        has_missing=hm, device=dev)
+    t0 = time.perf_counter()
+    G = grm(card_g)
+    t_grm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    G64 = grm(cpu_g)
+    t_grm64 = time.perf_counter() - t0
+    err = float(np.abs(G - G64).max() / np.abs(G64).max())
+    print(f"[dense] grm {n} x {p} on {card}: {t_grm:.3f} s; the CPU's "
+          f"float64 loop {t_grm64:.3f} s; max rel err {err:.3g}", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError("dense: grm on the card differs from the CPU's")
+    del card_g, cpu_g, G, G64
+
+    cols = np.sort(np.concatenate(
+        [causal, np.setdiff1d(np.arange(DENSE_P), causal)[:DENSE_P - K]]))
+    t0 = time.perf_counter()
+    X = dense_columns(g, cols)
+    sync_on(dev)
+    print(f"[dense] {N} x {DENSE_P} f32 standardized columns of the "
+          f"flagship genotypes ({X.numel() * 4 / 1e9:.2f} GB, every causal "
+          f"SNP among them) by gather_cols in {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
+    op = DenseOp(X)
+    R = torch.randn((CV_Q * len(CV_PATH), N), device=dev)
+    try:
+        torch.set_float32_matmul_precision("high")
+        on = op.xtr(R)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    same = torch.equal(on, op.xtr(R))
+    print(f"[dense] DenseOp.xtr at m = {R.shape[0]} with TF32 switched on "
+          f"equal to it with TF32 off bit for bit {same}", flush=True)
+    if not same:
+        raise AssertionError("dense: TF32 changed DenseOp's products")
+    del R, on
+    causal_set = set(causal.tolist())
+    torch.cuda.reset_peak_memory_stats()
+    walls, res = [], None
+    for run in range(1 + DENSE_WARM):
+        reset_launches()
+        t0 = time.perf_counter()
+        r = fit_iht(y, X, k=K, verbose=False)
+        walls.append(time.perf_counter() - t0)
+        sel = cols[np.flatnonzero(r.beta)]
+        got = (set(sel.tolist()), r.iter, r.logl)
+        if (len(sel) != K or sum(kernels.LAUNCHES.values())
+                or run and got != res):
+            raise AssertionError("dense: the fit failed its checks")
+        res = got
+    found = len(res[0] & causal_set)
+    print(f"[dense] fit_iht {N} x {DENSE_P} k={K} on {card}: cold "
+          f"{walls[0]:.4f} s, {DENSE_WARM} warm median "
+          f"{np.median(walls[1:]):.4f} s (range {min(walls[1:]):.4f}-"
+          f"{max(walls[1:]):.4f}); iter {res[1]}, logl {res[2]}, causal "
+          f"recovered {found}/{K} (the packed fit's {K}/{K}), "
+          "no score-kernel launch", flush=True)
+    walls, first = [], None
+    for run in range(1 + DENSE_WARM):
+        reset_launches()
+        t0 = time.perf_counter()
+        mse = cv_iht(y, X, path=CV_PATH, q=CV_Q, verbose=False,
+                     max_iter=CV_MAX_ITER, rng=np.random.default_rng(SEED))
+        walls.append(time.perf_counter() - t0)
+        if (not np.all(np.isfinite(mse)) or sum(kernels.LAUNCHES.values())
+                or run and not np.array_equal(mse, first)):
+            raise AssertionError("dense: the cv failed its checks")
+        first = mse
+    best = CV_PATH[int(np.argmin(mse))]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dense] cv_iht {N} x {DENSE_P} path 1:{CV_PATH[-1]} q={CV_Q} on "
+          f"{card}: cold {walls[0]:.4f} s, {DENSE_WARM} warm median "
+          f"{np.median(walls[1:]):.4f} s (range {min(walls[1:]):.4f}-"
+          f"{max(walls[1:]):.4f}); best k {best}; peak device memory of the "
+          f"fits and cvs {peak / 2**30:.2f} GiB "
+          "(torch.cuda.max_memory_allocated)", flush=True)
+    if found < K or best != K:
+        raise AssertionError(f"dense: causal recovery {found}, best k {best}")
+    for what, call in (
+            ("fit", lambda: fit_iht(y, X, k=K, verbose=False)),
+            ("cv", lambda: cv_iht(y, X, path=CV_PATH, q=CV_Q, verbose=False,
+                                  max_iter=CV_MAX_ITER,
+                                  rng=np.random.default_rng(SEED)))):
+        with profiling.trace() as s:
+            call()
+        print(f"[dense] traced warm {what} on {card}: {trace_text(s)}",
+              flush=True)
+        for name, ms, count in s["kernels"][:6]:
+            print(f"[dense]   {ms:9.3f} ms {count:6d}x  {name[:110]}",
+                  flush=True)
+        if not s["device_busy_ms"] > 0:
+            raise AssertionError(f"dense: the {what} trace shows no device "
+                                 "time")
+    print(f"[dense] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def phase_lab(g, card):
     """The kernel lab's entry points on the 10k x 1M genotypes, then its
     sweep of kernels 1, 2 and 6 and kernels 4 and 5 against their plain
@@ -2106,6 +2507,8 @@ def main(dev=None):
     k2["family_launches"] = fam["xt_dots_words_t"]
     opts = phase_options(g, causal, y, card)
     mvl, mvw = phase_mv(g, card, gen)
+    k2["io_launches"] = phase_io(g, y, dual_mse, card, dev)
+    phase_dense(g, causal, y, card, dev)
     for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
         st.update(moments[name])
         st.update(mvw[name], options_launches=opts[name],

@@ -27,6 +27,9 @@ kernel decodes raw values and applies (mu, 1/sd) algebraically.
 
 The numpy host packers below are copies of the JAX package's, so that this
 package never imports it (importing any ``mendeliht_tpu`` module imports jax).
+A PLINK ``.bed`` payload is repacked into the quad words by torch ops on the
+genotypes' device (:meth:`PackedGenotypes.from_bed_bytes`), and written back
+from them the same way (:func:`bed_rows`).
 """
 
 from __future__ import annotations
@@ -37,10 +40,14 @@ import numpy as np
 import torch
 
 from ..ops.kernels import build_words_t
+from ..utils.device import resolve_device
 
 # samples per crumb plane are padded to a multiple of _LANE bytes; the value
 # is the JAX package's, so both packages pad every n to the same n4
 _LANE = 512
+# SNPs of .bed rows uploaded and repacked at a time (a multiple of 4, so no
+# quad word straddles two chunks): 41 MB of .bed a chunk at n = 10,000
+_CHUNK_P = 16384
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -114,6 +121,59 @@ def _stats_from_counts(n_obs, n_het, n_alt, dtype=np.float64):
     return mu.astype(dtype), inv_sd.astype(dtype), maf_.astype(dtype)
 
 
+_SHIFTS = (0, 2, 4, 6)          # crumb s of a byte sits at bits 2s, 2s + 1
+
+
+def _repack_bed_rows(rows: torch.Tensor, n: int, n4: int):
+    """``.bed`` rows (c, ceil(n/4)) uint8, sample i of a SNP in crumb i % 4
+    of byte i // 4, -> (quad words (ceil(c/4), n4) int32, counts (3, c)
+    int64 of codes 10 (het), 11 (alt) and 01 (missing)), on the rows'
+    device.  The padding crumbs of each row's last byte are cut before the
+    counts; quad rows past c are zero bytes."""
+    c, bpr = rows.shape
+    planes = torch.stack([(rows >> s) & 3 for s in _SHIFTS], dim=2)
+    codes = planes.reshape(c, 4 * bpr)[:, :n]                 # sample order
+    counts = torch.stack([(codes == v).sum(dim=1) for v in (2, 3, 1)])
+    c4 = -(-c // 4)
+    full = torch.zeros((4 * c4, 4 * n4), dtype=torch.uint8,
+                       device=rows.device)
+    full[:c, :n] = codes
+    full = full.view(4 * c4, 4, n4)                # crumb s: samples s*n4+b
+    packed = full[:, 0]
+    for s in (1, 2, 3):
+        packed = packed | (full[:, s] << _SHIFTS[s])
+    # byte k of quad word (i, w) is byte w of SNP 4i+k (little-endian)
+    quads = packed.view(c4, 4, n4).permute(0, 2, 1).contiguous()
+    return quads.view(torch.int32).reshape(c4, n4), counts
+
+
+def bed_rows(words: torch.Tensor, n: int, c: int) -> torch.Tensor:
+    """Inverse of the repack: quad words (ceil(c/4), n4) int32 of c SNPs ->
+    their ``.bed`` rows (c, ceil(n/4)) uint8 on the words' device, the
+    padding crumbs of each row's last byte zero."""
+    c4, n4 = words.shape
+    bpr = -(-n // 4)
+    packed = words.contiguous().view(torch.uint8).reshape(c4, n4, 4)
+    packed = packed.permute(0, 2, 1).reshape(4 * c4, n4)[:c]
+    codes = torch.stack([(packed >> s) & 3 for s in _SHIFTS], dim=1)
+    codes = codes.reshape(c, 4 * n4)[:, :n]
+    full = torch.zeros((c, 4 * bpr), dtype=torch.uint8, device=words.device)
+    full[:, :n] = codes
+    full = full.view(c, bpr, 4)
+    out = full[:, :, 0]
+    for s in (1, 2, 3):
+        out = out | (full[:, :, s] << _SHIFTS[s])
+    return out
+
+
+def bed_chunks(g: "PackedGenotypes"):
+    """The ``.bed`` payload of g, ``_CHUNK_P`` SNPs at a time: (c,
+    ceil(n/4)) uint8 host arrays, each made on g's device."""
+    for lo in range(0, g.p, _CHUNK_P):
+        hi = min(lo + _CHUNK_P, g.p)
+        yield bed_rows(g.words[lo // 4:-(-hi // 4)], g.n, hi - lo).cpu().numpy()
+
+
 @dataclasses.dataclass
 class PackedGenotypes:
     """n x p standardized genotype operator backed by 2-bit packed storage
@@ -130,9 +190,11 @@ class PackedGenotypes:
     # (n4/4, 4*p4) of ops/kernels.build_words_t, built by with_dual_layout;
     # never used for gathers
     words_t: torch.Tensor | None = None
-    # host-side minor allele frequencies (float64) where the counts were
-    # seen (``from_codes``), else None: ``maf`` then derives them from mu
+    # host-side minor allele frequencies (float64) and missing calls per
+    # SNP where the counts were seen (``from_codes``, ``from_bed_bytes``),
+    # else None: ``maf`` then derives the frequencies from mu
     maf_: np.ndarray | None = None
+    n_missing: np.ndarray | None = None
 
     @property
     def shape(self):
@@ -196,7 +258,7 @@ class PackedGenotypes:
             _bytes_to_words(pack_codes(codes)), mu.astype(np.float32),
             inv_sd.astype(np.float32), n=n, p=p,
             has_missing=bool(n_mis.sum() > 0), device=device, dtype=dtype)
-        g.maf_ = maf_
+        g.maf_, g.n_missing = maf_, n_mis
         return g
 
     @classmethod
@@ -209,6 +271,43 @@ class PackedGenotypes:
             _bytes_to_words(np.asarray(packed)),
             np.asarray(mu, np.float32), np.asarray(inv_sd, np.float32),
             n=n, p=p, has_missing=has_missing, device=device, dtype=dtype)
+
+    @classmethod
+    def from_bed_bytes(cls, bed: np.ndarray, n: int, p: int, *, device=None,
+                       dtype=torch.float32) -> "PackedGenotypes":
+        """Build from a raw PLINK ``.bed`` SNP-major payload (no 3-byte
+        header) on ``device`` (default the card): sample ``i`` of SNP ``j``
+        sits in crumb ``i % 4`` of byte ``j * ceil(n/4) + i // 4``.
+
+        The payload goes up in chunks of ``_CHUNK_P`` SNPs, each repacked
+        there into its quad words beside its genotype counts, so the device
+        holds the words and one chunk.  The counts come back as int64 and
+        give mu, 1/sd and maf in float64 on the host (``_stats_from_counts``,
+        as the JAX package computes them), cast to ``dtype`` after."""
+        device = resolve_device(device)
+        bpr = -(-n // 4)
+        bed = np.asarray(bed, np.uint8).reshape(p, bpr)
+        n4 = _ceil_to(bpr, _LANE)
+        words = torch.zeros((-(-p // 4), n4), dtype=torch.int32,
+                            device=device)
+        counts = torch.zeros((3, p), dtype=torch.int64, device=device)
+        for lo in range(0, p, _CHUNK_P):
+            hi = min(lo + _CHUNK_P, p)
+            chunk = bed[lo:hi]
+            if not chunk.flags.writeable:          # e.g. np.frombuffer's
+                chunk = chunk.copy()
+            w, c = _repack_bed_rows(torch.from_numpy(chunk).to(device), n,
+                                    n4)
+            words[lo // 4:lo // 4 + w.shape[0]] = w
+            counts[:, lo:hi] = c
+        n_het, n_alt, n_mis = counts.cpu().numpy()
+        mu, inv_sd, maf_ = _stats_from_counts(n - n_mis, n_het, n_alt)
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        return cls(words=words,
+                   mu=torch.from_numpy(mu.astype(np_dtype)).to(device),
+                   inv_sd=torch.from_numpy(inv_sd.astype(np_dtype)).to(device),
+                   n=int(n), p=int(p), has_missing=bool(n_mis.sum() > 0),
+                   maf_=maf_, n_missing=n_mis)
 
     def with_dual_layout(self) -> "PackedGenotypes":
         """Attach the transposed per-SNP word view (score-only layout, on the
@@ -248,3 +347,99 @@ def maf(x: PackedGenotypes) -> np.ndarray:
         return np.asarray(x.maf_)
     af = x.mu.cpu().numpy() / 2.0
     return np.minimum(af, 1.0 - af)
+
+
+def bed_payload_of_codes(codes: np.ndarray) -> np.ndarray:
+    """SNP-major (p, n) uint8 codes -> their ``.bed`` rows (p, ceil(n/4))
+    uint8 on the host (the JAX package's numpy packer)."""
+    p, n = codes.shape
+    bpr = -(-n // 4)
+    c = codes.astype(np.uint8)
+    if 4 * bpr != n:
+        c = np.concatenate([c, np.zeros((p, 4 * bpr - n), np.uint8)], axis=1)
+    c = c.reshape(p, bpr, 4)
+    shifts = np.arange(4, dtype=np.uint8) * 2
+    return np.bitwise_or.reduce((c << shifts[None, None, :]).astype(np.uint8),
+                                axis=2)
+
+
+def naive_impute(x: PackedGenotypes, destination: str | None = None):
+    """Impute missing genotypes with the per-SNP mode (reference
+    src/utilities.jl:862-899), on the host in chunks of ``_CHUNK_P`` SNPs,
+    so no (n, p) code matrix is built.  Returns new genotypes on x's
+    device; with ``destination``, also writes them as a PLINK ``.bed``."""
+    n, p = x.n, x.p
+    bed = np.empty((p, -(-n // 4)), np.uint8)
+    for lo in range(0, p, _CHUNK_P):
+        hi = min(lo + _CHUNK_P, p)
+        words = x.words[lo // 4:-(-hi // 4)].cpu().numpy()
+        codes = unpack_codes(_words_to_bytes(words, hi - lo), n)  # (c, n)
+        n0 = (codes == 0).sum(axis=1)
+        n1 = (codes == 2).sum(axis=1)
+        n2 = (codes == 3).sum(axis=1)
+        # the mode's code, ties resolved as the reference's if/elseif chain
+        most = np.maximum(np.maximum(n0, n1), n2)
+        fill = np.where(most == n1, 2, np.where(most == n2, 3, 0))
+        out = np.where(codes == 1, fill[:, None].astype(np.uint8), codes)
+        bed[lo:hi] = bed_payload_of_codes(out)
+    if destination:
+        from .plink import write_bed_payload
+        write_bed_payload(destination, bed)
+    return PackedGenotypes.from_bed_bytes(bed, n, p, device=x.device,
+                                          dtype=x.dtype)
+
+
+def grm(x: PackedGenotypes, method: str = "GRM", chunk: int = 4096,
+        device: bool | None = None) -> np.ndarray:
+    """Genetic relationship matrix Z Z' / p of the standardized,
+    mean-imputed genotypes, (n, n) float64 (reference role: SnpArrays.grm,
+    used at test/wrapper_test.jl:123), blocked over ``chunk`` SNPs so the
+    dense (n, p) matrix is never built.
+
+    ``device`` None runs on the genotypes' device: on a card, each chunk's
+    standardized columns come from ``PackedOp.gather_cols`` and one f32
+    product ``Z' Z`` adds them into an (n, n) f32 accumulator there; on the
+    CPU, the float64 host loop (the JAX package's ``device=False``).
+    ``device`` True or False picks one of the two wherever the genotypes
+    are."""
+    if method not in ("GRM", "grm"):
+        raise ValueError(f"unsupported GRM method {method}")
+    if device is None:
+        device = x.device.type != "cpu"
+    if device:
+        return _grm_device(x, chunk)
+    n, p = x.n, x.p
+    words = x.words.cpu().numpy()
+    mu = x.mu.cpu().double().numpy()
+    inv = x.inv_sd.cpu().double().numpy()
+    inv = np.where(inv == 0, 1.0, inv)
+    G = np.zeros((n, n))
+    chunk = _ceil_to(chunk, 4)          # quad-word rows hold 4 SNPs each
+    for lo in range(0, p, chunk):
+        hi = min(lo + chunk, p)
+        codes = unpack_codes(
+            _words_to_bytes(words[lo // 4:-(-hi // 4)], hi - lo), n)  # (c, n)
+        vals = codes_to_values(codes)                            # NaN missing
+        m = mu[lo:hi][:, None]
+        Z = (np.where(np.isnan(vals), m, vals) - m) * inv[lo:hi][:, None]
+        G += Z.T @ Z
+    return G / p
+
+
+def _grm_device(x: PackedGenotypes, chunk: int) -> np.ndarray:
+    """The blocked GRM on the genotypes' device: per chunk one
+    ``gather_cols`` and one ``Z' Z`` into the resident accumulator, in the
+    genotypes' dtype (f32: full f32 products whatever the caller set for
+    TF32), one fetch."""
+    from ..ops.linalg import PackedOp, full_f32
+    op = PackedOp(x)
+    n, p = x.n, x.p
+    G = torch.zeros((n, n), dtype=x.dtype, device=x.device)
+    chunk = max(8, int(chunk))
+    with full_f32():
+        for lo in range(0, p, chunk):
+            idx = torch.arange(lo, min(lo + chunk, p), device=x.device)
+            Z = op.gather_cols(idx[None], torch.ones(
+                (1, len(idx)), dtype=x.dtype, device=x.device))[0, :, :n]
+            G.addmm_(Z.T, Z)
+    return G.cpu().double().numpy() / p

@@ -77,8 +77,8 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     vector of fold-size-weighted holdout deviances per k (reference
     src/cross_validation.jl:60-131).
 
-    ``x`` is a PackedGenotypes (or a PackedOp); the solve runs on its
-    device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
+    ``x`` is a PackedGenotypes (or a PackedOp) or a dense matrix, as in
+    :func:`fit_iht`; the solve runs on its device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
     Generator).  Every family and link of :func:`fit_iht` runs, with
     ``est_r``, ``group`` (one group kept, each path k a per-group cap, as
     in the JAX package), ``weight``, ``zkeep``, ``debias`` and

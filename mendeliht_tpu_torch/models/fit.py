@@ -177,7 +177,8 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
     """Fit one IHT model at sparsity k (reference src/fit.jl:60-118).
 
     ``x`` is a PackedGenotypes (standardization and mean imputation applied
-    on the fly); the fit runs on its device.  y (n,) and z (n, q) or None
+    on the fly) or a dense (n, p) matrix used as it is (a tensor, on its
+    device, or a numpy array, on the card); the fit runs on its device.  y (n,) and z (n, q) or None
     (intercept only) are host arrays.  ``d`` is any family of the JAX
     package (default Normal) and ``l`` any link (default the family's
     canonical one); ``est_r`` ("mm" or "newton") re-estimates the negative

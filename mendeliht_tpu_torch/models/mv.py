@@ -531,7 +531,8 @@ def fit_mv_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
     """Multivariate IHT fit (reference fit_iht with MvNormal,
     src/fit.jl:60), on the device of the genotypes.
 
-    y (r, n) trait-major; x a PackedGenotypes (or a PackedOp); z (q, n)
+    y (r, n) trait-major; x a PackedGenotypes (or a PackedOp) or a dense
+    matrix (``fit.fit_iht``); z (q, n)
     with samples as columns, or None (intercept only).  ``d`` and ``l`` are
     taken and ignored (the model is MvNormal with the identity link), and
     so are ``checkpoint_dir`` / ``checkpoint_every``, as in the JAX

@@ -24,7 +24,7 @@ def pve_from_model(y, X, beta, l=None):
     """Public ``pve(y, X, beta; l)`` (reference src/pve.jl:12-20):
     Var(g^-1(X beta)) / Var(y) with the n-1 divisor, on the host in
     float64.  X is a PackedGenotypes (standardized and mean-imputed here)
-    or a dense (n, p) array; y (n,) gives a float, y (n, r) a list of r."""
+    or a dense (n, p) array or tensor; y (n,) gives a float, y (n, r) a list of r."""
     import numpy as np
     import torch
 
@@ -32,8 +32,12 @@ def pve_from_model(y, X, beta, l=None):
     from ..ops import glm
 
     link = glm.link_name(l) if l is not None else "identity"
-    Xd = (X.to_dense_standardized() if isinstance(X, PackedGenotypes)
-          else np.asarray(X))
+    if isinstance(X, PackedGenotypes):
+        Xd = X.to_dense_standardized()
+    elif isinstance(X, torch.Tensor):
+        Xd = X.cpu().double().numpy()
+    else:
+        Xd = np.asarray(X)
     y = np.asarray(y)
     mu = glm.linkinv(link, torch.from_numpy(
         np.asarray(Xd @ np.asarray(beta)))).numpy()

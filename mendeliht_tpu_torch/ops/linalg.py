@@ -9,17 +9,25 @@ xt_dots_words`` (kernel 1), as the JAX package picks its Pallas kernels on
 a TPU; on the CPU, whatever the layout, to the f32 function
 ``ops.decode.xt_dots``, as the JAX package runs its oracle
 ``decode.xt_dots`` off the TPU.
+
+``DenseOp`` holds a dense (n, p) f32 design matrix (a VCF or BGEN file's
+standardized dosages, or a caller's matrix) and computes the same products
+with ``torch.matmul`` / ``einsum`` in full f32, as the JAX package's
+``DenseOp`` does at ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from . import decode, kernels
 from ..genotype.snparray import PackedGenotypes
+from ..utils.device import resolve_device
 
 # the JAX package's values and overrides: the widest RHS routed to the
 # transposed layout when it is stored, and the packed-bytes budget under
@@ -163,15 +171,107 @@ class PackedOp:
         return Sx, Sxx, Sxy
 
 
-def make_operator(x):
-    """Wrap a design matrix in its operator (packed genotypes only, so far).
+@contextlib.contextmanager
+def full_f32():
+    """f32 matrix products in full f32 inside, whatever the caller set
+    (``torch.set_float32_matmul_precision("high")`` or ``allow_tf32`` lets
+    cuBLAS round the operands to TF32, and oneDNN may do the like on a
+    CPU); the caller's settings are restored after."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    old = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, o in zip(backends, old):
+            b.fp32_precision = o
 
-    A PackedOp is returned as it is: that is how a caller runs the quad-word
-    kernel on genotypes without ``words_t``.  Genotypes on a CUDA device get
-    the transposed dual layout, in place, where their packed words fit
-    ``MENDELIHT_DUAL_MAX_BYTES`` (default ``_DUAL_MAX_BYTES``), as the JAX
-    package stores it on a TPU; CPU genotypes never get it here."""
-    if isinstance(x, PackedOp):
+
+# bytes of gathered (tasks, S, n) columns a forward product makes at a
+# time: a multivariate cv chunk at k = 1,000 gathers 15 x 1,001 x n
+_GATHER_BYTES = 1 << 30
+
+
+@dataclasses.dataclass
+class DenseOp:
+    """A dense (n, p) f32 design matrix, used as it is (the caller
+    standardizes), on its own device; ``n_pad = n``."""
+    x: torch.Tensor
+
+    @property
+    def n(self):
+        return self.x.shape[0]
+
+    @property
+    def p(self):
+        return self.x.shape[1]
+
+    @property
+    def n_pad(self):
+        return self.x.shape[0]
+
+    @property
+    def dtype(self):
+        return self.x.dtype
+
+    @property
+    def device(self):
+        return self.x.device
+
+    def _by_tasks(self, idx, fn):
+        """``fn(cols, lo, hi)`` over the tasks of idx (B, S) in chunks whose
+        gathered columns ``x[:, idx[lo:hi]]`` (hi - lo, S, n) hold at most
+        ``_GATHER_BYTES``; the results joined on the task axis."""
+        B, S = idx.shape
+        step = max(1, _GATHER_BYTES // max(1, S * self.n
+                                           * self.x.element_size()))
+        xt = self.x.T
+        outs = [fn(xt[idx[lo:lo + step]], lo, lo + step)
+                for lo in range(0, B, step)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def xtr(self, R: torch.Tensor) -> torch.Tensor:
+        """X' R for R (B, n) -> (B, p)."""
+        with full_f32():
+            return R @ self.x
+
+    def forward_sel(self, idx, coef, valid):
+        """X[:, idx] @ coef -> (B, n); idx, coef, valid (B, S)."""
+        w = coef * valid
+        with full_f32():
+            return self._by_tasks(idx, lambda cols, lo, hi: torch.einsum(
+                "bjn,bj->bn", cols, w[lo:hi]))
+
+    def forward_sel_multi(self, idx, coef, valid):
+        """idx (B, S), coef (B, R, S), valid (B, S) -> (B, R, n)."""
+        w = coef * valid[:, None, :]
+        with full_f32():
+            return self._by_tasks(idx, lambda cols, lo, hi: torch.einsum(
+                "bsn,brs->brn", cols, w[lo:hi]))
+
+    def gather_cols(self, idx, valid):
+        """Columns X[:, idx] -> (B, S, n), invalid slots zeroed."""
+        return self.x.T[idx] * valid[:, :, None]
+
+    def col_moments(self, W, WY):
+        """W and WY (B, n) -> Sx = W X, Sxx = W X², Sxy = WY X, each (B, p)."""
+        with full_f32():
+            return W @ self.x, W @ (self.x * self.x), WY @ self.x
+
+
+def make_operator(x):
+    """Wrap a design matrix in its operator.
+
+    A PackedOp or DenseOp is returned as it is: that is how a caller runs
+    the quad-word kernel on genotypes without ``words_t``.  Genotypes on a
+    CUDA device get the transposed dual layout, in place, where their packed
+    words fit ``MENDELIHT_DUAL_MAX_BYTES`` (default ``_DUAL_MAX_BYTES``), as
+    the JAX package stores it on a TPU; CPU genotypes never get it here.  A
+    dense matrix becomes a DenseOp in f32: a torch tensor on its own device,
+    a numpy array on the card (a caller who wants the CPU passes a CPU
+    tensor)."""
+    if isinstance(x, (PackedOp, DenseOp)):
         return x
     if isinstance(x, PackedGenotypes):
         if (x.device.type == "cuda" and x.words_t is None
@@ -179,6 +279,11 @@ def make_operator(x):
                     "MENDELIHT_DUAL_MAX_BYTES", _DUAL_MAX_BYTES)):
             x.with_dual_layout()
         return PackedOp(x)
+    if isinstance(x, torch.Tensor):
+        return DenseOp(x.to(torch.float32))
+    if isinstance(x, np.ndarray):
+        return DenseOp(torch.as_tensor(x, dtype=torch.float32,
+                                       device=resolve_device()))
     raise NotImplementedError(
         f"design matrix type {type(x).__name__} is not ported yet: "
-        "ROADMAP Queue 1 item 4 (DenseOp) / item 13 (streamed genotypes)")
+        "ROADMAP Queue 1 item 13 (streamed genotypes)")

@@ -1,12 +1,15 @@
-"""Simulated genotypes and responses at benchmark scale, generated on the
-host.
+"""Simulation utilities (reference src/simulate_utilities.jl), generated on
+the host from a numpy ``rng``.
 
-At 10k x 1M the dense code matrix would take 10 GB, so genotypes are drawn
-directly as packed bytes, chunk by chunk, and written straight into the
-quad-word storage.  For the same ``rng`` the bytes, stats and causal
-effects are those of the JAX package's benchmark generator
-(``bench.py::_gen_problem``).  GLM responses over packed genotypes decode
-only the causal SNPs (:func:`simulate_random_response`).
+The JAX package's simulators draw the same numbers in the same order here
+(``utils/simulate.py`` there) and return genotypes on the device asked for
+(default the card), optionally also written as a PLINK ``.bed``.  At
+benchmark scale, 10k x 1M, the dense code matrix would take 10 GB, so
+:func:`simulate_packed_problem` draws packed bytes, chunk by chunk, straight
+into the quad-word storage: for the same ``rng`` the bytes, stats and causal
+effects of the JAX package's benchmark generator (``bench.py::_gen_problem``).
+GLM responses over packed genotypes decode only the causal SNPs
+(:func:`simulate_random_response`).
 """
 
 from __future__ import annotations
@@ -14,10 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..genotype.plink import write_plink_bed
 from ..genotype.snparray import (PackedGenotypes, _LANE, _ceil_to,
                                  _stats_from_counts, codes_to_values,
                                  unpack_codes)
 from ..ops import glm
+from .device import resolve_device
 
 _CHUNK = 8192          # SNP rows per generated chunk (a multiple of 4)
 
@@ -85,7 +90,11 @@ def _standardized_columns(x, idx) -> np.ndarray:
     """(n, len(idx)) float64 standardized, mean-imputed columns ``idx`` of
     x: for packed genotypes, decoded from the quad words of those SNPs
     alone (as ``to_dense_standardized`` decodes every column); else the
-    columns of the dense matrix x, used verbatim."""
+    columns of the dense matrix x (numpy, or a tensor on any device), used
+    verbatim."""
+    if isinstance(x, torch.Tensor):
+        on = torch.as_tensor(idx, device=x.device)
+        return x[:, on].cpu().double().numpy()
     if not isinstance(x, PackedGenotypes):
         return np.asarray(x, np.float64)[:, idx]
     on = torch.as_tensor(idx, device=x.device)
@@ -118,7 +127,7 @@ def simulate_random_response(x, k: int, d=None, l=None, r=10, alpha=1,
 
     ``x`` is a PackedGenotypes (on any device; only the k causal columns
     are decoded, on the host, so 10k x 1M costs what 10 columns do) or a
-    dense (n, p) matrix.  Families: normal, bernoulli, poisson,
+    dense (n, p) matrix (numpy, or a tensor on any device).  Families: normal, bernoulli, poisson,
     negativebinomial (``r``), gamma (``alpha``; log link), inversegaussian;
     ``Zu`` (n,) is added to the linear predictor."""
     rng = np.random.default_rng() if rng is None else rng
@@ -226,3 +235,139 @@ def simulate_random_multivariate_response(x, k: int, traits: int, Zu=None,
     L = np.linalg.cholesky(Sigma)
     Y = mu + rng.standard_normal((n, traits)) @ L.T
     return Y, Sigma, true_b, correct_position
+
+
+def _values_to_codes(vals: np.ndarray) -> np.ndarray:
+    """{0,1,2} additive values -> PLINK codes {0,2,3} (no missing)."""
+    codes = np.zeros(vals.shape, np.uint8)
+    codes[vals == 1] = 2
+    codes[vals == 2] = 3
+    return codes
+
+
+def _finish(s, codes: np.ndarray, device) -> PackedGenotypes:
+    """(n, p) codes -> PackedGenotypes on ``device`` (default the card),
+    written first to the ``.bed`` path ``s`` where it is a string."""
+    device = resolve_device(device)
+    if isinstance(s, str):
+        write_plink_bed(s, codes)
+    return PackedGenotypes.from_codes(codes, device=device)
+
+
+def simulate_random_snparray(s, n: int, p: int, mafs=None, min_ma: int = 5,
+                             rng=None, device=None):
+    """Random genotypes: SNP j ~ Binomial(2, maf_j), maf ~ U(0, 0.5) unless
+    given; re-draws until each SNP has > min_ma minor alleles (reference
+    src/simulate_utilities.jl:23-80; the JAX package's draws).
+
+    ``s``: output .bed path or None.  Returns (PackedGenotypes on
+    ``device``, default the card; mafs)."""
+    rng = np.random.default_rng() if rng is None else rng
+    fixed_mafs = mafs is not None and np.any(np.asarray(mafs) != 0)
+    if fixed_mafs:
+        mafs = np.asarray(mafs, np.float64)
+        if not np.all((0.0 <= mafs) & (mafs <= 0.5)):
+            raise ValueError("Minor allele frequencies not in (0, 0.5)")
+    out_mafs = np.zeros(p)
+    vals = np.zeros((n, p), np.uint8)
+    todo = np.arange(p)
+    maf_cur = mafs.copy() if fixed_mafs else rng.uniform(0, 0.5, size=p)
+    for _ in range(10000):
+        if todo.size == 0:
+            break
+        draw = (rng.random((n, todo.size)) < maf_cur[todo]).astype(np.uint8) \
+            + (rng.random((n, todo.size)) < maf_cur[todo]).astype(np.uint8)
+        vals[:, todo] = draw
+        ok = draw.sum(axis=0) > min_ma
+        out_mafs[todo[ok]] = maf_cur[todo[ok]]
+        todo = todo[~ok]
+        if not fixed_mafs:
+            maf_cur[todo] = rng.uniform(0, 0.5, size=todo.size)
+    if todo.size:
+        raise RuntimeError("could not satisfy min_ma for some SNPs")
+    return _finish(s, _values_to_codes(vals), device), out_mafs
+
+
+def simulate_correlated_snparray(s, n: int, p: int, block_length: int = 20,
+                                 hap: int = 20, prob: float = 0.75, rng=None,
+                                 device=None):
+    """LD-block haplotype model (reference src/simulate_utilities.jl:119-186;
+    the JAX package's draws): SNPs in blocks of `block_length`; within a
+    block each sample draws 2 of `hap` haplotypes; adjacent haplotype
+    alleles repeat w.p. `prob`.  Returns PackedGenotypes on ``device``
+    (default the card)."""
+    rng = np.random.default_rng() if rng is None else rng
+    if p % block_length != 0:
+        raise ValueError(f"block_length ({block_length}) does not divide p ({p})")
+    if not (0 < prob < 1):
+        raise ValueError(f"transition probability must be in (0,1), got {prob}")
+    blocks = p // block_length
+    vals = np.zeros((n, p), np.uint8)
+    for b in range(blocks):
+        # pool of haplotypes: first allele ~ Bernoulli(1/2), then sticky walk
+        while True:
+            h = np.zeros((hap, block_length), np.uint8)
+            h[:, 0] = rng.integers(0, 2, size=hap)
+            for j in range(1, block_length):
+                stay = rng.random(hap) < prob
+                h[:, j] = np.where(stay, h[:, j - 1], 1 - h[:, j - 1])
+            if np.all(h.sum(axis=1) > 0):
+                break
+        r1 = rng.integers(0, hap, size=n)
+        r2 = rng.integers(0, hap, size=n)
+        vals[:, b * block_length:(b + 1) * block_length] = h[r1] + h[r2]
+    return _finish(s, _values_to_codes(vals), device)
+
+
+def adhoc_add_correlation(codes: np.ndarray, rho: float, pos: int, location,
+                          rng=None):
+    """Copy SNP `pos` into SNPs in `location` with probability rho per sample
+    (reference src/simulate_utilities.jl:339-348). Operates on an (n, p) code
+    matrix in place; 0-based indices."""
+    rng = np.random.default_rng() if rng is None else rng
+    if not (0 <= rho <= 1):
+        raise ValueError(f"correlation coefficient must be in (0, 1), got {rho}")
+    n = codes.shape[0]
+    for loc in np.atleast_1d(location):
+        mask = rng.random(n) < rho
+        codes[mask, loc] = codes[mask, pos]
+    return codes
+
+
+def make_snparray(s, values, device=None) -> PackedGenotypes:
+    """Pack an additive-value matrix {0,1,2} (np.nan = missing) into
+    PackedGenotypes on ``device`` (default the card), optionally writing a
+    PLINK .bed at path `s` (reference export `make_snparray`,
+    src/MendelIHT.jl:31, backed by _make_snparray
+    src/simulate_utilities.jl:85-101)."""
+    vals = np.asarray(values)
+    if np.issubdtype(vals.dtype, np.floating):
+        miss = np.isnan(vals)
+        codes = _values_to_codes(np.where(miss, 0, vals).astype(np.uint8))
+        codes[miss] = 1
+    else:
+        codes = _values_to_codes(vals.astype(np.uint8))
+    return _finish(s, codes, device)
+
+
+def make_bim_fam_files(x, y, name: str):
+    """Write `.bim`/`.fam` companions for a simulated .bed (reference
+    src/simulate_utilities.jl:360-383): y (n,) or (n, traits) in .fam
+    columns 6 onward, each value as ``str`` writes it (a float64 or float32
+    reads back as the same number)."""
+    n, p = x.shape
+    y = np.asarray(y)
+    if y.shape[0] != n:
+        raise ValueError(f"phenotype has length {y.shape[0]} but genotypes "
+                         f"have {n} samples")
+    with open(name + ".bim", "w") as f:
+        f.writelines(f"1\tsnp{i}\t0\t{100 * i}\t1\t2\n"
+                     for i in range(1, p + 1))
+    traits = 1 if y.ndim == 1 else y.shape[1]
+    ymat = y.reshape(n, traits)
+    with open(name + ".fam", "w") as f:
+        for i in range(1, n + 1):
+            f.write(f"{i}\t1\t0\t0\t1")
+            for j in range(traits):
+                f.write(f"\t{ymat[i - 1, j]}")
+            f.write("\n")

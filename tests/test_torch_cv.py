@@ -292,8 +292,13 @@ def test_make_operator_builds_no_dual_layout_on_cpu():
     op = tlinalg.make_operator(t)
     assert op.geno is t and t.words_t is None
     assert tlinalg.make_operator(op) is op          # an operator passes
+    # a dense matrix raised NotImplementedError before DenseOp was ported:
+    # now a DenseOp on the device asked for; another type still raises
+    dense = tlinalg.make_operator(torch.zeros((4, 4), dtype=torch.float64))
+    assert isinstance(dense, tlinalg.DenseOp) and dense.n_pad == 4
+    assert dense.dtype == torch.float32 and dense.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlinalg.make_operator(np.zeros((4, 4)))
+        tlinalg.make_operator(object())
 
 
 # ---------------------------------------------------------------------------

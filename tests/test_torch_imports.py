@@ -13,6 +13,8 @@
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +48,8 @@ def test_package_has_modules():
             "models/fit.py", "models/cv.py", "models/mv.py", "compat.py",
             "utils/profiling.py",
             "utils/simulate.py",
+            "genotype/plink.py", "genotype/vcf.py", "genotype/bgen.py",
+            "utils/wrapper.py", "utils/standardize.py", "utils/device.py",
             "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
     for src in ("xt_dots_t.cu", "read_probe.cu", "int_probe.cu",
                 "kernel_probe.cu", "i8_mma.cuh"):
@@ -57,6 +61,22 @@ def test_package_has_modules():
 def test_module_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_module_leaves_jax_out():
+    """A fresh interpreter that imports the package and every module of it
+    has no jax in ``sys.modules`` (the scan above reads the imports; this
+    runs them, transitive ones included)."""
+    mods = [".".join(("mendeliht_tpu_torch",) + p.relative_to(PKG).with_suffix(
+        "").parts).removesuffix(".__init__") for p in MODULES]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(len(sys.modules), bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def _case(seed, n=130, p=37, m=3):
@@ -594,3 +614,86 @@ def test_mv_cv_on_card_matches_cpu(cuda_device):
     b = mendeliht_tpu_torch.cv_iht(Y, cpu, **kw)
     np.testing.assert_allclose(a, b, rtol=1e-4)
     assert int(np.argmin(a)) == int(np.argmin(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1999, 2000, 2001, 2002])
+def test_bed_repack_on_card_matches_cpu(cuda_device, n):
+    """``from_bed_bytes`` on the card: the CPU's words bit for bit and its
+    stats exactly, n % 4 in {0, 1, 2, 3}, missing calls, p % 4 == 3, two
+    chunks; the card's ``.bed`` rows (``bed_rows``) give the payload back."""
+    from mendeliht_tpu_torch.genotype import snparray
+    p = 4099
+    rng = np.random.default_rng(n)
+    codes = rng.choice(np.arange(4, dtype=np.uint8), size=(p, n),
+                       p=[0.4, 0.1, 0.3, 0.2])
+    bed = snparray.bed_payload_of_codes(codes)
+    cpu = snparray.PackedGenotypes.from_bed_bytes(bed, n, p, device="cpu")
+    chunk = snparray._CHUNK_P
+    try:
+        snparray._CHUNK_P = 2048
+        card = snparray.PackedGenotypes.from_bed_bytes(bed, n, p,
+                                                       device=cuda_device)
+    finally:
+        snparray._CHUNK_P = chunk
+    assert card.words.device.type == "cuda"
+    assert torch.equal(card.words.cpu(), cpu.words)
+    assert torch.equal(card.mu.cpu(), cpu.mu)
+    assert torch.equal(card.inv_sd.cpu(), cpu.inv_sd)
+    assert np.array_equal(card.n_missing, cpu.n_missing)
+    rows = snparray.bed_rows(card.words, n, p)
+    assert rows.device.type == "cuda"
+    assert np.array_equal(rows.cpu().numpy(), bed)
+
+
+@pytest.mark.cuda
+def test_dense_op_full_f32_with_tf32_switched_on(cuda_device):
+    """With TF32 switched on by the caller, DenseOp's products are the f32
+    products it gives with TF32 off, bit for bit, and within 1e-5 of
+    float64; a plain ``R @ X`` under the same switch is not (it shows the
+    switch took)."""
+    from mendeliht_tpu_torch.ops.linalg import DenseOp
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    X = torch.randn((2000, 3000), generator=gen, device=cuda_device)
+    R = torch.randn((8, 2000), generator=gen, device=cuda_device)
+    W = (torch.rand((2, 2000), generator=gen, device=cuda_device) < 0.8).float()
+    op = DenseOp(X)
+    ref = (R.double() @ X.double())
+    try:
+        torch.set_float32_matmul_precision("highest")
+        off = op.xtr(R)
+        off_m = op.col_moments(W, W * 2.0)
+        torch.set_float32_matmul_precision("high")
+        on = op.xtr(R)
+        on_m = op.col_moments(W, W * 2.0)
+        raw = R @ X
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert torch.equal(on, off)
+    for a, b in zip(on_m, off_m):
+        assert torch.equal(a, b)
+    scale = ref.abs().max()
+    assert (on.double() - ref).abs().max() <= 1e-5 * scale
+    assert (raw.double() - ref).abs().max() > 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_grm_and_dense_fit_on_card_match_cpu(cuda_device):
+    """grm on the card within 1e-4 relative of the CPU's float64 loop; a
+    dense fit on the card selects what it selects on the CPU."""
+    from mendeliht_tpu_torch.genotype.snparray import PackedGenotypes
+    rng = np.random.default_rng(8)
+    codes = rng.choice(np.arange(4, dtype=np.uint8), size=(500, 1200),
+                       p=[0.4, 0.1, 0.3, 0.2])
+    card = PackedGenotypes.from_codes(codes, device=cuda_device)
+    cpu = PackedGenotypes.from_codes(codes, device="cpu")
+    want = mendeliht_tpu_torch.grm(cpu)
+    got = mendeliht_tpu_torch.grm(card, chunk=500)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    X = cpu.to_dense_standardized()
+    y = X[:, [3, 70, 400]] @ np.array([1.0, -1.0, 0.5]) + rng.standard_normal(500)
+    a = mendeliht_tpu_torch.fit_iht(y, X, k=3, verbose=False)   # the card
+    b = mendeliht_tpu_torch.fit_iht(y, torch.from_numpy(X), k=3,
+                                    verbose=False)
+    assert set(np.flatnonzero(a.beta)) == set(np.flatnonzero(b.beta))
+    assert abs(a.iter - b.iter) <= 1

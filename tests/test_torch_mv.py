@@ -534,8 +534,15 @@ def test_unported_inputs_raise(geno, sims, tmp_path):
     with pytest.raises(NotImplementedError, match="item 12 \\(checkpointing"):
         mt.cv_iht(Y, t, path=[1], q=2, checkpoint_dir=str(tmp_path),
                   verbose=False)
-    with pytest.raises(NotImplementedError, match="item 4 \\(DenseOp"):
-        mt.fit_iht(Y, g.to_dense_standardized(), k=2, verbose=False)
+    # a dense x raised NotImplementedError before DenseOp was ported: now
+    # the JAX package's multivariate fit on the same matrix
+    X = g.to_dense_standardized()
+    a = mt.fit_iht(Y, torch.from_numpy(X), k=3, verbose=False)
+    b = m.fit_iht(Y, X, k=3, verbose=False)
+    assert _entries(a.beta) == _entries(b.beta)
+    assert abs(a.iter - b.iter) <= 1
+    for got, want in ((a.beta, b.beta), (a.Sigma, b.Sigma)):
+        _close(got, want, tol=MV_SPREAD)
     with pytest.raises(NotImplementedError, match="item 13"):
         mt.cv_iht(Y, object(), path=[1], q=2, verbose=False)
     for fn in (mt.fit_iht, mt.cv_iht):
