@@ -167,7 +167,8 @@ result line):
               ``.fam`` with the mv phase's three traits; ``read_plink`` on
               the card, its words and mu / inv_sd bit-equal to the
               genotypes', its wall split into the file read, the upload and
-              the repack; ``iht(prefix, 10, Normal)`` bit-equal to
+              the repack; ``HostStreamedGenotypes.from_plink`` of the trio,
+              its host words and stats bit-equal to ``read_plink``'s; ``iht(prefix, 10, Normal)`` bit-equal to
               ``fit_iht`` in memory (beta, c, logl, iterations; kernel-2
               launches; a beta file of p rows); ``cross_validate`` (path
               1:20, q=5, the cv phase's folds) bit-equal to the cv phase's
@@ -189,6 +190,30 @@ result line):
               q=5), cold then DENSE_WARM warm runs (identical; causal
               recovery against the packed fit's; best k 10; peak memory),
               and a ``profiling.trace`` of a warm fit and a warm cv
+    hostlink  the host-to-device rate of a 1 GiB block, pageable and
+              page-locked in place (``cudaHostRegister``), in turns
+    stream    out of core (``HostStreamedGenotypes``) on the same 10k x 1M
+              genotypes, their words in host memory, nothing resident,
+              blocks of 256 MiB (10 a pass): the streamed ``xtr`` at m = 1
+              and 100 and ``col_moments`` (with S) torch.equal to kernel 1
+              on the resident words, the pass timed against the link
+              bound (the streamed bytes over the measured registered rate
+              and over the data sheet's); a ``profiling.trace`` of a pass
+              (copies, kernel 1, idle share); the k = 10 fit, the cv (path
+              1:20, q = 5, the cv phase's folds) and the 3-trait mv fit
+              (k = 12, init_beta) equal to the quad-word runs bit for bit,
+              with kernel-1 launches, block copies and index fetches; a cv
+              checkpointed every 5 iterations, killed by max_iter = 8 and
+              resumed, equal to the plain cv bit for bit, each ~1.6 GB save
+              timed
+    hybrid    the JAX package's out-of-core size: 80,000 x 1M (8 copies of
+              the 10k samples, 20.48 GB packed; mu and 1/sd unchanged; y
+              from ``phenotype``) at the default budget (10 GiB resident,
+              1 GiB blocks): the passes at m = 1 and 100 and
+              ``col_moments`` equal to kernel 1 resident and timed, a
+              traced pass split into the prefix's kernel, the copies and
+              the blocks' kernels, and the k = 10 fit equal to the
+              resident quad-word fit bit for bit
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernels 2 and 1 vs plain
               bit for bit and equal to each other, timed at m=100 on them
@@ -218,6 +243,9 @@ fit and the Bernoulli cv, ``options_launches`` from each option's fit and
 the init_beta cv), ``mv_launches`` of kernels 1 and 2 from the mv phase's
 quad-word fit, and its dual fit and cv (their ``*_mv`` fields are the mv
 widths' times), ``io_launches`` of kernel 2 from the io phase's ``iht``,
+``stream_launches`` of kernel 1 from the stream phase's pass, fit, cv and
+mv fit and the hybrid phase's fit (with the ``stream_*`` and ``hybrid_*``
+pass times beside their link bounds),
 ``cross_validate`` and multivariate ``iht``, the
 read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
 ``lab_launches`` of every kernel) and the probe's
@@ -231,6 +259,7 @@ Needs a CUDA device and nvcc; imports nothing of JAX.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -244,9 +273,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from mendeliht_tpu_torch import (Bernoulli, Gamma, InverseGaussian, LogLink,
-                                 LogitLink, MvNormal, NegativeBinomial,
-                                 Normal, PackedGenotypes, Poisson,
+from mendeliht_tpu_torch import (Bernoulli, Gamma, HostStreamedGenotypes,
+                                 InverseGaussian, LogLink, LogitLink,
+                                 MvNormal, NegativeBinomial, Normal,
+                                 PackedGenotypes, Poisson,
                                  cross_validate, cv_iht, fit_iht, grm, iht,
                                  maf_weights, make_bim_fam_files,
                                  parse_genotypes, random_covariance_matrix,
@@ -255,9 +285,10 @@ from mendeliht_tpu_torch.genotype import plink, snparray
 from mendeliht_tpu_torch.models import fit as fit_module, mv, univariate
 from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.ops.linalg import DenseOp, PackedOp
+from mendeliht_tpu_torch.ops.streaming import StreamedPackedOp
 from mendeliht_tpu_torch.tools import kernel_lab5 as lab
 from mendeliht_tpu_torch.tools import kernel_probe as probe
-from mendeliht_tpu_torch.utils import profiling
+from mendeliht_tpu_torch.utils import checkpoint, profiling
 from mendeliht_tpu_torch.utils.simulate import (simulate_packed_problem,
                                                 simulate_random_response)
 
@@ -315,6 +346,17 @@ IO_N = 2_003
 # its fit and cv run on (4 GB of f32 at N samples), and their warm runs
 DENSE_P, DENSE_WARM = 100_000, 2
 N_BIG = 51_200                           # past the budget: 12.8 GB of words
+# out of core: the host link timed on HOSTLINK_BYTES; 10k x 1M streamed in
+# blocks of STREAM_BLOCK (~10 a pass), its checkpointed cv killed by
+# max_iter = STREAM_KILL_AT (checkpoints at 5 and 7) and resumed; the JAX
+# package's out-of-core size (STREAM.json: 80k x 1M) as HYBRID_COPIES
+# copies of the 10k samples at the default 10 GiB resident budget
+HOSTLINK_BYTES = 1 << 30
+STREAM_BLOCK = 256 << 20
+STREAM_CKPT_EVERY, STREAM_KILL_AT = 5, 8
+HYBRID_COPIES = 8
+# data sheet: PCIe Gen5 x16, 64 GB/s a direction
+PCIE_BYTES_PER_S = 64e9
 CV_MAX_ITER = 100                        # cv_iht's default
 FIT_MAX_ITER = 200                       # fit_iht's default
 SEED = 2026
@@ -1013,16 +1055,17 @@ def solver_states(module=univariate, name="run_iht", keep=lambda st: st):
 
 
 def run_cv(x, y, **cv_kw):
-    """cv_iht on its default path (``cv_kw``: its family, link): (mse, wall
+    """cv_iht on its default path (``cv_kw``: its family, link, checkpoint
+    and max_iter options): (mse, wall
     s, the launches of every kernel, counted from 0, the final solver
     state)."""
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
+    kw = dict(path=CV_PATH, q=CV_Q, verbose=False, max_iter=CV_MAX_ITER,
+              rng=np.random.default_rng(SEED))
     with solver_states() as states:
         t0 = time.perf_counter()
-        mse = cv_iht(y, x, path=CV_PATH, q=CV_Q, verbose=False,
-                     max_iter=CV_MAX_ITER, rng=np.random.default_rng(SEED),
-                     **cv_kw)
+        mse = cv_iht(y, x, **dict(kw, **cv_kw))
         wall = time.perf_counter() - t0
     return mse, wall, dict(kernels.LAUNCHES), states[-1]
 
@@ -1722,7 +1765,8 @@ def sync_on(dev):
 def phase_io(g, y, dual_mse, card, dev):
     """The file-level API at 10k x 1M: a PLINK trio written from the card
     words, ``read_plink`` on the card (the words and stats bit-equal to
-    ``g``'s, its wall split), ``iht`` from it against ``fit_iht`` in memory
+    ``g``'s, its wall split), ``HostStreamedGenotypes.from_plink`` of it
+    (bit-equal to ``read_plink``'s), ``iht`` from it against ``fit_iht`` in memory
     (bit-equal), ``cross_validate`` against phase 9's mse (bit-equal),
     the 3-trait ``iht`` with its covariance file against ``fit_iht``; then
     at IO_N x P_PARITY with missing calls the card's read equal to the
@@ -1750,6 +1794,21 @@ def phase_io(g, y, dual_mse, card, dev):
         if not same or snp.snparray.words.device.type != dev.type:
             raise AssertionError("io: read_plink differs from the genotypes "
                                  "it was written from")
+        t0 = time.perf_counter()
+        hs = HostStreamedGenotypes.from_plink(prefix, device=dev)
+        t_hs = time.perf_counter() - t0
+        read = snp.snparray
+        same = (np.array_equal(hs.words, read.words.cpu().numpy())
+                and torch.equal(hs.mu, read.mu)
+                and torch.equal(hs.inv_sd, read.inv_sd)
+                and hs.has_missing == read.has_missing)
+        print(f"[io] HostStreamedGenotypes.from_plink on {card}: {t_hs:.3f} "
+              f"s (the .bed repacked a chunk at a time on the card, the words "
+              f"brought to host memory); host words and mu / inv_sd equal to "
+              f"read_plink's bit for bit {same}", flush=True)
+        if not same:
+            raise AssertionError("io: from_plink differs from read_plink")
+        del hs, read
 
         out = {k: os.path.join(tmp, k) for k in
                ("summary", "beta", "cov", "cvsummary")}
@@ -2460,6 +2519,344 @@ def phase_budget(dev, card):
     return out
 
 
+def wall_ms(fn, reps):
+    """Host ms per call of ``fn`` over ``reps`` calls after one, each run
+    synchronised: for the streamed passes, whose copies run on a side
+    stream."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_hostlink(dev, card):
+    """The host-to-device rate of one HOSTLINK_BYTES block, pageable and
+    page-locked in place (``cudaHostRegister``, as the streamed operator
+    registers its host words), timed in turns (pageable, registered,
+    registered, pageable); returns the registered rate in bytes/s."""
+    host = np.ones(HOSTLINK_BYTES // 4, np.int32)        # pages touched
+    src = torch.from_numpy(host)
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    copy = lambda: dst.copy_(src, non_blocking=True)    # noqa: E731
+    cudart = torch.cuda.cudart()
+    rates = {"pageable": [], "registered": []}
+    for kind in ("pageable", "registered", "registered", "pageable"):
+        if kind == "registered":
+            err = int(cudart.cudaHostRegister(host.ctypes.data, host.nbytes,
+                                              0))
+            if err:
+                raise RuntimeError(f"cudaHostRegister failed: {err}")
+        try:
+            rates[kind].append(HOSTLINK_BYTES / wall_ms(copy, 3) * 1e3)
+        finally:
+            if kind == "registered":
+                cudart.cudaHostUnregister(host.ctypes.data)
+    pageable, pinned = (sum(rates[k]) / 2 for k in ("pageable", "registered"))
+    print(f"[hostlink] host-to-device copy of {HOSTLINK_BYTES >> 20} MiB on "
+          f"{card}: pageable {pageable / 1e9:.2f} GB/s (runs "
+          f"{', '.join(f'{r / 1e9:.2f}' for r in rates['pageable'])}), "
+          f"registered in place {pinned / 1e9:.2f} GB/s (runs "
+          f"{', '.join(f'{r / 1e9:.2f}' for r in rates['registered'])}); "
+          f"data sheet PCIe Gen5 x16 {PCIE_BYTES_PER_S / 1e9:.0f} GB/s",
+          flush=True)
+    if not pinned > 0 or not pageable > 0:
+        raise AssertionError("hostlink: no rate measured")
+    return pinned
+
+
+def stream_of(g, **kw):
+    """HostStreamedGenotypes of g's words (copied to host memory) and their
+    StreamedPackedOp, the registration and the prefix upload timed."""
+    t0 = time.perf_counter()
+    s = HostStreamedGenotypes.from_snparray(g, **kw)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sop = StreamedPackedOp(s)
+    sync()
+    t_op = time.perf_counter() - t0
+    return s, sop, t_host, t_op
+
+
+def streamed_bytes(sop):
+    return sum(-(-hi // 4) - lo // 4 for lo, hi in sop._blocks()) \
+        * sop.geno.words.shape[1] * 4
+
+
+def check_stream_passes(name, sop, quad, gen, link, card, widths=(1, 100)):
+    """The streamed ``xtr`` at each width and ``col_moments`` (m = 2, with
+    S) against kernel 1 on the resident words (``quad``), torch.equal; the
+    pass time against the link bound (the streamed bytes over the measured
+    registered rate, and over the data sheet's); returns {field: value}."""
+    g = quad.geno
+    out = {}
+    per_pass = len(sop._blocks()) + (sop.prefix is not None)
+    link_ms = streamed_bytes(sop) / link * 1e3
+    sheet_ms = streamed_bytes(sop) / PCIE_BYTES_PER_S * 1e3
+    for m in widths:
+        R = rhs_on(g, m, gen).T.contiguous()
+        reset_launches()
+        got = sop.xtr(R)
+        launches = kernels.LAUNCHES["xt_dots_words"]
+        want = quad.xtr(R)
+        sync()
+        if not torch.equal(got, want) or launches != per_pass:
+            raise AssertionError(f"{name}: the streamed pass at m = {m} "
+                                 f"differs from kernel 1 ({launches} "
+                                 f"launches, {per_pass} expected)")
+        ms = wall_ms(lambda: sop.xtr(R), 3)
+        res = cuda_ms(lambda: quad.xtr(R), 3)
+        out.update({f"ms_m{m}": ms, f"resident_ms_m{m}": res})
+        print(f"[{name}] streamed xtr m={m}: equal to kernel 1 on the "
+              f"resident words bit for bit; {launches} kernel-1 launches a "
+              f"pass ({len(sop._blocks())} blocks"
+              f"{' + the prefix' if sop.prefix is not None else ''}); "
+              f"{ms:.3f} ms a pass against the link bound {link_ms:.3f} ms "
+              f"({streamed_bytes(sop) / 1e9:.3f} GB at the measured "
+              f"registered rate; {sheet_ms:.3f} ms at the data sheet's), "
+              f"{link_ms / ms:.3f} of it; resident kernel 1 {res:.3f} ms on "
+              f"{card}", flush=True)
+    W = (rhs_on(g, 1, gen).T > 0).to(torch.float32)
+    WY = W * rhs_on(g, 1, gen).T
+    for a, b in zip(sop.col_moments(W, WY), quad.col_moments(W, WY)):
+        sync()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: streamed col_moments differ")
+    print(f"[{name}] streamed col_moments (m = 2, S): equal to kernel 1's "
+          "bit for bit", flush=True)
+    out.update(link_bound_ms=link_ms, sheet_bound_ms=sheet_ms,
+               bytes=streamed_bytes(sop))
+    return out
+
+
+def trace_pass(name, sop, g, gen, card, m=100):
+    """A ``profiling.trace`` of one streamed pass at width m: its wall,
+    idle share, launches and syncs, the copies' and kernel 1's device ms
+    (the prefix's kernel timed alone by CUDA events), and the heaviest
+    device activities; returns {field: value}."""
+    R = rhs_on(g, m, gen).T.contiguous()
+    sop.xtr(R)
+    with profiling.trace(top=16) as s:
+        sop.xtr(R)
+    copy_ms = sum(ms for n, ms, _ in s["kernels"] if "Memcpy HtoD" in n)
+    kern_ms = sum(ms for n, ms, _ in s["kernels"] if "xt_dots" in n)
+    pre_ms = 0.0
+    if sop.prefix is not None:
+        image = kernels.score_image(R.T, want_missing=g.has_missing)
+        pre_ms = cuda_ms(lambda: kernels.xt_dots_words_image(
+            sop.prefix.words, image, p=sop.p_res), 3)
+    print(f"[{name}] traced streamed pass m={m} on {card}: {trace_text(s)}; "
+          f"copies {copy_ms:.3f} ms of device time, kernel 1 {kern_ms:.3f} "
+          f"ms (the prefix's launch alone {pre_ms:.3f} ms, the blocks' "
+          f"{kern_ms - pre_ms:.3f} ms)", flush=True)
+    for n, ms, count in s["kernels"]:
+        print(f"[{name}]   {ms:9.3f} ms {count:6d}x  {n[:110]}", flush=True)
+    if not (copy_ms > 0 or sop.prefix is not None and not sop._blocks()) \
+            or kern_ms <= 0:
+        raise AssertionError(f"{name}: the trace shows no copy or kernel")
+    return {"trace_wall_ms": s["wall_ms"], "trace_idle_share": s["idle_share"],
+            "trace_copy_ms": copy_ms, "trace_kernel_ms": kern_ms,
+            "trace_prefix_ms": pre_ms, "trace_syncs": s["syncs"],
+            "trace_launches": s["launches"]}
+
+
+def same_fit(a, b):
+    return (np.array_equal(a.beta, b.beta) and np.array_equal(a.c, b.c)
+            and a.logl == b.logl and a.iter == b.iter)
+
+
+def timed_fit(y, x, **kw):
+    """fit_iht with the launches counted from 0: (result, wall s, kernel-1
+    launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    r = fit_iht(y, x, **kw)
+    return r, time.perf_counter() - t0, kernels.LAUNCHES["xt_dots_words"]
+
+
+@contextlib.contextmanager
+def timed_saves():
+    """Records (step, wall s, file bytes) of every checkpoint saved in the
+    body."""
+    saves, save = [], checkpoint.save_state
+
+    def timed(directory, st, step):
+        sync()
+        t0 = time.perf_counter()
+        path = save(directory, st, step)
+        saves.append((step, time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    checkpoint.save_state = timed
+    try:
+        yield saves
+    finally:
+        checkpoint.save_state = save
+
+
+def phase_stream(g, y, dual_mse, card, gen, link):
+    """Out of core at 10k x 1M, every SNP streamed (``resident_bytes=0``,
+    STREAM_BLOCK a block): the passes against kernel 1; the Gaussian fit
+    (k = 10) equal to the quad-word fit bit for bit; the cv (path 1:20,
+    q = 5, the cv phase's folds) equal to the cv phase's mse bit for bit;
+    the 3-trait mv fit equal to the resident one; a checkpointed cv
+    (checkpoint_every = STREAM_CKPT_EVERY) killed by max_iter =
+    STREAM_KILL_AT and resumed, equal to the plain cv, its saves timed;
+    a trace of one pass; returns kernel 1's fields and launches."""
+    t_phase = time.perf_counter()
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    s, sop, t_host, t_op = stream_of(g, block_bytes=STREAM_BLOCK,
+                                     resident_bytes=0)
+    print(f"[stream] {N} x {P} in host memory ({s.words.nbytes / 1e9:.2f} GB"
+          f", copied there in {t_host:.2f} s), {len(sop._blocks())} blocks "
+          f"of {s.block_p} SNPs, nothing resident; operator built (host "
+          f"words registered) in {t_op:.2f} s", flush=True)
+    out = check_stream_passes("stream", sop, quad, gen, link, card)
+    out.update(trace_pass("stream", sop, g, gen, card))
+    launches = {"pass": len(sop._blocks())}
+
+    r0, w0, _ = timed_fit(y, quad, k=K, verbose=False)
+    sop.syncs = sop.copies = 0
+    r1, w1, launches["fit"] = timed_fit(y, sop, k=K, verbose=False)
+    same = same_fit(r0, r1)
+    print(f"[stream] streamed fit k={K}: {w1:.3f} s ({w0:.3f} s resident) "
+          f"on {card}; iter {r1.iter}, logl {r1.logl}; betas, c, iterations "
+          f"and logl equal to the quad-word fit's bit for bit {same}; "
+          f"kernel-1 launches {launches['fit']}, {sop.copies} block copies, "
+          f"{sop.syncs} index fetches of the forward products", flush=True)
+    if not same or launches["fit"] < r1.iter + 1:
+        raise AssertionError("stream: the streamed fit differs")
+
+    sop.syncs = sop.copies = 0
+    mse, wall, counts, st = run_cv(sop, y)
+    launches["cv"] = counts["xt_dots_words"]
+    del st
+    same = np.array_equal(mse, dual_mse)
+    print(f"[stream] streamed cv path 1:{CV_PATH[-1]} q={CV_Q}: {wall:.3f} s "
+          f"on {card}; mse equal to the cv phase's bit for bit {same}; "
+          f"kernel-1 launches {launches['cv']}, kernel-2 "
+          f"{counts['xt_dots_words_t']}, {sop.copies} block copies, "
+          f"{sop.syncs} index fetches", flush=True)
+    if not same or counts["xt_dots_words_t"] or launches["cv"] < 2:
+        raise AssertionError("stream: the streamed cv differs")
+
+    Y, _ = mv_response(g, MV_TRAITS, np.random.default_rng(31))
+    kw = dict(k=MV_K, d=MvNormal(), init_beta=True, min_iter=MV_MIN_ITER,
+              verbose=False)
+    a, wa, _ = timed_fit(Y, quad, **kw)
+    b, wb, launches["mv fit"] = timed_fit(Y, sop, **kw)
+    same = same_fit(a, b) and np.array_equal(a.Sigma, b.Sigma)
+    print(f"[stream] streamed 3-trait mv fit k={MV_K} init_beta: {wb:.3f} s "
+          f"({wa:.3f} s resident) on {card}; iter {b.iter}, logl {b.logl}; "
+          f"B, C, Sigma, logl and iterations equal to the quad-word fit's "
+          f"bit for bit {same}; kernel-1 launches {launches['mv fit']}",
+          flush=True)
+    if not same:
+        raise AssertionError("stream: the streamed mv fit differs")
+
+    ck = tempfile.mkdtemp(prefix="mendeliht_ckpt_")
+    try:
+        with timed_saves() as saves:
+            t0 = time.perf_counter()
+            run_cv(sop, y, checkpoint_dir=ck,
+                   checkpoint_every=STREAM_CKPT_EVERY,
+                   max_iter=STREAM_KILL_AT)
+            t_kill = time.perf_counter() - t0
+            kept = sorted(checkpoint.all_steps(ck))
+            mse, wall, counts, _ = run_cv(sop, y, checkpoint_dir=ck,
+                                          checkpoint_every=STREAM_CKPT_EVERY)
+        same = np.array_equal(mse, dual_mse)
+        text = ", ".join(f"step {st_} {w:.2f} s {nb / 1e9:.3f} GB"
+                         for st_, w, nb in saves)
+        print(f"[stream] checkpointed streamed cv (every "
+              f"{STREAM_CKPT_EVERY}) killed by max_iter={STREAM_KILL_AT} "
+              f"after {t_kill:.3f} s (steps kept {kept}), resumed in "
+              f"{wall:.3f} s: mse equal to the plain cv's bit for bit "
+              f"{same}; saves: {text}", flush=True)
+        if not same or kept != [5, STREAM_KILL_AT - 1]:
+            raise AssertionError("stream: the resumed cv differs")
+        out.update(ckpt_save_s=max(w for _, w, _ in saves),
+                   ckpt_bytes=max(nb for _, _, nb in saves))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    out = {f"stream_{k}": v for k, v in out.items()}
+    del sop, s
+    gc.collect()
+    print(f"[stream] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out, launches
+
+
+def samples_times(g, copies):
+    """Genotypes of ``copies`` x g's samples, each sample of g ``copies``
+    times, made on g's device from its words: byte columns that hold four
+    samples first, then those whose crumb 3 is padding, each run repeated,
+    so every crumb plane but the last is whole and the new padding falls
+    past the last sample.  mu and 1/sd are g's, bit for bit (each count
+    ``copies`` times its own)."""
+    n4 = g.words.shape[1]
+    full = g.n - 3 * n4                   # columns with four real samples
+    n_new, n4_new = copies * g.n, copies * n4
+    if not 0 < full <= n4 or n4_new != snparray._ceil_to(
+            -(-n_new // 4), snparray._LANE) or n_new - 3 * n4_new != \
+            copies * full:
+        raise ValueError(f"{g.n} samples do not repeat {copies} times")
+    parts = [g.words[:, :full]] * copies + [g.words[:, full:]] * copies
+    return PackedGenotypes(words=torch.cat(parts, dim=1), mu=g.mu,
+                           inv_sd=g.inv_sd, n=n_new, p=g.p,
+                           has_missing=g.has_missing)
+
+
+def phase_hybrid(g, causal, beta, card, gen, link):
+    """The JAX package's out-of-core configuration (STREAM.json): 80,000 x
+    1M (8 copies of the 10k samples, 20.48 GB packed) at the default
+    budget (``MENDELIHT_STREAM_RESIDENT_BYTES`` unset: 10 GiB resident, 1
+    GiB blocks), y from ``phenotype()``: the passes equal to kernel 1 on
+    the resident words, the streamed fit equal to the resident quad-word
+    fit bit for bit, and a trace of a pass split into the prefix's kernel,
+    the copies and the blocks' kernels; returns kernel 1's fields and
+    launches."""
+    t_phase = time.perf_counter()
+    os.environ.pop("MENDELIHT_STREAM_RESIDENT_BYTES", None)
+    g8 = samples_times(g, HYBRID_COPIES)
+    y8 = phenotype(g8, causal, beta, 9)
+    quad = PackedOp(g8)
+    s, sop, t_host, t_op = stream_of(g8)
+    print(f"[hybrid] {g8.n} x {P} ({s.words.nbytes / 1e9:.2f} GB packed) "
+          f"copied to host memory in {t_host:.2f} s; default budget: "
+          f"{sop.p_res} SNPs resident ({sop.prefix.words.numel() * 4 / 1e9:.2f}"
+          f" GB), {len(sop._blocks())} blocks of {s.block_p} SNPs "
+          f"({streamed_bytes(sop) / 1e9:.2f} GB streamed a pass); operator "
+          f"built ({s.words.nbytes / 1e9:.2f} GB registered, the prefix "
+          f"uploaded) in {t_op:.2f} s",
+          flush=True)
+    out = {f"hybrid_{k}": v for k, v in check_stream_passes(
+        "hybrid", sop, quad, gen, link, card).items()}
+    out.update({f"hybrid_{k}": v for k, v in trace_pass(
+        "hybrid", sop, g8, gen, card).items()})
+    r0, w0, _ = timed_fit(y8, quad, k=K, verbose=False)
+    sop.syncs = sop.copies = 0
+    r1, w1, launches = timed_fit(y8, sop, k=K, verbose=False)
+    same = same_fit(r0, r1)
+    found = len(set(np.flatnonzero(r1.beta)) & set(causal.tolist()))
+    print(f"[hybrid] streamed fit k={K}: {w1:.3f} s ({w0:.3f} s resident) on "
+          f"{card}; iter {r1.iter}, logl {r1.logl}, causal recovered "
+          f"{found}/{K}; equal to the resident quad-word fit bit for bit "
+          f"{same}; kernel-1 launches {launches}, {sop.copies} block copies, "
+          f"{sop.syncs} index fetches", flush=True)
+    if not same or launches < r1.iter + 1:
+        raise AssertionError("hybrid: the streamed fit differs")
+    out["hybrid_fit_s"] = w1
+    del sop, s, quad, g8
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[hybrid] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out, launches
+
+
 def main(dev=None):
     """Every phase on ``dev`` (default the first CUDA device)."""
     t_start = time.perf_counter()
@@ -2509,6 +2906,12 @@ def main(dev=None):
     mvl, mvw = phase_mv(g, card, gen)
     k2["io_launches"] = phase_io(g, y, dual_mse, card, dev)
     phase_dense(g, causal, y, card, dev)
+    link = phase_hostlink(dev, card)
+    stream, k1["stream_launches"] = phase_stream(g, y, dual_mse, card, gen,
+                                                 link)
+    hybrid, k1["stream_launches"]["hybrid fit"] = phase_hybrid(
+        g, causal, beta, card, gen, link)
+    k1.update(stream, **hybrid)
     for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
         st.update(moments[name])
         st.update(mvw[name], options_launches=opts[name],

@@ -12,9 +12,13 @@ package's options ``init_beta``, ``debias``, ``group`` / ``J`` / a vector
 ``k``, ``weight``, ``zkeep``, ``io`` and ``use_maf``; the resident
 multivariate Gaussian (MvNormal) fit and cross-validation, for a
 trait-major y (r, n) with z (q, n), with ``zkeep`` and ``init_beta``; on
-packed genotypes or a dense (n, p) matrix (``ops.linalg.DenseOp``: a
-numpy matrix goes to the card, a tensor stays on its device); and the
-file-level API, which reads PLINK, VCF and BGEN files
+packed genotypes, a dense (n, p) matrix (``ops.linalg.DenseOp``: a
+numpy matrix goes to the card, a tensor stays on its device) or
+``HostStreamedGenotypes``, out of core: packed words in host memory,
+streamed through the card on each score pass (``ops/streaming.py``), the
+fits and cvs resumable from checkpoints (``checkpoint_dir``,
+``utils/checkpoint.py``; the cvs on any genotypes); and the file-level
+API, which reads PLINK, VCF and BGEN files
 
   - ``fit_iht(y, x, z, k=..., d=..., l=...)``   (reference: src/fit.jl:60)
   - ``cv_iht(y, x, z, d=..., path=..., q=...)``  (src/cross_validation.jl:60)
@@ -62,6 +66,7 @@ from .models.fit import fit_iht
 from .models.pve import pve_from_model as pve
 from .models.results import IHTResult, MIHTResult
 from .ops.projections import project_group_sparse, project_k
+from .ops.streaming import HostStreamedGenotypes
 from .utils.simulate import (adhoc_add_correlation, make_bim_fam_files,
                              make_snparray, random_covariance_matrix,
                              simulate_correlated_snparray,
@@ -81,8 +86,7 @@ from .ops.glm import (
 
 __version__ = "0.1.0"
 
-# the JAX package's __all__ but HostStreamedGenotypes (ROADMAP Queue 1
-# item 6, out of core)
+# the JAX package's __all__
 __all__ = [
     "fit_iht", "cv_iht", "iht_run_many_models", "allocate_fold_and_k",
     "iht", "cross_validate",
@@ -100,5 +104,5 @@ __all__ = [
     "maf_weights", "pve", "project_k", "project_group_sparse", "standardize",
     "parse_genotypes", "parse_phenotypes", "parse_covariates",
     "naive_impute", "loglikelihood", "deviance", "score", "mle_for_r",
-    "initialize_beta", "cv_iht_distribute_fold",
+    "initialize_beta", "cv_iht_distribute_fold", "HostStreamedGenotypes",
 ]

@@ -166,6 +166,39 @@ def bed_rows(words: torch.Tensor, n: int, c: int) -> torch.Tensor:
     return out
 
 
+def repacked_bed_chunks(bed: np.ndarray, n: int, p: int, device):
+    """A raw ``.bed`` payload (p rows of ceil(n/4) bytes) repacked on
+    ``device`` ``_CHUNK_P`` SNPs at a time: (lo, hi, quad words (ceil((hi
+    - lo)/4), n4) int32, counts (3, hi - lo) int64 of ``_repack_bed_rows``)
+    for each chunk of SNPs [lo, hi), so the device holds one chunk of the
+    payload at a time."""
+    bpr = -(-n // 4)
+    bed = np.asarray(bed, np.uint8).reshape(p, bpr)
+    n4 = _ceil_to(bpr, _LANE)
+    for lo in range(0, p, _CHUNK_P):
+        hi = min(lo + _CHUNK_P, p)
+        chunk = bed[lo:hi]
+        if not chunk.flags.writeable:              # e.g. np.frombuffer's
+            chunk = chunk.copy()
+        yield (lo, hi) + _repack_bed_rows(torch.from_numpy(chunk).to(device),
+                                          n, n4)
+
+
+def bed_stats(counts: np.ndarray, n: int, dtype, device) -> dict:
+    """The per-SNP fields of genotypes from their (3, p) host counts of
+    het, alt and missing calls: mu and 1/sd computed in float64 on the
+    host (``_stats_from_counts``, as the JAX package computes them) and
+    cast to ``dtype`` on ``device``, maf, the missing counts, n, p and
+    has_missing."""
+    n_het, n_alt, n_mis = counts
+    mu, inv_sd, maf_ = _stats_from_counts(n - n_mis, n_het, n_alt)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    return dict(mu=torch.from_numpy(mu.astype(np_dtype)).to(device),
+                inv_sd=torch.from_numpy(inv_sd.astype(np_dtype)).to(device),
+                n=int(n), p=int(counts.shape[1]),
+                has_missing=bool(n_mis.sum() > 0), maf_=maf_, n_missing=n_mis)
+
+
 def bed_chunks(g: "PackedGenotypes"):
     """The ``.bed`` payload of g, ``_CHUNK_P`` SNPs at a time: (c,
     ceil(n/4)) uint8 host arrays, each made on g's device."""
@@ -285,29 +318,14 @@ class PackedGenotypes:
         give mu, 1/sd and maf in float64 on the host (``_stats_from_counts``,
         as the JAX package computes them), cast to ``dtype`` after."""
         device = resolve_device(device)
-        bpr = -(-n // 4)
-        bed = np.asarray(bed, np.uint8).reshape(p, bpr)
-        n4 = _ceil_to(bpr, _LANE)
-        words = torch.zeros((-(-p // 4), n4), dtype=torch.int32,
-                            device=device)
+        words = torch.zeros((-(-p // 4), _ceil_to(-(-n // 4), _LANE)),
+                            dtype=torch.int32, device=device)
         counts = torch.zeros((3, p), dtype=torch.int64, device=device)
-        for lo in range(0, p, _CHUNK_P):
-            hi = min(lo + _CHUNK_P, p)
-            chunk = bed[lo:hi]
-            if not chunk.flags.writeable:          # e.g. np.frombuffer's
-                chunk = chunk.copy()
-            w, c = _repack_bed_rows(torch.from_numpy(chunk).to(device), n,
-                                    n4)
+        for lo, hi, w, c in repacked_bed_chunks(bed, n, p, device):
             words[lo // 4:lo // 4 + w.shape[0]] = w
             counts[:, lo:hi] = c
-        n_het, n_alt, n_mis = counts.cpu().numpy()
-        mu, inv_sd, maf_ = _stats_from_counts(n - n_mis, n_het, n_alt)
-        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-        return cls(words=words,
-                   mu=torch.from_numpy(mu.astype(np_dtype)).to(device),
-                   inv_sd=torch.from_numpy(inv_sd.astype(np_dtype)).to(device),
-                   n=int(n), p=int(p), has_missing=bool(n_mis.sum() > 0),
-                   maf_=maf_, n_missing=n_mis)
+        stats = bed_stats(counts.cpu().numpy(), n, dtype, device)
+        return cls(words=words, **stats)
 
     def with_dual_layout(self) -> "PackedGenotypes":
         """Attach the transposed per-SNP word view (score-only layout, on the

@@ -22,8 +22,7 @@ from ..ops import glm
 from .fit import build_fit, check_dtype, is_multivariate
 from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
-from .univariate import (cv_fused, finalize_iht, predict_deviance, run_iht,
-                         run_segment)
+from .univariate import cv_fused, run_iht
 
 
 def allocate_fold_and_k(q: int, path):
@@ -77,8 +76,9 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     vector of fold-size-weighted holdout deviances per k (reference
     src/cross_validation.jl:60-131).
 
-    ``x`` is a PackedGenotypes (or a PackedOp) or a dense matrix, as in
-    :func:`fit_iht`; the solve runs on its device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
+    ``x`` is a PackedGenotypes (or a PackedOp), a HostStreamedGenotypes
+    (out of core) or a dense matrix, as in :func:`fit_iht`; the solve runs
+    on its device.  ``folds`` (n,) in 1..q, else drawn from ``rng`` (a numpy
     Generator).  Every family and link of :func:`fit_iht` runs, with
     ``est_r``, ``group`` (one group kept, each path k a per-group cap, as
     in the JAX package), ``weight``, ``zkeep``, ``debias`` and
@@ -87,8 +87,11 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     cv_iht does not take, is accepted and ignored as ``fit_iht`` ignores
     it.  As in the JAX package, ``memory_efficient`` is accepted and
     ignored, and so is ``checkpoint_every`` without a ``checkpoint_dir``;
-    ``dtype`` must be float32.  A ``checkpoint_dir`` raises
-    NotImplementedError naming its ROADMAP item.
+    ``dtype`` must be float32.  With ``checkpoint_dir`` the solve saves
+    its state there every ``checkpoint_every`` iterations and first
+    resumes from the newest state saved there; ``show_progress`` prints
+    the converged-task count to stderr (``univariate.run_segmented``, one
+    solve for both).
 
     A y of shape (r, n), r > 1, is a multivariate cv
     (``models/mv.py::cv_mv_iht``, as the JAX package routes it): z is then
@@ -103,10 +106,6 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
                          checkpoint_every=checkpoint_every,
                          show_progress=show_progress)
     check_dtype("cv_iht", dtype)
-    if checkpoint_dir is not None:
-        raise NotImplementedError("cv_iht(checkpoint_dir=...) is not ported "
-                                  "yet: ROADMAP Queue 1 item 12 "
-                                  "(checkpointing)")
     d = d if d is not None else glm.Normal()
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg, _ = build_fit(
@@ -120,11 +119,10 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     folds, ks, train, test = _task_masks(op, q, path, folds, rng)
 
     t0 = _time.time()
-    if show_progress:
-        mses = _cv_progress(op, data, cfg, ks, train, test, init_beta)
-    else:
-        mses = cv_fused(op, data, cfg, ks, train, test, init_beta=init_beta)
-    mses = mses.cpu().numpy()
+    mses = cv_fused(op, data, cfg, ks, train, test, init_beta=init_beta,
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every,
+                    progress=show_progress, verbose=verbose).cpu().numpy()
     elapsed = _time.time() - t0
 
     mse = meanloss(mses, q, folds)
@@ -133,35 +131,6 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
         print_cv_results(sys.stdout, mse, path, best_k)
         print(f"Cross validation took {elapsed:.3f} seconds")
     return mse
-
-
-def _cv_progress(op, data, cfg, ks, train, test, init_beta, step=5):
-    """Segmented solve with a live progress display to stderr (the
-    reference's ProgressMeter over (fold, k) fits,
-    src/cross_validation.jl:95; here tasks converge in lockstep, so
-    progress is the converged-task count per segment of ``step``
-    iterations)."""
-    B = int(ks.shape[0])
-    # \r-style updates only on an interactive terminal; plain lines when
-    # stderr is redirected to a file
-    tty = getattr(sys.stderr, "isatty", lambda: False)()
-    st = init_state(op, data, cfg, ks, train, init_beta=init_beta)
-    while st.iteration < cfg.max_iter - 1:
-        st = run_segment(op, data, cfg, st,
-                         min(st.iteration + step, cfg.max_iter - 1))
-        n_active = int(st.active.sum())
-        msg = (f"Cross-validating: iteration {st.iteration:4d}, "
-               f"{B - n_active}/{B} models converged")
-        if tty:
-            print("\r" + msg, end="", file=sys.stderr, flush=True)
-        else:
-            print(msg, file=sys.stderr, flush=True)
-        if n_active == 0:
-            break
-    if tty:
-        print(file=sys.stderr)
-    st = finalize_iht(op, data, cfg, st)
-    return predict_deviance(op, data, cfg, st, test)
 
 
 def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,

@@ -12,11 +12,12 @@ import torch
 
 from ..ops import glm
 from ..ops.linalg import make_operator
+from ..ops.streaming import StreamedPackedOp
 from .initialize import init_state
 from .pve import pve as _pve
 from .results import IHTResult
 from .state import FitConfig, FitData
-from .univariate import finalize_iht, run_segment, _sparse_extract
+from .univariate import finalize_iht, run_segmented, _sparse_extract
 
 
 def check_dtype(fn: str, dtype):
@@ -169,6 +170,18 @@ def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
     return op, data, cfg, k_scalar
 
 
+def fit_fused_sparse(op, data: FitData, cfg: FitConfig, ks, cv_wts,
+                     init_beta: bool = False, **segments):
+    """init + solve + finalize + pve of a batch of fits, and their sparse
+    result pieces (``univariate._sparse_extract``); ``segments`` are
+    ``univariate.run_segmented``'s checkpoint options."""
+    st = init_state(op, data, cfg, ks, cv_wts, init_beta=init_beta)
+    st = run_segmented(op, data, cfg, st, **segments)
+    st = finalize_iht(op, data, cfg, st)
+    sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)
+    return _sparse_extract(st, sigma_g)
+
+
 def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
             weight=None, zkeep=None, est_r="none", use_maf=False,
             debias=False, verbose=True, tol=1e-4, max_iter=200, min_iter=5,
@@ -195,9 +208,13 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
     ``use_maf`` only prints, as in the JAX package: weight scaling comes
     through ``weight``.
 
-    As in the JAX package, ``memory_efficient`` is accepted and ignored,
-    and so are ``checkpoint_dir`` / ``checkpoint_every``, which only its
-    streamed fits use (every fit here is resident); ``dtype`` must be
+    ``x`` may also be a ``HostStreamedGenotypes`` (out of core: its
+    words stay in host memory and every score pass streams them,
+    ``ops/streaming.py``); such a fit saves its state to
+    ``checkpoint_dir`` every ``checkpoint_every`` iterations and resumes
+    from the newest one there, as the JAX package's streamed fit does.  A
+    resident fit ignores both, as there.  As in the JAX package,
+    ``memory_efficient`` is accepted and ignored; ``dtype`` must be
     float32 (:func:`check_dtype`).
 
     A y of shape (r, n), r > 1, is a multivariate fit
@@ -242,13 +259,19 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
     else:
         k_task = k_scalar
     cv_wts = data.sample_mask[None, :]
-    st = init_state(op, data, cfg, [k_task], cv_wts, init_beta=init_beta)
-    st = run_segment(op, data, cfg, st, cfg.max_iter - 1)
-    st = finalize_iht(op, data, cfg, st)
-    sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)
+    if isinstance(op, StreamedPackedOp):
+        # out of core: the same solver, with the streamed fits' checkpoints
+        from .streamed import fit_fused_sparse_host
+        parts = fit_fused_sparse_host(
+            op, data, cfg, [k_task], cv_wts, init_beta=init_beta,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, verbose=verbose)
+    else:
+        parts = fit_fused_sparse(op, data, cfg, [k_task], cv_wts,
+                                 init_beta=init_beta)
     # one host fetch, sparse: ~S floats instead of the dense (p,) beta
     (sel_idx, sel_valid, sel_bc, c, logl, iters, failed, sg) = (
-        t[0].cpu().numpy() for t in _sparse_extract(st, sigma_g))
+        t[0].cpu().numpy() for t in parts)
     b = np.zeros(op.p, sel_bc.dtype)
     is_g = sel_valid & (sel_idx < op.p)
     b[sel_idx[is_g]] = sel_bc[is_g]

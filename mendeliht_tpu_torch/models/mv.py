@@ -18,6 +18,7 @@ one pass of ``PackedOp.xtr`` at RHS width m = T·r.  As in
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time as _time
 
@@ -25,12 +26,13 @@ import numpy as np
 import torch
 
 from ..ops.linalg import make_operator
+from ..ops.streaming import StreamedPackedOp
 from .fit import check_dtype
 from .initialize import _initialize_beta
 from .pve import masked_var
 from .results import MIHTResult, print_cv_results
 from .state import FitConfig, FitData, state_from_numpy
-from .univariate import _where_b as _where_t
+from .univariate import _where_b as _where_t, run_segmented
 
 _GUARD = 1e-8
 
@@ -330,18 +332,22 @@ def finalize_mv_iht(op, data: MvData, cfg: MvConfig, st: MIHTState
         idc=(best_C != 0).any(dim=1))
 
 
-def run_mv_iht(op, data: MvData, cfg: MvConfig, st: MIHTState) -> MIHTState:
-    """Full solve: loop to completion, then restore the best model."""
-    st = run_mv_segment(op, data, cfg, st, cfg.max_iter - 1)
+def run_mv_iht(op, data: MvData, cfg: MvConfig, st: MIHTState,
+               **segments) -> MIHTState:
+    """Full solve: loop to completion (``univariate.run_segmented`` with
+    its checkpoint and progress ``segments`` options), then restore the
+    best model."""
+    st = run_segmented(op, data, cfg, st, run_mv_segment, **segments)
     return finalize_mv_iht(op, data, cfg, st)
 
 
 def fit_mv(op, data: MvData, cfg: MvConfig, ks, cv_wts,
-           init_beta: bool = False):
+           init_beta: bool = False, **segments):
     """init + solve; returns (state, Sigma = Gamma^-1 (T, r, r), per-trait
-    PVE (T, r)) (the JAX package's ``fit_mv_fused``)."""
+    PVE (T, r)) (the JAX package's ``fit_mv_fused``); ``segments`` as in
+    :func:`run_mv_iht`."""
     st = init_mv_state(op, data, cfg, ks, cv_wts, init_beta=init_beta)
-    st = run_mv_iht(op, data, cfg, st)
+    st = run_mv_iht(op, data, cfg, st, **segments)
     Sigma = torch.linalg.inv_ex(st.Gamma).inverse
     vy = masked_var(data.Y, data.sample_mask, data.n_true)          # (r,)
     vm = masked_var(st.mu, data.sample_mask, data.n_true)           # (T, r)
@@ -356,26 +362,12 @@ def predict_mse_mv(data: MvData, st: MIHTState, test_wts):
 
 
 def cv_mv(op, data: MvData, cfg: MvConfig, ks, train_wts, test_wts,
-          init_beta: bool = False, show_progress: bool = False):
-    """init + solve + holdout mse of a batch of (fold, k) tasks, in
-    segments of 5 iterations; ``show_progress`` prints the converged-task
-    count after each to stderr (the univariate ``cv._cv_progress``)."""
-    T = int(ks.shape[0])
-    tty = show_progress and getattr(sys.stderr, "isatty", lambda: False)()
+          init_beta: bool = False, **segments):
+    """init + solve + holdout mse of a batch of (fold, k) tasks;
+    ``segments`` as in :func:`run_mv_iht` (checkpoints, the univariate
+    cv's progress lines)."""
     st = init_mv_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
-    while st.iteration < cfg.max_iter - 1:
-        st = run_mv_segment(op, data, cfg, st, st.iteration + 5)
-        n_active = int(st.active.sum())
-        if show_progress:
-            msg = (f"Cross-validating: iteration {st.iteration:4d}, "
-                   f"{T - n_active}/{T} models converged")
-            print("\r" + msg if tty else msg, end="" if tty else "\n",
-                  file=sys.stderr, flush=True)
-        if n_active == 0:
-            break
-    if tty:
-        print(file=sys.stderr)
-    st = finalize_mv_iht(op, data, cfg, st)
+    st = run_mv_iht(op, data, cfg, st, **segments)
     return predict_mse_mv(data, st, test_wts)
 
 
@@ -534,9 +526,11 @@ def fit_mv_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
     y (r, n) trait-major; x a PackedGenotypes (or a PackedOp) or a dense
     matrix (``fit.fit_iht``); z (q, n)
     with samples as columns, or None (intercept only).  ``d`` and ``l`` are
-    taken and ignored (the model is MvNormal with the identity link), and
-    so are ``checkpoint_dir`` / ``checkpoint_every``, as in the JAX
-    package's resident fit; ``dtype`` must be float32."""
+    taken and ignored (the model is MvNormal with the identity link).  As
+    in the JAX package, a fit on a HostStreamedGenotypes saves its state
+    to ``checkpoint_dir`` every ``checkpoint_every`` iterations and
+    resumes from the newest one there, and a resident fit ignores both;
+    ``dtype`` must be float32."""
     if int(np.min(k)) < 1:
         raise ValueError("Multivariate IHT requires k >= 1!")
     if debias:
@@ -553,9 +547,15 @@ def fit_mv_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
         print_parameters(io, k, "mvnormal", "identity", False, None, debias,
                          tol, max_iter, min_iter, op.device)
     t0 = _time.time()
-    st, Sigma, sigma_g = fit_mv(op, data, cfg, [int(k)],
-                                data.sample_mask[None, :],
-                                init_beta=init_beta)
+    if isinstance(op, StreamedPackedOp):
+        from .mv_streamed import fit_mv_host as fit
+        segments = dict(checkpoint_dir=checkpoint_dir,
+                        checkpoint_every=checkpoint_every, verbose=verbose)
+    else:
+        fit, segments = fit_mv, {}
+    st, Sigma, sigma_g = fit(op, data, cfg, [int(k)],
+                             data.sample_mask[None, :], init_beta=init_beta,
+                             **segments)
     B_h, C_h, logl_h, iters_h, failed_h, Sigma_h, sg_h = (
         t[0].cpu().numpy() for t in (st.B, st.C, st.best_logl, st.iters,
                                      st.failed, Sigma, sigma_g))
@@ -584,14 +584,13 @@ def cv_mv_iht(y, x, z=None, path=None, q=5, folds=None, zkeep=None,
     are independent), by default as many as take ~6 GB of state at 32
     (r, p) float32 arrays a task, the JAX package's budget.  ``debias`` is
     taken and ignored, as in the JAX package; ``show_progress`` prints the
-    converged-task count every 5 iterations to stderr.  A
-    ``checkpoint_dir`` raises NotImplementedError naming its ROADMAP
-    item; ``dtype`` must be float32."""
+    converged-task count every 5 iterations to stderr.  With
+    ``checkpoint_dir`` each chunk saves its state every
+    ``checkpoint_every`` iterations and resumes from the newest one, in
+    ``checkpoint_dir`` itself where the tasks make one chunk, else in
+    ``{checkpoint_dir}/chunk{lo}`` for the chunk from task ``lo`` on, as
+    in the JAX package.  ``dtype`` must be float32."""
     check_dtype("cv_iht", dtype)
-    if checkpoint_dir is not None:
-        raise NotImplementedError("cv_iht(checkpoint_dir=...) is not ported "
-                                  "yet: ROADMAP Queue 1 item 12 "
-                                  "(checkpointing)")
     from .cv import _task_masks, meanloss
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg = build_mv(y, x, z, k=max(path), zkeep=zkeep,
@@ -609,9 +608,15 @@ def cv_mv_iht(y, x, z=None, path=None, q=5, folds=None, zkeep=None,
         hi = min(lo + task_chunk, T)
         if verbose and task_chunk < T:
             print(f"cv tasks {lo + 1}-{hi} of {T}...")
+        ckpt = checkpoint_dir
+        if ckpt is not None and task_chunk < T:
+            ckpt = os.path.join(ckpt, f"chunk{lo}")
         parts.append(cv_mv(op, data, cfg, ks[lo:hi], train[lo:hi],
                            test[lo:hi], init_beta=init_beta,
-                           show_progress=show_progress).cpu().numpy())
+                           checkpoint_dir=ckpt,
+                           checkpoint_every=checkpoint_every,
+                           progress=show_progress,
+                           verbose=verbose).cpu().numpy())
     mse = meanloss(np.concatenate(parts), q, folds)
     best_k = path[int(np.argmin(mse))]
     if verbose:

@@ -14,6 +14,7 @@ support is a fixed-size list of S slots.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import torch
 
@@ -24,6 +25,8 @@ from ..ops.projections import (project_group_sparse_batched,
 from .state import IHTState, FitConfig, FitData
 
 _INF_STEP_GUARD = 1e-8
+# iterations between two progress lines of a cv (the JAX package's)
+_PROGRESS_STEP = 5
 
 
 def _where_b(mask, new, old):
@@ -257,9 +260,66 @@ def finalize_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
         sel_valid=sel_valid, idc=best_c != 0, xb=xb, zc=zc, mu=mu)
 
 
-def run_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
-    """Full solve: loop to completion, then restore the best model."""
-    st = run_segment(op, data, cfg, st, cfg.max_iter - 1)
+def run_segmented(op, data, cfg, st, advance=run_segment, *,
+                  checkpoint_dir=None, checkpoint_every: int = 20,
+                  progress: bool = False, verbose: bool = False):
+    """Advance ``st`` (an IHTState, or an MIHTState with ``advance=
+    mv.run_mv_segment``) until every task converges or max_iter - 1
+    iterations have run, the one solve of every fit and cv.
+
+    With neither ``checkpoint_dir`` nor ``progress`` it is one
+    ``advance``.  Else it runs segments: with ``checkpoint_dir`` it first
+    restores the newest state saved there (``utils/checkpoint.py``), runs
+    segments of ``checkpoint_every`` iterations and saves the state after
+    each; with ``progress`` (segments of ``_PROGRESS_STEP`` iterations
+    where nothing is saved) it prints the converged-task count after each
+    to stderr (the reference's ProgressMeter over (fold, k) fits,
+    src/cross_validation.jl:95; tasks converge in lockstep here), as
+    ``\r`` updates on a terminal and as lines otherwise.  The step is
+    deterministic given the state, so how the run is segmented, or where
+    it was killed and resumed, does not change a bit of the result."""
+    if checkpoint_dir is None and not progress:
+        return advance(op, data, cfg, st, cfg.max_iter - 1)
+    from ..utils.checkpoint import restore_state, save_state
+    if checkpoint_dir is not None:
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be at least 1, got "
+                             f"{checkpoint_every}")
+        restored = restore_state(checkpoint_dir, st)
+        if restored is not None:
+            st, at = restored
+            if verbose:
+                print(f"resuming from checkpoint step {at}")
+        step = checkpoint_every
+    else:
+        step = _PROGRESS_STEP
+    B = int(st.active.shape[0])
+    tty = progress and getattr(sys.stderr, "isatty", lambda: False)()
+    n_active = int(st.active.sum())
+    while st.iteration < cfg.max_iter - 1 and n_active:
+        st = advance(op, data, cfg, st, st.iteration + step)
+        n_active = int(st.active.sum())
+        if checkpoint_dir is not None:
+            save_state(checkpoint_dir, st, st.iteration)
+            if verbose:
+                print(f"checkpoint at iteration {st.iteration}; {n_active} "
+                      "tasks still active")
+        if progress:
+            msg = (f"Cross-validating: iteration {st.iteration:4d}, "
+                   f"{B - n_active}/{B} models converged")
+            print("\r" + msg if tty else msg, end="" if tty else "\n",
+                  file=sys.stderr, flush=True)
+    if tty:
+        print(file=sys.stderr)
+    return st
+
+
+def run_iht(op, data: FitData, cfg: FitConfig, st: IHTState,
+            **segments) -> IHTState:
+    """Full solve: loop to completion (:func:`run_segmented`, with its
+    checkpoint and progress ``segments`` options), then restore the best
+    model."""
+    st = run_segmented(op, data, cfg, st, **segments)
     return finalize_iht(op, data, cfg, st)
 
 
@@ -274,13 +334,14 @@ def predict_deviance(op, data: FitData, cfg: FitConfig, st: IHTState,
 
 
 def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts,
-             init_beta: bool = False):
+             init_beta: bool = False, **segments):
     """init + solve + finalize + holdout deviance of the whole
-    cross-validation grid as one batch of tasks."""
+    cross-validation grid as one batch of tasks; ``segments`` are
+    :func:`run_segmented`'s checkpoint and progress options."""
     from .initialize import init_state
 
     st = init_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
-    st = run_iht(op, data, cfg, st)
+    st = run_iht(op, data, cfg, st, **segments)
     return predict_deviance(op, data, cfg, st, test_wts)
 
 

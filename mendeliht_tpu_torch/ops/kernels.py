@@ -13,6 +13,7 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -134,16 +135,75 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
     _check_exact_range("words", words, 4 * n4, 4 * p4, rhs.shape[1])
     if rhs.device != words.device:
         raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
-    if words.device.type == "cpu":
-        return decode.xt_dots_words(words, rhs, want_missing=want_missing,
-                                    want_sq=want_sq, p=p)
-    if words.device.type != "cuda":
+    if words.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {words.device}")
-    if n4 % 4:
-        raise ValueError(f"words {tuple(words.shape)}: n4 must be a multiple "
-                         "of 4 (16-byte loads, the digit image's K steps)")
-    return _digit_score("xt_dots_words", words, rhs, n4 // 4, 4 * p4,
-                        want_missing, want_sq, p)
+    return xt_dots_words_image(
+        words, score_image(rhs, want_missing=want_missing, want_sq=want_sq),
+        p=p)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreImage:
+    """What kernel 1 takes of an RHS besides the words: on the card the
+    digit image, per-column scale, guard and plan of ``_digit_operands``,
+    made once and read by any number of launches (a streamed pass runs
+    kernel 1 on each block of the words against one image); on the CPU
+    nothing but the RHS, which the plain version reads."""
+    rhs: torch.Tensor            # (n_pad, m) float
+    want_missing: bool
+    want_sq: bool
+    operands: tuple | None       # (digits, scale, guard, plan), or None
+
+    @property
+    def m(self) -> int:
+        return self.rhs.shape[1]
+
+
+def score_image(rhs: torch.Tensor, *, want_missing: bool,
+                want_sq: bool = False) -> ScoreImage:
+    """The :class:`ScoreImage` of ``rhs`` (n_pad, m) on its device: a
+    CUDA RHS (n_pad a multiple of 16, the quad words' n4 a multiple of 4)
+    is quantised and laid out here, once.  The per-column scale depends on
+    R alone, so every launch on the image gives the whole-matrix launch's
+    columns of its SNPs bit for bit."""
+    if rhs.dim() != 2:
+        raise ValueError(f"rhs must be 2-D, got {tuple(rhs.shape)}")
+    if rhs.device.type == "cpu":
+        return ScoreImage(rhs, want_missing, want_sq, None)
+    if rhs.device.type != "cuda":
+        raise ValueError(f"no kernel for device {rhs.device}")
+    if rhs.shape[0] % 16:
+        raise ValueError(f"rhs {tuple(rhs.shape)}: n_pad must be a multiple "
+                         "of 16 (16-byte loads, the digit image's K steps)")
+    return ScoreImage(rhs, want_missing, want_sq, _digit_operands(
+        rhs, rhs.shape[0] // 16, want_missing, want_sq))
+
+
+def xt_dots_words_image(words: torch.Tensor, image: ScoreImage,
+                        p: int | None = None):
+    """Kernel 1 (``xt_dots_words``) on the quad words ``words`` (p4, n4)
+    against a :class:`ScoreImage` of an RHS (4*n4, m): (A, M, S) as
+    ``xt_dots_words`` returns them, one launch counted as
+    ``xt_dots_words``.  On a CPU tensor the plain version
+    ``decode.xt_dots_words`` of the image's RHS."""
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise ValueError(f"words must be 2-D int32, got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    rhs = image.rhs
+    p4, n4 = words.shape
+    if rhs.shape[0] != 4 * n4:
+        raise ValueError(f"rhs {tuple(rhs.shape)} does not match words "
+                         f"{tuple(words.shape)}: need (4*n4, m)")
+    if rhs.device != words.device:
+        raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
+    _check_exact_range("words", words, 4 * n4, 4 * p4, image.m)
+    if words.device.type == "cpu":
+        return decode.xt_dots_words(words, rhs,
+                                    want_missing=image.want_missing,
+                                    want_sq=image.want_sq, p=p)
+    return _launch_score("xt_dots_words", words, image.operands, n4 // 4,
+                         4 * p4, image.m, image.want_missing, image.want_sq,
+                         p)
 
 
 def _check_exact_range(name: str, arr: torch.Tensor, n_pad: int, p_all: int,
@@ -193,10 +253,19 @@ def _digit_score(name: str, words: torch.Tensor, rhs: torch.Tensor, nw: int,
     on the quad words, ``xt_dots_words_t`` on the transposed words) with
     the NaN guard, kernels 6 and 7 by their ``_UNGUARDED`` entry with a zero
     guard; returns (A, M, S) cut to ``p``."""
+    operands = _digit_operands(rhs, nw, want_missing, want_sq,
+                               guarded=name not in _UNGUARDED)
+    return _launch_score(name, words, operands, nw, p_all, rhs.shape[1],
+                         want_missing, want_sq, p)
+
+
+def _launch_score(name: str, words: torch.Tensor, operands: tuple, nw: int,
+                  p_all: int, m: int, want_missing: bool, want_sq: bool,
+                  p: int | None):
+    """Launch score kernel ``name`` on ``words`` with the digit operands
+    of ``_digit_operands`` and count it; returns (A, M, S) cut to ``p``."""
     _check_card_tensor("words", words, torch.int32)
-    digits, scale, guard, plan = _digit_operands(
-        rhs, nw, want_missing, want_sq, guarded=name not in _UNGUARDED)
-    m = rhs.shape[1]
+    digits, scale, guard, plan = operands
     A, M, S = _outputs(m, p_all, want_missing, want_sq, words.device)
     fn = _entry("xt_dots_t", _UNGUARDED.get(name, name), _SCORE_ARGS)
     _launch(name, fn, words.device, words.data_ptr(), digits.data_ptr(),

@@ -93,6 +93,10 @@ class PackedOp:
             return kernels.xt_dots_words_t(g.words_t, RT, **kw)
         return kernels.xt_dots_words(g.words, RT, **kw)
 
+    def _rows_bytes(self, idx: torch.Tensor) -> torch.Tensor:
+        """The byte rows (B, S, n4) uint8 of the SNPs idx (B, S)."""
+        return decode.take_rows_bytes(self.geno.words, idx)
+
     def xtr(self, R: torch.Tensor) -> torch.Tensor:
         """Standardized X' R for R (B, n_pad) -> (B, p)."""
         g = self.geno
@@ -110,7 +114,7 @@ class PackedOp:
         are ignored regardless of index value."""
         g = self.geno
         coef_s = coef * g.inv_sd[idx] * valid
-        rows = decode.take_rows_bytes(g.words, idx)
+        rows = self._rows_bytes(idx)
         raw = decode.sparse_forward_rows(rows, idx, coef_s, g.mu,
                                          want_missing=g.has_missing)
         const = (coef_s * g.mu[idx]).sum(dim=1)                # (B,)
@@ -123,7 +127,7 @@ class PackedOp:
         (B, R, n_pad); each selected row decoded once for all R traits."""
         g = self.geno
         coef_s = coef * (g.inv_sd[idx] * valid)[:, None, :]
-        rows = decode.take_rows_bytes(g.words, idx)
+        rows = self._rows_bytes(idx)
         raw = decode.sparse_forward_rows_multi(rows, idx, coef_s, g.mu,
                                                want_missing=g.has_missing)
         const = (coef_s * g.mu[idx][:, None, :]).sum(dim=2)    # (B, R)
@@ -134,7 +138,7 @@ class PackedOp:
         zeroed: the debias refit's small design (plain torch ops, as XLA
         runs the JAX package's ``PackedOp.gather_cols``)."""
         g = self.geno
-        rows = decode.take_rows_bytes(g.words, idx)
+        rows = self._rows_bytes(idx)
         val, miss = decode.gather_decode_rows(rows, self.dtype,
                                               want_missing=g.has_missing)
         mu = g.mu[idx][:, :, None]
@@ -263,8 +267,10 @@ class DenseOp:
 def make_operator(x):
     """Wrap a design matrix in its operator.
 
-    A PackedOp or DenseOp is returned as it is: that is how a caller runs
-    the quad-word kernel on genotypes without ``words_t``.  Genotypes on a
+    A PackedOp (a StreamedPackedOp among them) or DenseOp is returned as
+    it is: that is how a caller runs the quad-word kernel on genotypes
+    without ``words_t``.  HostStreamedGenotypes (out of core) get a
+    ``StreamedPackedOp``.  Genotypes on a
     CUDA device get the transposed dual layout, in place, where their packed
     words fit ``MENDELIHT_DUAL_MAX_BYTES`` (default ``_DUAL_MAX_BYTES``), as
     the JAX package stores it on a TPU; CPU genotypes never get it here.  A
@@ -284,6 +290,7 @@ def make_operator(x):
     if isinstance(x, np.ndarray):
         return DenseOp(torch.as_tensor(x, dtype=torch.float32,
                                        device=resolve_device()))
-    raise NotImplementedError(
-        f"design matrix type {type(x).__name__} is not ported yet: "
-        "ROADMAP Queue 1 item 13 (streamed genotypes)")
+    from .streaming import HostStreamedGenotypes, StreamedPackedOp
+    if isinstance(x, HostStreamedGenotypes):
+        return StreamedPackedOp(x)
+    raise TypeError(f"unsupported design matrix type {type(x)}")

@@ -13,6 +13,7 @@ the fit tolerance of tests/test_torch_fit.py (1e-4 relative).
 
 import contextlib
 import io
+import os
 import re
 
 import numpy as np
@@ -293,11 +294,13 @@ def test_make_operator_builds_no_dual_layout_on_cpu():
     assert op.geno is t and t.words_t is None
     assert tlinalg.make_operator(op) is op          # an operator passes
     # a dense matrix raised NotImplementedError before DenseOp was ported:
-    # now a DenseOp on the device asked for; another type still raises
+    # now a DenseOp on the device asked for; another type raises the JAX
+    # package's TypeError (NotImplementedError before the streamed
+    # genotypes were ported)
     dense = tlinalg.make_operator(torch.zeros((4, 4), dtype=torch.float64))
     assert isinstance(dense, tlinalg.DenseOp) and dense.n_pad == 4
     assert dense.dtype == torch.float32 and dense.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="unsupported design matrix type"):
         tlinalg.make_operator(object())
 
 
@@ -478,12 +481,14 @@ def test_iht_run_many_models_matches_jax(plain_problem):
     (dict(checkpoint_dir="ckpt"), "item 12"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=5), "item 12"),
     (dict(weight=np.ones(500)), "item 9")])
-def test_cv_unported_arguments_raise(plain_problem, kwargs, item):
+def test_cv_unported_arguments_raise(plain_problem, kwargs, item, tmp_path):
     """Arguments that raised NotImplementedError naming their ROADMAP item.
-    A ``checkpoint_dir`` (item 12) still does; the options of item 9, since
-    ported, give the JAX package's call: its ValueError for a group or
-    weight of the wrong length, else its mse within this file's tolerance
-    and the same best k.  With ``debias`` a task's best iterate is chosen by
+    Since ported, each gives the JAX package's call: a ``checkpoint_dir``
+    (item 12; here under the test's own directory) the JAX package's
+    checkpointed mse within this file's tolerance and the same best k,
+    with a checkpoint written; the options of item 9 its ValueError for a
+    group or weight of the wrong length, else its mse within this file's
+    tolerance and the same best k.  With ``debias`` a task's best iterate is chosen by
     the loglikelihood of the iterate before its refit (the reference's
     quirk), and a refit leaves the next iterates' loglikelihoods a few f32
     roundings apart, so the two packages may keep different iterates of a
@@ -493,10 +498,13 @@ def test_cv_unported_arguments_raise(plain_problem, kwargs, item):
     (``_debiased_tasks``)."""
     x, y, folds = plain_problem
     kw = dict(path=[1, 2], q=3, folds=folds, verbose=False, **kwargs)
-    if item != "item 9":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 {item}"):
-            mt.cv_iht(y, _port(x), **kw)
+    if item == "item 12":
+        want = m.cv_iht(y, x, **dict(
+            kw, checkpoint_dir=str(tmp_path / "jax")))
+        got = mt.cv_iht(y, _port(x), **dict(
+            kw, checkpoint_dir=str(tmp_path / kwargs["checkpoint_dir"])))
+        _assert_mse_agree(got, want)
+        assert os.listdir(tmp_path / kwargs["checkpoint_dir"])
         return
     try:
         want = m.cv_iht(y, x, **kw)
@@ -636,7 +644,10 @@ def test_float64_dtype_raises_in_cv_and_path(plain_problem):
 
 def test_cv_unported_inputs_raise(plain_problem):
     x, y, _ = plain_problem
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a design matrix of another type raised NotImplementedError naming
+    # item 13 before HostStreamedGenotypes was ported: now the JAX
+    # package's TypeError
+    with pytest.raises(TypeError, match="unsupported design matrix type"):
         mt.cv_iht(y, object(), path=[1], q=2, verbose=False)
     # use_maf raised NotImplementedError before it was accepted; as in the
     # JAX package it is ignored

@@ -50,7 +50,9 @@ def test_package_has_modules():
             "utils/simulate.py",
             "genotype/plink.py", "genotype/vcf.py", "genotype/bgen.py",
             "utils/wrapper.py", "utils/standardize.py", "utils/device.py",
-            "tools/kernel_lab5.py", "tools/kernel_probe.py"} <= names
+            "tools/kernel_lab5.py", "tools/kernel_probe.py",
+            "ops/streaming.py", "utils/checkpoint.py", "models/streamed.py",
+            "models/mv_streamed.py"} <= names
     for src in ("xt_dots_t.cu", "read_probe.cu", "int_probe.cu",
                 "kernel_probe.cu", "i8_mma.cuh"):
         assert (PKG / "csrc" / src).is_file()
@@ -697,3 +699,83 @@ def test_grm_and_dense_fit_on_card_match_cpu(cuda_device):
                                     verbose=False)
     assert set(np.flatnonzero(a.beta)) == set(np.flatnonzero(b.beta))
     assert abs(a.iter - b.iter) <= 1
+
+
+def _streamed_case(device, resident_q, block_q=40):
+    """Genotypes with missing calls on ``device`` (1,000 x 4,099: 25 blocks
+    of 160 SNPs past the prefix) and their HostStreamedGenotypes with
+    ``resident_q`` quad rows resident."""
+    from mendeliht_tpu_torch.genotype.snparray import PackedGenotypes
+    from mendeliht_tpu_torch.ops.streaming import HostStreamedGenotypes
+    rng = np.random.default_rng(12)
+    codes = rng.choice(np.arange(4, dtype=np.uint8), size=(1000, 4099),
+                       p=[0.45, 0.05, 0.3, 0.2])
+    g = PackedGenotypes.from_codes(codes, device=device)
+    row = g.words.shape[1] * 4
+    s = HostStreamedGenotypes.from_snparray(
+        g, block_bytes=block_q * row, resident_bytes=resident_q * row)
+    return g, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resident_q", [0, 37])
+def test_streamed_score_equals_kernel_1_on_card(cuda_device, resident_q):
+    """The streamed ``xtr`` (m = 1 and 100) and ``col_moments`` (M and S)
+    over at least 8 blocks, with no prefix and with a part of the matrix
+    resident, equal kernel 1 on the resident words bit for bit: one launch
+    a block and one for the prefix each pass, and ``words_t`` on neither
+    the prefix nor the blocks."""
+    import dataclasses
+    from mendeliht_tpu_torch.ops.linalg import PackedOp
+    from mendeliht_tpu_torch.ops.streaming import StreamedPackedOp
+    g, s = _streamed_case(cuda_device, resident_q)
+    sop = StreamedPackedOp(s)
+    rop = PackedOp(dataclasses.replace(g, words_t=None))
+    blocks = len(sop._blocks())
+    assert blocks >= 8 and sop.p_res == 4 * resident_q
+    assert sop.prefix is None or sop.prefix.words_t is None
+    per_pass = blocks + (resident_q > 0)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for m_ in (1, 100):
+        R = torch.randn((m_, g.n_pad), generator=gen, device=cuda_device)
+        R[:, g.n:] = 0.0
+        before = kernels.LAUNCHES["xt_dots_words"]
+        got = sop.xtr(R)
+        assert kernels.LAUNCHES["xt_dots_words"] == before + per_pass
+        want = rop.xtr(R)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        W = (R > 0).to(torch.float32)
+        for a, b in zip(sop.col_moments(W, W * R), rop.col_moments(W, W * R)):
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+    assert sop.copies == 4 * blocks
+    idx = torch.randint(0, g.p, (3, 9), generator=gen, device=cuda_device)
+    coef = torch.randn((3, 9), generator=gen, device=cuda_device)
+    valid = torch.ones_like(coef)
+    assert torch.equal(sop.forward_sel(idx, coef, valid),
+                       rop.forward_sel(idx, coef, valid))
+    assert sop.syncs == 1
+
+
+@pytest.mark.cuda
+def test_streamed_words_unregistered_when_operator_freed(cuda_device):
+    """The host words stay page-locked while an operator holds them (two
+    operators share one registration) and are unregistered when the last
+    is freed: registering them again then succeeds."""
+    import gc
+    from mendeliht_tpu_torch.ops.streaming import (StreamedPackedOp,
+                                                   is_registered)
+    _, s = _streamed_case(cuda_device, 0)
+    a, b = StreamedPackedOp(s), StreamedPackedOp(s)
+    assert is_registered(s.words)
+    del a
+    gc.collect()
+    assert is_registered(s.words)
+    del b
+    gc.collect()
+    assert not is_registered(s.words)
+    cudart = torch.cuda.cudart()
+    assert int(cudart.cudaHostRegister(s.words.ctypes.data, s.words.nbytes,
+                                       0)) == 0
+    assert int(cudart.cudaHostUnregister(s.words.ctypes.data)) == 0

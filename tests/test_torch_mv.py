@@ -31,6 +31,7 @@ exactly.
 import contextlib
 import dataclasses
 import io
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -531,9 +532,21 @@ def test_errors_match_jax(geno, sims, call, kwargs):
 def test_unported_inputs_raise(geno, sims, tmp_path):
     g, t = geno
     Y, _ = sims[2]
-    with pytest.raises(NotImplementedError, match="item 12 \\(checkpointing"):
-        mt.cv_iht(Y, t, path=[1], q=2, checkpoint_dir=str(tmp_path),
-                  verbose=False)
+    # a checkpoint_dir raised NotImplementedError naming item 12 before
+    # checkpointing was ported: now the JAX package's checkpointed mv cv,
+    # and a resumed run equal to the plain one bit for bit
+    kw = dict(path=[1], q=2, folds=np.tile([1, 2], N // 2), verbose=False,
+              max_iter=10)
+    ck = str(tmp_path / "mvck")
+    got = mt.cv_iht(Y, t, checkpoint_dir=ck, checkpoint_every=3, **kw)
+    np.testing.assert_allclose(
+        got, m.cv_iht(Y, g, checkpoint_dir=str(tmp_path / "jax"),
+                      checkpoint_every=3, **kw), rtol=1e-4)
+    assert sorted(os.listdir(ck)) == ["step_6", "step_9"]
+    np.testing.assert_array_equal(
+        mt.cv_iht(Y, t, checkpoint_dir=ck, checkpoint_every=3, **kw), got)
+    np.testing.assert_array_equal(mt.cv_iht(Y, t, **kw), got)
+    ck_dir = tmp_path / "mvck"
     # a dense x raised NotImplementedError before DenseOp was ported: now
     # the JAX package's multivariate fit on the same matrix
     X = g.to_dense_standardized()
@@ -543,17 +556,22 @@ def test_unported_inputs_raise(geno, sims, tmp_path):
     assert abs(a.iter - b.iter) <= 1
     for got, want in ((a.beta, b.beta), (a.Sigma, b.Sigma)):
         _close(got, want, tol=MV_SPREAD)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # another design matrix type raised NotImplementedError naming item 13
+    # before the streamed genotypes were ported: now the JAX package's
+    # TypeError
+    with pytest.raises(TypeError, match="unsupported design matrix type"):
         mt.cv_iht(Y, object(), path=[1], q=2, verbose=False)
     for fn in (mt.fit_iht, mt.cv_iht):
         with pytest.raises(NotImplementedError, match="float64 fits"):
             fn(Y, t, verbose=False, dtype=np.float64)
-    # the fit takes checkpoint_dir and ignores it, as the JAX package's
-    # resident fit does; nothing is written
-    a = mt.fit_iht(Y, t, k=3, verbose=False, checkpoint_dir=str(tmp_path))
+    # the resident fit takes checkpoint_dir and ignores it, as the JAX
+    # package's resident fit does; nothing is written
+    a = mt.fit_iht(Y, t, k=3, verbose=False,
+                   checkpoint_dir=str(tmp_path / "fit"))
     b = mt.fit_iht(Y, t, k=3, verbose=False)
     np.testing.assert_array_equal(a.beta, b.beta)
-    assert list(tmp_path.iterdir()) == []
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "jax", ck_dir.name]
 
 
 # -- compat.py ----------------------------------------------------------------

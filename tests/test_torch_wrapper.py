@@ -407,8 +407,9 @@ def test_wrappers_need_a_device(files, monkeypatch):
 
 
 def test_exports_match_jax():
-    """The port exports every name of the JAX package's ``__all__`` but
-    ``HostStreamedGenotypes`` (out of core, ROADMAP Queue 1 item 6), each
+    """The port exports exactly the names of the JAX package's ``__all__``
+    (``HostStreamedGenotypes``, out of core, among them), each
     one it names."""
-    assert set(mt.__all__) == set(m.__all__) - {"HostStreamedGenotypes"}
+    assert set(mt.__all__) == set(m.__all__)
+    assert len(mt.__all__) == len(set(mt.__all__))
     assert all(hasattr(mt, name) for name in mt.__all__)
