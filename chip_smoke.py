@@ -196,13 +196,16 @@ result line):
               genotypes, their words in host memory, nothing resident,
               blocks of 256 MiB (10 a pass): the streamed ``xtr`` at m = 1
               and 100 and ``col_moments`` (with S) torch.equal to kernel 1
-              on the resident words, the pass timed against the link
+              on the resident words and to its plain version
+              (``decode.xt_dots_words``), the pass timed against the link
               bound (the streamed bytes over the measured registered rate
               and over the data sheet's); a ``profiling.trace`` of a pass
               (copies, kernel 1, idle share); the k = 10 fit, the cv (path
               1:20, q = 5, the cv phase's folds) and the 3-trait mv fit
               (k = 12, init_beta) equal to the quad-word runs bit for bit,
-              with kernel-1 launches, block copies and index fetches; a cv
+              with kernel-1 launches, block copies and index fetches, and
+              the fit again through ``fit_iht(y, genotypes)``, whose new
+              operator reuses the registration; a cv
               checkpointed every 5 iterations, killed by max_iter = 8 and
               resumed, equal to the plain cv bit for bit, each ~1.6 GB save
               timed
@@ -210,10 +213,12 @@ result line):
               the 10k samples, 20.48 GB packed; mu and 1/sd unchanged; y
               from ``phenotype``) at the default budget (10 GiB resident,
               1 GiB blocks): the passes at m = 1 and 100 and
-              ``col_moments`` equal to kernel 1 resident and timed, a
-              traced pass split into the prefix's kernel, the copies and
-              the blocks' kernels, and the k = 10 fit equal to the
-              resident quad-word fit bit for bit
+              ``col_moments`` equal to kernel 1 resident and to its plain
+              version and timed, a traced pass split into the prefix's
+              kernel, the copies and the blocks' kernels, and the k = 10
+              fit equal to the resident quad-word fit bit for bit, also
+              through ``fit_iht(y, genotypes)`` (the registration and the
+              prefix reused)
 13. cv-miss   the same cv on 10k x 1M genotypes with missing calls (the
               score with its missing plane), after kernels 2 and 1 vs plain
               bit for bit and equal to each other, timed at m=100 on them
@@ -2580,6 +2585,17 @@ def stream_of(g, **kw):
     return s, sop, t_host, t_op
 
 
+class PlainQuadOp(PackedOp):
+    """A PackedOp whose score is kernel 1's plain version on the card
+    (``decode.xt_dots_words``): the reference the streamed passes are held
+    to, beside kernel 1 on the resident words."""
+
+    def _xt_dots(self, RT, want_sq=False):
+        g = self.geno
+        return decode.xt_dots_words(g.words, RT, want_missing=g.has_missing,
+                                    want_sq=want_sq, p=g.p)
+
+
 def streamed_bytes(sop):
     return sum(-(-hi // 4) - lo // 4 for lo, hi in sop._blocks()) \
         * sop.geno.words.shape[1] * 4
@@ -2587,10 +2603,13 @@ def streamed_bytes(sop):
 
 def check_stream_passes(name, sop, quad, gen, link, card, widths=(1, 100)):
     """The streamed ``xtr`` at each width and ``col_moments`` (m = 2, with
-    S) against kernel 1 on the resident words (``quad``), torch.equal; the
-    pass time against the link bound (the streamed bytes over the measured
-    registered rate, and over the data sheet's); returns {field: value}."""
+    S) against kernel 1 on the resident words (``quad``) and against its
+    plain version (``decode.xt_dots_words``) on the same R, torch.equal;
+    the pass time against the link bound (the streamed bytes over the
+    measured registered rate, and over the data sheet's); returns {field:
+    value}, ``launches`` the kernel-1 launches counted in one pass."""
     g = quad.geno
+    plain = PlainQuadOp(g)
     out = {}
     per_pass = len(sop._blocks()) + (sop.prefix is not None)
     link_ms = streamed_bytes(sop) / link * 1e3
@@ -2601,16 +2620,20 @@ def check_stream_passes(name, sop, quad, gen, link, card, widths=(1, 100)):
         got = sop.xtr(R)
         launches = kernels.LAUNCHES["xt_dots_words"]
         want = quad.xtr(R)
+        ref = plain.xtr(R)
         sync()
-        if not torch.equal(got, want) or launches != per_pass:
+        if not (torch.equal(got, want) and torch.equal(got, ref)) \
+                or launches != per_pass:
             raise AssertionError(f"{name}: the streamed pass at m = {m} "
-                                 f"differs from kernel 1 ({launches} "
-                                 f"launches, {per_pass} expected)")
+                                 f"differs from kernel 1 or its plain "
+                                 f"version ({launches} launches, {per_pass} "
+                                 "expected)")
         ms = wall_ms(lambda: sop.xtr(R), 3)
         res = cuda_ms(lambda: quad.xtr(R), 3)
         out.update({f"ms_m{m}": ms, f"resident_ms_m{m}": res})
         print(f"[{name}] streamed xtr m={m}: equal to kernel 1 on the "
-              f"resident words bit for bit; {launches} kernel-1 launches a "
+              f"resident words and to its plain version bit for bit; "
+              f"{launches} kernel-1 launches a "
               f"pass ({len(sop._blocks())} blocks"
               f"{' + the prefix' if sop.prefix is not None else ''}); "
               f"{ms:.3f} ms a pass against the link bound {link_ms:.3f} ms "
@@ -2620,14 +2643,15 @@ def check_stream_passes(name, sop, quad, gen, link, card, widths=(1, 100)):
               f"{card}", flush=True)
     W = (rhs_on(g, 1, gen).T > 0).to(torch.float32)
     WY = W * rhs_on(g, 1, gen).T
-    for a, b in zip(sop.col_moments(W, WY), quad.col_moments(W, WY)):
+    for a, b, c in zip(sop.col_moments(W, WY), quad.col_moments(W, WY),
+                       plain.col_moments(W, WY)):
         sync()
-        if not torch.equal(a, b):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
             raise AssertionError(f"{name}: streamed col_moments differ")
     print(f"[{name}] streamed col_moments (m = 2, S): equal to kernel 1's "
-          "bit for bit", flush=True)
+          "and its plain version's bit for bit", flush=True)
     out.update(link_bound_ms=link_ms, sheet_bound_ms=sheet_ms,
-               bytes=streamed_bytes(sop))
+               bytes=streamed_bytes(sop), launches=launches)
     return out
 
 
@@ -2665,6 +2689,18 @@ def trace_pass(name, sop, g, gen, card, m=100):
 def same_fit(a, b):
     return (np.array_equal(a.beta, b.beta) and np.array_equal(a.c, b.c)
             and a.logl == b.logl and a.iter == b.iter)
+
+
+def entry_fit(y, s):
+    """The fit as a user calls it, ``fit_iht(y, s)`` on the genotypes,
+    after an operator over them was built: (result, wall s, ms to build
+    one more operator, which reuses the registration and the prefix)."""
+    t0 = time.perf_counter()
+    StreamedPackedOp(s)
+    sync()
+    t_again = time.perf_counter() - t0
+    r, w, _ = timed_fit(y, s, k=K, verbose=False)
+    return r, w, t_again
 
 
 def timed_fit(y, x, **kw):
@@ -2714,20 +2750,25 @@ def phase_stream(g, y, dual_mse, card, gen, link):
           f"of {s.block_p} SNPs, nothing resident; operator built (host "
           f"words registered) in {t_op:.2f} s", flush=True)
     out = check_stream_passes("stream", sop, quad, gen, link, card)
+    launches = {"pass": out.pop("launches")}
     out.update(trace_pass("stream", sop, g, gen, card))
-    launches = {"pass": len(sop._blocks())}
 
     r0, w0, _ = timed_fit(y, quad, k=K, verbose=False)
     sop.syncs = sop.copies = 0
     r1, w1, launches["fit"] = timed_fit(y, sop, k=K, verbose=False)
-    same = same_fit(r0, r1)
+    r2, w2, t_again = entry_fit(y, s)
+    same = same_fit(r0, r1) and same_fit(r0, r2)
     print(f"[stream] streamed fit k={K}: {w1:.3f} s ({w0:.3f} s resident) "
           f"on {card}; iter {r1.iter}, logl {r1.logl}; betas, c, iterations "
           f"and logl equal to the quad-word fit's bit for bit {same}; "
           f"kernel-1 launches {launches['fit']}, {sop.copies} block copies, "
-          f"{sop.syncs} index fetches of the forward products", flush=True)
+          f"{sop.syncs} index fetches of the forward products; "
+          f"fit_iht(y, genotypes) {w2:.3f} s (its operator over the "
+          f"registered words; another built in {t_again * 1e3:.2f} ms)",
+          flush=True)
     if not same or launches["fit"] < r1.iter + 1:
         raise AssertionError("stream: the streamed fit differs")
+    out.update(fit_s=w1, fit_entry_s=w2)
 
     sop.syncs = sop.copies = 0
     mse, wall, counts, st = run_cv(sop, y)
@@ -2832,29 +2873,33 @@ def phase_hybrid(g, causal, beta, card, gen, link):
           f"built ({s.words.nbytes / 1e9:.2f} GB registered, the prefix "
           f"uploaded) in {t_op:.2f} s",
           flush=True)
-    out = {f"hybrid_{k}": v for k, v in check_stream_passes(
-        "hybrid", sop, quad, gen, link, card).items()}
+    passes = check_stream_passes("hybrid", sop, quad, gen, link, card)
+    pass_launches = passes.pop("launches")
+    out = {f"hybrid_{k}": v for k, v in passes.items()}
     out.update({f"hybrid_{k}": v for k, v in trace_pass(
         "hybrid", sop, g8, gen, card).items()})
     r0, w0, _ = timed_fit(y8, quad, k=K, verbose=False)
     sop.syncs = sop.copies = 0
     r1, w1, launches = timed_fit(y8, sop, k=K, verbose=False)
-    same = same_fit(r0, r1)
+    r2, w2, t_again = entry_fit(y8, s)
+    same = same_fit(r0, r1) and same_fit(r0, r2)
     found = len(set(np.flatnonzero(r1.beta)) & set(causal.tolist()))
     print(f"[hybrid] streamed fit k={K}: {w1:.3f} s ({w0:.3f} s resident) on "
           f"{card}; iter {r1.iter}, logl {r1.logl}, causal recovered "
           f"{found}/{K}; equal to the resident quad-word fit bit for bit "
           f"{same}; kernel-1 launches {launches}, {sop.copies} block copies, "
-          f"{sop.syncs} index fetches", flush=True)
+          f"{sop.syncs} index fetches; fit_iht(y, genotypes) {w2:.3f} s "
+          f"(its operator over the registered words and the uploaded "
+          f"prefix; another built in {t_again * 1e3:.2f} ms)", flush=True)
     if not same or launches < r1.iter + 1:
         raise AssertionError("hybrid: the streamed fit differs")
-    out["hybrid_fit_s"] = w1
+    out.update(hybrid_fit_s=w1, hybrid_fit_entry_s=w2)
     del sop, s, quad, g8
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[hybrid] phase in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return out, launches
+    return out, {"hybrid pass": pass_launches, "hybrid fit": launches}
 
 
 def main(dev=None):
@@ -2909,8 +2954,8 @@ def main(dev=None):
     link = phase_hostlink(dev, card)
     stream, k1["stream_launches"] = phase_stream(g, y, dual_mse, card, gen,
                                                  link)
-    hybrid, k1["stream_launches"]["hybrid fit"] = phase_hybrid(
-        g, causal, beta, card, gen, link)
+    hybrid, hybrid_launches = phase_hybrid(g, causal, beta, card, gen, link)
+    k1["stream_launches"].update(hybrid_launches)
     k1.update(stream, **hybrid)
     for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
         st.update(moments[name])

@@ -170,6 +170,17 @@ def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
     return op, data, cfg, k_scalar
 
 
+def streamed_segments(op, checkpoint_dir, checkpoint_every, verbose):
+    """The checkpoint options of a fit's solve: a streamed fit's
+    (``checkpoint_dir`` / ``checkpoint_every``, as the JAX package's
+    streamed fit takes them), none for a resident one, which ignores
+    them as there."""
+    if not isinstance(op, StreamedPackedOp):
+        return {}
+    return dict(checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, verbose=verbose)
+
+
 def fit_fused_sparse(op, data: FitData, cfg: FitConfig, ks, cv_wts,
                      init_beta: bool = False, **segments):
     """init + solve + finalize + pve of a batch of fits, and their sparse
@@ -258,17 +269,10 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
         k_task = int(k)
     else:
         k_task = k_scalar
-    cv_wts = data.sample_mask[None, :]
-    if isinstance(op, StreamedPackedOp):
-        # out of core: the same solver, with the streamed fits' checkpoints
-        from .streamed import fit_fused_sparse_host
-        parts = fit_fused_sparse_host(
-            op, data, cfg, [k_task], cv_wts, init_beta=init_beta,
-            checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, verbose=verbose)
-    else:
-        parts = fit_fused_sparse(op, data, cfg, [k_task], cv_wts,
-                                 init_beta=init_beta)
+    parts = fit_fused_sparse(op, data, cfg, [k_task],
+                             data.sample_mask[None, :], init_beta=init_beta,
+                             **streamed_segments(op, checkpoint_dir,
+                                                 checkpoint_every, verbose))
     # one host fetch, sparse: ~S floats instead of the dense (p,) beta
     (sel_idx, sel_valid, sel_bc, c, logl, iters, failed, sg) = (
         t[0].cpu().numpy() for t in parts)

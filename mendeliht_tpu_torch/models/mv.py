@@ -26,8 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import make_operator
-from ..ops.streaming import StreamedPackedOp
-from .fit import check_dtype
+from .fit import check_dtype, streamed_segments
 from .initialize import _initialize_beta
 from .pve import masked_var
 from .results import MIHTResult, print_cv_results
@@ -547,15 +546,10 @@ def fit_mv_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
         print_parameters(io, k, "mvnormal", "identity", False, None, debias,
                          tol, max_iter, min_iter, op.device)
     t0 = _time.time()
-    if isinstance(op, StreamedPackedOp):
-        from .mv_streamed import fit_mv_host as fit
-        segments = dict(checkpoint_dir=checkpoint_dir,
-                        checkpoint_every=checkpoint_every, verbose=verbose)
-    else:
-        fit, segments = fit_mv, {}
-    st, Sigma, sigma_g = fit(op, data, cfg, [int(k)],
-                             data.sample_mask[None, :], init_beta=init_beta,
-                             **segments)
+    st, Sigma, sigma_g = fit_mv(
+        op, data, cfg, [int(k)], data.sample_mask[None, :],
+        init_beta=init_beta, **streamed_segments(
+            op, checkpoint_dir, checkpoint_every, verbose))
     B_h, C_h, logl_h, iters_h, failed_h, Sigma_h, sg_h = (
         t[0].cpu().numpy() for t in (st.B, st.C, st.best_logl, st.iters,
                                      st.failed, Sigma, sigma_g))

@@ -1,31 +1,7 @@
-"""Out-of-core (streamed) multivariate fit and cv entries (the JAX
-package's ``models/mv_streamed.py``): thin wrappers over the port's
-host-stepped mv solver (``mv.run_mv_segment`` through
-``univariate.run_segmented``), as ``models/streamed.py`` is over the
-univariate one."""
+"""Out-of-core (streamed) multivariate fit and cv entries, under the names
+of the JAX package's ``models/mv_streamed.py``: the port's host-stepped
+mv solver (``mv.run_mv_segment`` through ``univariate.run_segmented``)
+runs a ``StreamedPackedOp`` as it is, as ``models/streamed.py`` says of
+the univariate one."""
 
-from __future__ import annotations
-
-from .mv import cv_mv, fit_mv
-
-
-def fit_mv_host(op, data, cfg, ks, cv_wts, init_beta=False,
-                checkpoint_dir=None, checkpoint_every: int = 20,
-                verbose: bool = False):
-    """init + solve; (state, Sigma, per-trait PVE) as ``mv.fit_mv``,
-    saving the state to ``checkpoint_dir`` every ``checkpoint_every``
-    iterations and resuming from the newest one there."""
-    return fit_mv(op, data, cfg, ks, cv_wts, init_beta=init_beta,
-                  checkpoint_dir=checkpoint_dir,
-                  checkpoint_every=checkpoint_every, verbose=verbose)
-
-
-def cv_mv_host(op, data, cfg, ks, train_wts, test_wts, init_beta=False,
-               checkpoint_dir=None, checkpoint_every: int = 20,
-               show_progress: bool = False, verbose: bool = False):
-    """The holdout mse of a batch of (fold, k) tasks (``mv.cv_mv``), with
-    checkpoints and progress as ``cv_iht`` takes them."""
-    return cv_mv(op, data, cfg, ks, train_wts, test_wts,
-                 init_beta=init_beta, checkpoint_dir=checkpoint_dir,
-                 checkpoint_every=checkpoint_every, progress=show_progress,
-                 verbose=verbose)
+from .mv import cv_mv as cv_mv_host, fit_mv as fit_mv_host  # noqa: F401

@@ -1,49 +1,17 @@
-"""Out-of-core (streamed) fit and cv entries (the JAX package's
-``models/streamed.py``).
+"""Out-of-core (streamed) fit and cv entries, under the names of the JAX
+package's ``models/streamed.py``.
 
 The JAX package's resident solver is one traced ``lax.while_loop``, so an
 operator that streams host blocks needs its own host-stepped loop there.
 The port's solver is stepped from the host already (``univariate.py``),
-so these entries are thin wrappers over it: the same ``init_state``,
-``run_segmented`` (checkpoints and progress) and finalize on a
-``StreamedPackedOp``, as ``fit_iht`` and ``cv_iht`` route a
-``HostStreamedGenotypes``.  A fit of a matrix past the card's memory on
-a slow link is long, so the fit takes ``checkpoint_dir`` as the cv does;
-a restored state continues bit for bit.
+so a ``StreamedPackedOp`` runs the resident entries themselves, and
+these names are those entries: ``fit_iht`` and ``cv_iht`` route a
+``HostStreamedGenotypes`` to them.  Their ``checkpoint_dir`` /
+``checkpoint_every`` (and the cv's ``progress``, the JAX package's
+``show_progress``) are ``univariate.run_segmented``'s; the per-iteration
+lines go to ``cfg.log_io``, which ``fit_iht(io=...)`` sets, where the
+JAX package's streamed fit takes ``io``.
 """
 
-from __future__ import annotations
-
-import dataclasses
-
-from .fit import fit_fused_sparse
-from .univariate import cv_fused
-
-
-def fit_fused_sparse_host(op, data, cfg, ks, cv_wts, init_beta=False,
-                          io=None, checkpoint_dir=None,
-                          checkpoint_every: int = 20, verbose: bool = False):
-    """init + solve + finalize + pve and the sparse result pieces of a
-    batch of fits (``fit.fit_fused_sparse``), saving the state to
-    ``checkpoint_dir`` every ``checkpoint_every`` iterations and resuming
-    from the newest one there; with ``io``, each iteration's line goes to
-    it and to stdout (reference src/fit.jl:194-196)."""
-    if io is not None:
-        cfg = dataclasses.replace(cfg, log_iters=True, log_io=io)
-    return fit_fused_sparse(op, data, cfg, ks, cv_wts, init_beta=init_beta,
-                            checkpoint_dir=checkpoint_dir,
-                            checkpoint_every=checkpoint_every,
-                            verbose=verbose)
-
-
-def cv_fused_host(op, data, cfg, ks, train_wts, test_wts, init_beta=False,
-                  checkpoint_dir=None, checkpoint_every: int = 20,
-                  show_progress: bool = False, verbose: bool = False):
-    """The holdout deviances of a (fold, k) grid solved as one batch
-    (``univariate.cv_fused``: every streamed pass serves the whole grid),
-    with ``checkpoint_dir`` / ``checkpoint_every`` and ``show_progress``
-    as ``cv_iht`` takes them."""
-    return cv_fused(op, data, cfg, ks, train_wts, test_wts,
-                    init_beta=init_beta, checkpoint_dir=checkpoint_dir,
-                    checkpoint_every=checkpoint_every,
-                    progress=show_progress, verbose=verbose)
+from .fit import fit_fused_sparse as fit_fused_sparse_host  # noqa: F401
+from .univariate import cv_fused as cv_fused_host  # noqa: F401

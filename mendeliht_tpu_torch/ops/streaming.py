@@ -10,9 +10,12 @@ operator keeps a resident prefix of the quad rows on the card (up to
 and streams the rest in blocks of ``block_p`` SNPs on each pass:
 
 - the host words are page-locked in place (``cudaHostRegister`` on the
-  numpy buffer, undone when the operator goes away; a copy through
-  ``Tensor.pin_memory`` would double host RAM at biobank size), and a
-  failed registration raises;
+  numpy buffer; a copy through ``Tensor.pin_memory`` would double host
+  RAM at biobank size), and a failed registration raises.  The
+  registration and the resident prefix belong to the genotypes: the first
+  operator over them makes both, every later one (each ``fit_iht`` /
+  ``cv_iht`` call builds its own) reuses them, and they go when the
+  genotypes go;
 - a side stream copies block i + 1 into one of two preallocated device
   buffers while kernel 1 (``kernels.xt_dots_words``) reads block i from
   the other; CUDA events order the two streams (a copy into a buffer waits
@@ -58,7 +61,7 @@ def _resident_budget() -> int:
     return _env_int("MENDELIHT_STREAM_RESIDENT_BYTES", _RESIDENT_DEFAULT)
 
 
-# page-locked host buffers by address: how many operators hold each
+# page-locked host buffers by address: how many genotypes hold each
 _REGISTERED: dict[int, int] = {}
 
 
@@ -98,7 +101,8 @@ class HostStreamedGenotypes:
     ``block_bytes`` of packed words are streamed a block (``block_p``
     SNPs), and up to ``resident_bytes`` of the leading quad rows stay on
     the device (None: ``MENDELIHT_STREAM_RESIDENT_BYTES``, default 10 GiB;
-    0 streams everything)."""
+    0 streams everything).  The page lock of ``words`` and the resident
+    prefix (:meth:`resident_words`) last as long as these genotypes."""
 
     words: np.ndarray             # (ceil(p/4), n4) int32 quad words, host
     mu: torch.Tensor              # (p,) on the device
@@ -108,6 +112,9 @@ class HostStreamedGenotypes:
     has_missing: bool
     block_bytes: int = _BLOCK_DEFAULT
     resident_bytes: int | None = None
+    # the registration and the prefix, made by the first operator
+    _held: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     @property
     def shape(self):
@@ -135,6 +142,23 @@ class HostStreamedGenotypes:
                 f"words={self.words.shape} int32 host, "
                 f"block_p={self.block_p}, has_missing={self.has_missing}, "
                 f"device={self.device})")
+
+    def resident_words(self, res_q: int) -> torch.Tensor | None:
+        """The leading ``res_q`` quad rows on the device (None for 0),
+        uploaded once and reused while ``res_q`` stays the same; on the card
+        the host words are page-locked first, until these genotypes are
+        freed."""
+        held = self._held
+        if self.device.type == "cuda" and not held.get("registered"):
+            _register(self.words)
+            weakref.finalize(self, _release, self.words)
+            held["registered"] = True
+        if held.get("res_q") != res_q:
+            held.pop("prefix", None)
+            held["prefix"] = (torch.from_numpy(self.words[:res_q])
+                              .to(self.device) if res_q else None)
+            held["res_q"] = res_q
+        return held["prefix"]
 
     @classmethod
     def from_snparray(cls, geno: PackedGenotypes,
@@ -192,13 +216,11 @@ class StreamedPackedOp(PackedOp):
         self.syncs = self.copies = 0
         self._host = torch.from_numpy(geno.words)          # a view
         dev = geno.device
-        if dev.type == "cuda":
-            _register(geno.words)
-            weakref.finalize(self, _release, geno.words)
+        words = geno.resident_words(res_q)
         self.prefix = None
         if res_q:
             self.prefix = PackedGenotypes(
-                words=self._host[:res_q].to(dev), mu=geno.mu[:self.p_res],
+                words=words, mu=geno.mu[:self.p_res],
                 inv_sd=geno.inv_sd[:self.p_res], n=geno.n, p=self.p_res,
                 has_missing=geno.has_missing)
         rows = min(geno.block_p // 4, p4 - res_q)

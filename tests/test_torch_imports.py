@@ -760,22 +760,33 @@ def test_streamed_score_equals_kernel_1_on_card(cuda_device, resident_q):
 
 @pytest.mark.cuda
 def test_streamed_words_unregistered_when_operator_freed(cuda_device):
-    """The host words stay page-locked while an operator holds them (two
-    operators share one registration) and are unregistered when the last
-    is freed: registering them again then succeeds."""
+    """The host words are page-locked by the first operator and stay so,
+    with the resident prefix, while their genotypes live: every later
+    operator (two genotypes over one buffer among them) reuses them, and
+    the words are unregistered when the operators and the last genotypes
+    over them are freed: registering them again then succeeds."""
+    import dataclasses
     import gc
     from mendeliht_tpu_torch.ops.streaming import (StreamedPackedOp,
                                                    is_registered)
-    _, s = _streamed_case(cuda_device, 0)
-    a, b = StreamedPackedOp(s), StreamedPackedOp(s)
-    assert is_registered(s.words)
-    del a
+    _, s = _streamed_case(cuda_device, 37)
+    words = s.words
+    a = StreamedPackedOp(s)
+    assert is_registered(words)
+    b = StreamedPackedOp(s)
+    assert b.prefix.words is a.prefix.words
+    del a, b
     gc.collect()
-    assert is_registered(s.words)
-    del b
+    assert is_registered(words)
+    t = dataclasses.replace(s)
+    StreamedPackedOp(t)
+    del s
     gc.collect()
-    assert not is_registered(s.words)
+    assert is_registered(words)
+    del t
+    gc.collect()
+    assert not is_registered(words)
     cudart = torch.cuda.cudart()
-    assert int(cudart.cudaHostRegister(s.words.ctypes.data, s.words.nbytes,
+    assert int(cudart.cudaHostRegister(words.ctypes.data, words.nbytes,
                                        0)) == 0
-    assert int(cudart.cudaHostUnregister(s.words.ctypes.data)) == 0
+    assert int(cudart.cudaHostUnregister(words.ctypes.data)) == 0

@@ -186,6 +186,27 @@ def test_resident_budget_from_environment(op_case, monkeypatch):
         make_operator(s)
 
 
+def test_operators_share_the_resident_prefix(op_case):
+    """Every operator over the same genotypes (each fit_iht / cv_iht call
+    builds one) reuses the prefix the first made; a new budget makes a
+    new one, and the scores do not change."""
+    g, R = op_case[:2]
+    row = g.words.shape[1] * 4
+    s = _port_stream(_port(g), resident_bytes=10 * row)
+    a, b = make_operator(s), make_operator(s)
+    assert b.prefix.words is a.prefix.words and a.p_res == 40
+    s.resident_bytes = 5 * row
+    c = make_operator(s)
+    assert c.p_res == 20 and c.prefix.words.shape[0] == 5
+    assert make_operator(s).prefix.words is c.prefix.words
+    Rt = torch.from_numpy(R)
+    assert torch.equal(c.forward_sel(*(torch.from_numpy(x) for x in
+                                       op_case[2:])),
+                       a.forward_sel(*(torch.from_numpy(x) for x in
+                                       op_case[2:])))
+    _close(c.xtr(Rt), a.xtr(Rt))
+
+
 def test_make_operator_rejects_other_types():
     with pytest.raises(TypeError, match="unsupported design matrix type"):
         make_operator(object())
@@ -364,10 +385,16 @@ def test_streamed_mv_cv_matches_jax(mv_problem):
 
 
 def test_streamed_entries_equal_the_solver(cv_problem):
-    """``models/streamed.py`` and ``mv_streamed.py`` are thin wrappers: the
-    fit and cv that ``fit_iht`` / ``cv_iht`` run, bit for bit."""
+    """``models/streamed.py`` and ``mv_streamed.py`` name the fit and cv
+    that ``fit_iht`` / ``cv_iht`` run on a streamed operator, and give
+    their results bit for bit."""
     from mendeliht_tpu_torch.models import fit as tfit
-    from mendeliht_tpu_torch.models import streamed, univariate
+    from mendeliht_tpu_torch.models import mv as tmv
+    from mendeliht_tpu_torch.models import mv_streamed, streamed, univariate
+    assert streamed.fit_fused_sparse_host is tfit.fit_fused_sparse
+    assert streamed.cv_fused_host is univariate.cv_fused
+    assert mv_streamed.fit_mv_host is tmv.fit_mv
+    assert mv_streamed.cv_mv_host is tmv.cv_mv
     g, y, folds = cv_problem
     op, data, cfg, _ = tfit.build_fit(y, _port_stream(_port(g)), None, k=4)
     cv_wts = data.sample_mask[None, :]
