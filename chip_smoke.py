@@ -7,11 +7,13 @@ Phases, one or more lines each; any failure raises (non-zero exit, no
 result line):
 
 1. device     name, ``nvidia-smi`` name and power limit; TF32 off
-2. build      the four CUDA sources of ``mendeliht_tpu_torch/csrc``, one
-              nvcc each, all started together; ptxas register/spill lines,
-              and the registers, spills and shared memory of kernels 1, 2
-              (and 6) and 7 (``xt_dots_t.cu``, one body, three layouts)
-              summed up
+2. build      the four CUDA sources of ``mendeliht_tpu_torch/csrc`` and
+              ``xt_dots_t.cu`` again under ``-DXT_DOTS_RAW`` (the float64
+              score's raw-sum entries of kernels 1 and 2), one nvcc each,
+              all started together; ptxas register/spill lines, and the
+              registers, spills and shared memory of kernels 1, 2 (and 6)
+              and 7 (``xt_dots_t.cu``, one body, three layouts) and of the
+              raw-sum entries summed up
 3. kernel     kernel 1 (``xt_dots_words``, quad words, int8 digit planes on
               the tensor cores) vs its plain PyTorch version on the card,
               bit for bit: n=10k x p=65,536 and n=200k x p=4,096 (long
@@ -54,6 +56,10 @@ result line):
               groups, weights with zkeep): same support, iterations within
               one; and the init_beta cv, path 1:10, q=3: mse within 1e-4,
               same best k
+   float64-parity  the float64 fit (k = 10) at 2,000 x 20,000 on the card
+              (kernel 2's float64 entry) and on the CPU (the unquantised
+              float64 score): same support and iterations, beta within 1e-9
+              of max|beta|
    mv-parity  the multivariate fit (3 traits, k=12, the flagship response
               below; plain and with init_beta) on the card and on the CPU
               at that size, each line search traced: same (trait, SNP)
@@ -85,6 +91,23 @@ result line):
 10. profile   ``profiling.trace`` over one warm cv and one warm dual fit:
               wall, device busy and idle share, launches, syncs, the
               heaviest device kernels
+    float64   (run after mv: see main) float64 fits at 10k x 1M: kernels 2
+              and 1's float64 entries
+              (``xt_dots_words_t_f64``, ``xt_dots_words_f64``) at m = 1, 8,
+              100 and 200 with S, their digit sums bit for bit against the
+              plain ones (``decode.digit_sums64``, a chunk of SNPs at a
+              time), their float64 scores bit for bit against the plain
+              float64 score and each other and within 1e-13 * n_pad *
+              max|R_col| of the unquantised float64 ``decode.xt_dots``,
+              timed in turns (the whole score call, and the raw-sum entry
+              alone) beside their bound and one plain call; the Gaussian
+              fit (k = 10) through both layouts, cold and warm (identical;
+              the f32 fit's support, 10/10 causal); the cv (path 1:20, q =
+              5, the cv phase's folds) through both layouts (mse equal bit
+              for bit, the f32 cv's best k, peak memory); the init_beta fit
+              (S); the Bernoulli fit beside the f32 one (support and
+              iterations: the check ROADMAP Queue 3 owed); a
+              ``profiling.trace`` of a warm float64 cv and fit
 11. lab       the kernel lab (``mendeliht_tpu_torch.tools.kernel_lab5``) on
               the same 10k x 1M genotypes: ``main(["--quick"])`` (int4
               probes, int8/int4 ingestion, quad and int8 digit-plane score
@@ -224,7 +247,9 @@ result line):
               bit for bit and equal to each other, timed at m=100 on them
               beside their bound (6 planes), and at the moments phase's
               widths with S and M; then ``profiling.trace`` of one warm cv
-              on them
+              on them; then (float64-miss) the float64 entries with M at m
+              = 100 as the float64 phase holds them, and the float64 cv on
+              those genotypes with the f32 cv's best k
 14. budget    past the 3 GiB dual-layout budget, after every other genotype
               is freed: 51,200 x 1,000,000 random quad words made on the card
               (12.8 GB, every crumb code), ``build_words_t`` of them (timed),
@@ -254,7 +279,11 @@ pass times beside their link bounds),
 ``cross_validate`` and multivariate ``iht``, the
 read-ceiling measurement (kernel 3) and the lab run (kernels 4-6;
 ``lab_launches`` of every kernel) and the probe's
-run (kernels 7-9; ``probe_launches`` of every kernel).  Each entry's
+run (kernels 7-9; ``probe_launches`` of every kernel); the float64 entries
+of kernels 1 and 2 (``xt_dots_words_f64``, ``xt_dots_words_t_f64``) from the
+float64 quad-word fit and the float64 dual cv (their ``ms`` the whole
+float64 score call at m = 1 and m = 100, ``raw_ms_*`` the raw-sum entry
+alone).  Each entry's
 ``bound_ms`` is the larger of its bytes over the data sheet's memory rate
 and its operations over the data sheet's rate for their type (f32 or int32
 on the CUDA cores, int8 on the tensor cores), for this run's shapes.
@@ -305,7 +334,7 @@ CV_PATH, CV_Q = list(range(1, 21)), 5    # the reference-shaped cv grid
 # warm runs after the cold one, and of the plain versions' timings below:
 # few, so that the whole run keeps within its time budget (each warm run
 # is checked equal to the cold one; the medians print beside their range)
-FIT_WARM, CV_WARM, CVQ_WARM = 5, 3, 2
+FIT_WARM, CV_WARM, CVQ_WARM = 3, 2, 1
 FAM_FIT_WARM, FAM_CV_WARM = 3, 2         # the families phase's
 OPT_FIT_WARM, OPT_CV_WARM = 3, 2         # the options phase's
 PLAIN_REPS = 1                           # plain calls a timing, twice
@@ -366,7 +395,14 @@ CV_MAX_ITER = 100                        # cv_iht's default
 FIT_MAX_ITER = 200                       # fit_iht's default
 SEED = 2026
 CV_TOL = 1e-4      # cv mse, card vs CPU: f32 sums in another order
-SOURCES = ("xt_dots_t", "read_probe", "int_probe", "kernel_probe")
+# the float64 phases: kernels 1 and 2's float64 entries at these widths
+# (and 200 with S, 100 with M), the dual fit's warm runs, and the float64
+# fit's beta, card vs CPU, within this share of max|beta|
+F64_WIDTHS, F64_WARM, F64_PARITY_TOL = (1, 8, 100), 2, 1e-9
+# the sources built, one nvcc each: xt_dots_t_raw is xt_dots_t.cu under
+# -DXT_DOTS_RAW, the float64 score's raw-sum entries of kernels 1 and 2
+SOURCES = ("xt_dots_t", "xt_dots_t_raw", "read_probe", "int_probe",
+           "kernel_probe")
 # kernel 6 runs kernel 2's body on the same words at the same width: its
 # m = 100 time may exceed kernel 2's by no more than run-to-run noise
 SAME_BODY_SLACK = 1.10
@@ -384,6 +420,10 @@ WRAP_SEED = 2**31 - 3                # words + seed wraps in int32
 # seed add and the xor; for the decode also h = (t >> 1) & 0x55555555 and its
 # 16 crumb values' sum popc(h) + popc(h & t), 6 more (kernel 9's own form)
 XOR_OPS = {"stream_xor": 2, "decode_only": 2 + 6}
+# profiler traces of a timed run taken before device_ms gives up: on an
+# H100 a trace has lost one kernel record of 200, or two, or 125, and only
+# a trace that holds every call's kernels is read
+TRACE_TRIES = 8
 # bytes read between two cold calls of kernel 5: over twice the 50 MB L2
 FLUSH_BYTES = 128 << 20
 # kernel 9 reads what kernel 8 reads, with two popcounts a word more: timed
@@ -425,6 +465,15 @@ KERNELS = {
     "decode_only": dict(
         route="cuda", source="mendeliht_tpu_torch/csrc/kernel_probe.cu",
         replaces="tools/kernel_probe.py:165"),
+    # the float64 score: kernels 1 and 2's raw-sum entries of the same body
+    # (the JAX package's float64 score is its XLA decode.xt_dots, so no
+    # pallas_call of its own: these entries stand in kernels 1 and 2's rows)
+    "xt_dots_words_f64": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots_t.cu",
+        replaces="mendeliht_tpu/ops/pallas_kernels.py:157"),
+    "xt_dots_words_t_f64": dict(
+        route="cuda", source="mendeliht_tpu_torch/csrc/xt_dots_t.cu",
+        replaces="mendeliht_tpu/ops/pallas_kernels.py:398"),
 }
 
 
@@ -462,7 +511,7 @@ def device_ms(fn, reps, match=None, skip=()):
     calls so short that CUDA events would time the host's launches
     instead."""
     fn()
-    for _ in range(3):
+    for _ in range(TRACE_TRIES):
         with profiling.trace(top=64) as s:
             for _ in range(reps):
                 fn()
@@ -544,7 +593,7 @@ def phase_build():
     # template argument (Layout: 0 T, 1 QUAD, 2 ROW)
     found = {"0": [], "1": [], "2": []}
     for block in text.split("Compiling entry function '")[1:]:
-        layout = re.search(r"(\d)EEEv", block.split("'", 1)[0]).group(1)
+        layout = re.search(r"LayoutE(\d)E", block.split("'", 1)[0]).group(1)
         found[layout].append((
             int(re.search(r"Used (\d+) registers", block).group(1)),
             max(map(int, re.findall(r"(\d+) bytes spill", block)),
@@ -558,6 +607,14 @@ def phase_build():
               f"spill bytes {max(b for _, b in found[layout])} at most, "
               f"static shared memory {smem} bytes (the stage ring is "
               "dynamic: 3-8 stages, sized at launch)", flush=True)
+    raw = next(lib for lib in libs if lib.stem.startswith("xt_dots_t_raw-"))
+    text = raw.with_suffix(".log").read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spill = max(map(int, re.findall(r"(\d+) bytes spill", text)), default=0)
+    print(f"[build] kernels 1 and 2's float64 raw-sum entries, xt_dots_t.cu "
+          f"-DXT_DOTS_RAW: {len(regs)} instantiations, registers "
+          f"{min(regs)}-{max(regs)} a thread, spill bytes {spill} at most",
+          flush=True)
 
 
 def check_cases(name, kernel, plain, arr, g, gen):
@@ -2457,8 +2514,9 @@ def phase_missing(g, y, card, gen):
     """Kernels 2 and 1 with their missing plane at the cv width, each bit
     for bit against plain and equal to each other, then the cv, on 10k x 1M
     genotypes with missing calls; returns each kernel's (ms, plain ms, rel
-    err, abs err, bound ms) at m = 100, and under "moments" their fields
-    at the widths of ``moment_widths`` with the missing plane."""
+    err, abs err, bound ms) at m = 100, under "moments" their fields at
+    the widths of ``moment_widths`` with the missing plane, and under
+    "mse" the cv's."""
     g.with_dual_layout()
     bound_of = int8_bound_of(g, missing=True)
     out = {}
@@ -2472,7 +2530,7 @@ def phase_missing(g, y, card, gen):
         out[name] = (*times[100], bound_of(100)["bound_ms"])
     check_layouts("cv-miss", g, 100, gen)
     out["moments"] = moment_widths("cv-miss", g, gen)
-    phase_cv("cv-miss", g, y, card, warm=1)
+    _, out["mse"] = phase_cv("cv-miss", g, y, card, warm=1)
     phase_profile(g, y, card,
                   calls=(("cv-miss", "xt_dots_t", lambda: run_cv(g, y)),))
     return out
@@ -2902,6 +2960,311 @@ def phase_hybrid(g, causal, beta, card, gen, link):
     return out, {"hybrid pass": pass_launches, "hybrid fit": launches}
 
 
+F64 = torch.float64
+
+
+def rhs64_on(g, m, gen):
+    """A float64 R (n_pad, m) on g's device, zero past the samples."""
+    rhs = torch.randn((g.n_pad, m), generator=gen, device=g.device,
+                      dtype=F64)
+    rhs[g.n:] = 0.0
+    return rhs
+
+
+def f64_bound(g, m, planes):
+    """Bound of one float64 score pass at width m with ``planes`` output
+    planes: the words, R (float64) and the (9m, p) int32 digit sums of
+    each plane moved once; 9 digit rows x 2*n_pad*p*m int8 operations a
+    plane (3 pseudo-columns of 3 digit rows a column)."""
+    nbytes = (g.words.numel() * 4 + 8 * g.n_pad * m
+              + planes * 4 * 9 * m * g.p)
+    return bound(g.device, nbytes, planes * 9 * 2 * g.n_pad * g.p * m, "int8")
+
+
+def check_f64_sums(label, g, rhs, kw, chunk=250_000):
+    """Kernels 2 and 1's float64 entries before the combine
+    (``kernels.digit_sums64``) bit for bit against the plain digit sums
+    (``decode.digit_sums64``), compared a chunk of SNPs at a time."""
+    for transposed, arr in ((True, g.words_t), (False, g.words)):
+        raw = kernels.digit_sums64(arr, rhs, transposed=transposed, **kw)
+        for lo in range(0, g.p, chunk):
+            hi = min(lo + chunk, g.p)
+            quads = g.words[lo // 4:-(-hi // 4)]
+            plain, _ = decode.digit_sums64(decode.quad_rows(quads),
+                                           4 * quads.shape[0], rhs, **kw)
+            for r, w in zip(raw, plain):
+                if r is not None and not torch.equal(
+                        r[lo:hi].to(F64), w[:hi - lo]):
+                    which = "kernel 2" if transposed else "kernel 1"
+                    raise AssertionError(f"{label}: {which}'s float64 digit "
+                                         f"sums differ from plain at SNPs "
+                                         f"{lo}..{hi}")
+            del plain
+        del raw
+
+
+def f64_widths(label, g, gen, widths):
+    """Kernels 2 and 1's float64 entries at each (m, with S) of ``widths``
+    on ``g`` (its missing plane where it misses calls; with S on the R
+    that col_moments makes, else a random float64 R): the digit sums bit
+    for bit against plain (``check_f64_sums``), the float64 scores bit for
+    bit against the plain float64 score and each other, and within
+    1e-13 * n_pad * max|R_col| of the unquantised float64
+    ``decode.xt_dots``; then timed in turns (plain; kernel 2, kernel 1,
+    kernel 1, kernel 2; the raw-sum entry alone, ``digit_sums64``, no
+    combine, in the same turns; plain) beside the bound.  Returns each
+    entry's fields for the kernels line, keyed like ``paired_widths``'."""
+    out = {"xt_dots_words_f64": {}, "xt_dots_words_t_f64": {}}
+    for m, sq in widths:
+        kw = dict(want_missing=g.has_missing, want_sq=sq)
+        key = (f"m{m}{'_sq' if sq else ''}"
+               f"{'_missing' if g.has_missing else ''}")
+        rhs = (moments_rhs(g, m, gen).to(F64) if sq
+               else rhs64_on(g, m, gen))
+        check_f64_sums(label, g, rhs, kw)
+        kwp = dict(kw, p=g.p)
+        ref, plain_ms = timed_call(lambda: decode.xt_dots_words(
+            g.words, rhs, **kwp))
+        exact = decode.xt_dots(g.words, rhs, **kwp)
+        scale = g.n_pad * rhs.abs().amax(dim=0).clamp(min=1e-300)
+        worst = max(float(((a - e).abs() / scale[None, :]).max())
+                    for a, e in zip(ref, exact) if a is not None)
+        del exact
+        if not worst <= 1e-13:
+            raise AssertionError(f"{label}: the float64 score is "
+                                 f"{worst:.3g} x n_pad max|R| from the "
+                                 f"unquantised one at m={m}")
+        calls, raw_calls = {}, {}
+        for name, kern, arr, tr in (
+                ("xt_dots_words_t_f64", kernels.xt_dots_words_t, g.words_t,
+                 True),
+                ("xt_dots_words_f64", kernels.xt_dots_words, g.words, False)):
+            calls[name] = (lambda k=kern, a=arr: k(a, rhs, **kwp))
+            raw_calls[name] = (lambda a=arr, t=tr: kernels.digit_sums64(
+                a, rhs, transposed=t, **kw))
+            got = calls[name]()
+            if not all(same(a, b) for a, b in zip(got, ref) if b is not None):
+                raise AssertionError(f"{label}: {name} at m={m} differs from "
+                                     "the plain float64 score")
+            del got
+        del ref
+        reps = 10 if m <= 8 else 3
+        times = {}
+        plain_runs = [plain_ms]
+        for what, fns in (("", calls), ("raw_", raw_calls)):
+            r2 = [cuda_ms(fns["xt_dots_words_t_f64"], reps)]
+            r1 = [cuda_ms(fns["xt_dots_words_f64"], reps),
+                  cuda_ms(fns["xt_dots_words_f64"], reps)]
+            r2.append(cuda_ms(fns["xt_dots_words_t_f64"], reps))
+            times[what] = {"xt_dots_words_t_f64": r2, "xt_dots_words_f64": r1}
+        # plain again after the kernels: plain, kernels, plain in turns
+        plain_runs.append(timed_call(lambda: decode.xt_dots_words(
+            g.words, rhs, **kwp))[1])
+        plain_ms = sum(plain_runs) / 2
+        b = f64_bound(g, m, 1 + sq + g.has_missing)
+        for name in out:
+            runs, raw = times[""][name], times["raw_"][name]
+            ms, raw_ms = sum(runs) / 2, sum(raw) / 2
+            out[name].update({f"ms_{key}": ms, f"raw_ms_{key}": raw_ms,
+                              f"plain_ms_{key}": plain_ms,
+                              f"bound_ms_{key}": b["bound_ms"],
+                              f"bound_by_{key}": b["bound_by"],
+                              f"max_abs_err_{key}": 0.0,
+                              f"unquantised_err_{key}": worst})
+            print(f"[{label}] {name} {g.n} x {g.p} m={m} sq={sq} missing="
+                  f"{g.has_missing}: digit sums and score bit-equal to plain "
+                  f"and to the other kernel, {worst:.3g} x n_pad max|R| from "
+                  f"the unquantised float64 score; {ms:.3f} ms (runs "
+                  f"{runs[0]:.3f}, {runs[1]:.3f}), raw-sum entry alone "
+                  f"{raw_ms:.3f} ms (runs {raw[0]:.3f}, {raw[1]:.3f}), plain "
+                  f"{plain_ms:.3f} ms (one call before the kernels, one "
+                  f"after: {plain_runs[0]:.3f}, {plain_runs[1]:.3f}), bound "
+                  f"{b['bound_ms']:.3f} ms "
+                  f"({b['bound_by']}), {b['bound_ms'] / raw_ms:.3f} of it by "
+                  "the raw-sum entry", flush=True)
+    return out
+
+
+def f64_fit(y, x, **kw):
+    """(result, wall s, launches of every kernel from 0, peak GiB) of one
+    float64 fit_iht."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = fit_iht(y, x, k=K, verbose=False, dtype=F64, **kw)
+    wall = time.perf_counter() - t0
+    return (r, wall, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def f64_fit_line(label, r, wall, launches, peak, causal, card):
+    sel = np.flatnonzero(r.beta)
+    found = len(set(sel) & set(causal.tolist()))
+    print(f"[float64] {label} {N} x {P} k={K} on {card}: iter {r.iter}, "
+          f"logl {r.logl}, support {sel.tolist()}, causal recovered "
+          f"{found}/{K}, wall {wall:.4f} s, launches "
+          f"{launches['xt_dots_words_t_f64']} (kernel 2 float64), "
+          f"{launches['xt_dots_words_f64']} (kernel 1 float64), "
+          f"{launches['xt_dots_words_t'] + launches['xt_dots_words']} (f32), "
+          f"peak {peak:.2f} GiB", flush=True)
+    if (r.beta.dtype != np.float64 or len(sel) != K
+            or not np.isfinite(r.logl)
+            or launches["xt_dots_words_t"] + launches["xt_dots_words"]):
+        raise AssertionError(f"float64 {label} failed its checks")
+    return set(sel.tolist()), found
+
+
+def phase_float64(g, causal, y, card, dual_mse):
+    """Float64 fits at the reference's headline size, 10k x 1M: kernels 2
+    and 1's float64 entries against plain at m = 1, 8, 100 and 200 with S
+    (``f64_widths``); the Gaussian fit (k = 10) on both layouts, cold and
+    F64_WARM warm, identical, with the f32 fit's support and 10/10 causal;
+    the cv (path 1:20, q = 5, the cv phase's folds) on both layouts, cold
+    and warm, the mse equal bit for bit between them and the f32 cv's best
+    k; the init_beta fit; the Bernoulli fit beside the f32 one (support
+    and iterations: ROADMAP Queue 3's check); a ``profiling.trace`` of a
+    warm float64 cv and fit.  Returns the two entries' fields for the
+    kernels line."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=g.device).manual_seed(SEED + 64)
+    out = f64_widths("float64", g, gen, [(m, False) for m in F64_WIDTHS]
+                     + [(MOMENT_WIDTHS[1], True)])
+    f32 = fit_iht(y, g, k=K, verbose=False)
+    f32_sel = set(np.flatnonzero(f32.beta).tolist())
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    fits = {}
+    for layout, x, warm in (("dual", g, F64_WARM), ("quad", quad, 1)):
+        walls = []
+        for run in range(1 + warm):
+            r, wall, launches, peak = f64_fit(y, x)
+            walls.append(wall)
+            if run == 0:
+                sel, found = f64_fit_line(f"{layout} fit (cold)", r, wall,
+                                          launches, peak, causal, card)
+            elif (np.flatnonzero(r.beta).tolist(), r.iter, r.logl) != (
+                    sorted(sel), fits[layout][1], fits[layout][2]):
+                raise AssertionError(f"float64 {layout} warm fit differs")
+            fits[layout] = (r.beta, r.iter, r.logl, launches)
+        w = np.array(walls[1:])
+        print(f"[float64] {layout} fit: {warm} warm, median "
+              f"{np.median(w):.4f} s, range {w.min():.4f}-{w.max():.4f} s; "
+              f"the f32 fit's support {sel == f32_sel} (f32: iter "
+              f"{f32.iter})", flush=True)
+        if sel != f32_sel or found != K:
+            raise AssertionError(f"float64 {layout} fit: support differs "
+                                 "from the f32 fit's or misses a causal SNP")
+    if not (np.array_equal(fits["dual"][0], fits["quad"][0])
+            and fits["dual"][1:3] == fits["quad"][1:3]):
+        raise AssertionError("float64 quad and dual fits differ")
+    out["xt_dots_words_f64"]["launches"] = \
+        fits["quad"][3]["xt_dots_words_f64"]
+    out["xt_dots_words_t_f64"]["fit_launches"] = \
+        fits["dual"][3]["xt_dots_words_t_f64"]
+    f32_best = CV_PATH[int(np.argmin(dual_mse))]
+    mses = {}
+    for layout, x, warm in (("dual", g, 1), ("quad", quad, 0)):
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for run in range(1 + warm):
+            mse, wall, counts, st = run_cv(x, y, dtype=F64)
+            iters = st.iters.cpu().numpy()
+            del st
+            walls.append(wall)
+            if run and not np.array_equal(mse, mses[layout]):
+                raise AssertionError(f"float64 {layout} warm cv differs")
+            mses[layout] = mse
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        best = CV_PATH[int(np.argmin(mse))]
+        name = "xt_dots_words_t_f64" if layout == "dual" else \
+            "xt_dots_words_f64"
+        print(f"[float64] {layout} cv {N} x {P} path 1:{CV_PATH[-1]} "
+              f"q={CV_Q} on {card}: cold {walls[0]:.4f} s, warm "
+              f"{walls[1:]}, best k {best} (f32 {f32_best}), tasks converged "
+              f"{int((iters < CV_MAX_ITER).sum())}/{len(iters)}, the last at "
+              f"{iters.max()}, {counts[name]} {name} launches, "
+              f"{counts['xt_dots_words_t'] + counts['xt_dots_words']} f32, "
+              f"peak {peak:.2f} GiB; mse "
+              f"{np.array2string(mse, precision=9, max_line_width=500)}",
+              flush=True)
+        if (mse.dtype != np.float64 or not np.isfinite(mse).all()
+                or best != f32_best or counts[name] < 2
+                or counts["xt_dots_words_t"] + counts["xt_dots_words"]):
+            raise AssertionError(f"float64 {layout} cv failed its checks")
+        out[name]["cv_launches"] = counts[name]
+    if not np.array_equal(mses["dual"], mses["quad"]):
+        raise AssertionError("float64 quad and dual cvs differ")
+    out["xt_dots_words_t_f64"]["launches"] = \
+        out["xt_dots_words_t_f64"]["cv_launches"]
+    r, wall, launches, peak = f64_fit(y, g, init_beta=True)
+    f64_fit_line("init_beta fit", r, wall, launches, peak, causal, card)
+    out["xt_dots_words_t_f64"]["init_beta_launches"] = \
+        launches["xt_dots_words_t_f64"]
+    yb, _, causal_b = simulate_random_response(
+        g, K, Bernoulli(), LogitLink(), rng=np.random.default_rng(SEED))
+    rb32 = fit_iht(yb, g, k=K, d=Bernoulli(), l=LogitLink(), verbose=False)
+    rb, wall, launches, peak = f64_fit(yb, g, d=Bernoulli(), l=LogitLink())
+    sel_b, _ = f64_fit_line("Bernoulli fit", rb, wall, launches, peak,
+                            causal_b, card)
+    sel_b32 = set(np.flatnonzero(rb32.beta).tolist())
+    print(f"[float64] Queue 3 check: the f32 Bernoulli fit on the card (R "
+          f"through 21-bit digits) {rb32.iter} iterations, logl "
+          f"{rb32.logl}; the float64 one (the exact float64 score) "
+          f"{rb.iter} iterations, logl {rb.logl}; same support "
+          f"{sel_b == sel_b32} (only f32: {sorted(sel_b32 - sel_b)}, only "
+          f"float64: {sorted(sel_b - sel_b32)})", flush=True)
+    out["xt_dots_words_t_f64"]["bernoulli_launches"] = \
+        launches["xt_dots_words_t_f64"]
+    phase_profile(g, y, card, calls=(
+        ("float64 cv", "xt_dots_t", lambda: run_cv(g, y, dtype=F64)),
+        ("float64 fit", "xt_dots_t",
+         lambda: fit_iht(y, g, k=K, verbose=False, dtype=F64))))
+    print(f"[float64] phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_float64_parity(card_g, cpu_g, y):
+    """The float64 fit (k = 10) at 2,000 x 20,000 on the card (kernel 2's
+    float64 entry) and on the CPU (the unquantised float64 score): the same
+    support and iterations, beta within 1e-9 of max|beta|."""
+    a = fit_iht(y, card_g, k=K, verbose=False, dtype=F64)
+    b = fit_iht(y, cpu_g, k=K, verbose=False, dtype=F64)
+    err = float(np.abs(a.beta - b.beta).max() / np.abs(b.beta).max())
+    same_sel = set(np.flatnonzero(a.beta)) == set(np.flatnonzero(b.beta))
+    print(f"[float64-parity] n={card_g.n} p={card_g.p} k={K}: cuda iter "
+          f"{a.iter} logl {a.logl}, cpu iter {b.iter} logl {b.logl}, same "
+          f"support {same_sel}, beta within {err:.3g} of max|beta|",
+          flush=True)
+    if not (same_sel and a.iter == b.iter and err <= F64_PARITY_TOL
+            and a.beta.dtype == np.float64):
+        raise AssertionError("float64 card and CPU fits disagree")
+
+
+def phase_float64_missing(g, y, card, f32_mse):
+    """On the genotypes with missing calls: kernels 2 and 1's float64
+    entries with M at m = 100, then the float64 cv (path 1:20, q = 5) with
+    the f32 cv-miss's best k; returns the entries' fields."""
+    gen = torch.Generator(device=g.device).manual_seed(SEED + 65)
+    out = f64_widths("float64-miss", g, gen, [(100, False)])
+    torch.cuda.reset_peak_memory_stats()
+    mse, wall, counts, st = run_cv(g, y, dtype=F64)
+    iters = st.iters.cpu().numpy()
+    del st
+    best, f32_best = (CV_PATH[int(np.argmin(v))] for v in (mse, f32_mse))
+    print(f"[float64-miss] cv {N} x {P} with missing calls on {card}: "
+          f"{wall:.4f} s, best k {best} (f32 {f32_best}), iterations "
+          f"{iters.max()}, {counts['xt_dots_words_t_f64']} kernel-2 float64 "
+          f"launches, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB", flush=True)
+    if (not np.isfinite(mse).all() or best != f32_best
+            or counts["xt_dots_words_t_f64"] < 2):
+        raise AssertionError("float64 cv with missing calls failed its "
+                             "checks")
+    out["xt_dots_words_t_f64"]["missing_cv_launches"] = \
+        counts["xt_dots_words_t_f64"]
+    return out
+
+
 def main(dev=None):
     """Every phase on ``dev`` (default the first CUDA device)."""
     t_start = time.perf_counter()
@@ -2927,6 +3290,7 @@ def main(dev=None):
     phase_family_parity(card_g, cpu_g)
     phase_option_parity(card_g, cpu_g, y_par)
     phase_mv_parity(card_g, cpu_g)
+    phase_float64_parity(card_g, cpu_g, y_par)
     del card_g, cpu_g
     y = phenotype(g, causal, beta, 7)
     k1["launches"], _ = phase_fit(g, causal, y, card)
@@ -2949,6 +3313,9 @@ def main(dev=None):
     k2["family_launches"] = fam["xt_dots_words_t"]
     opts = phase_options(g, causal, y, card)
     mvl, mvw = phase_mv(g, card, gen)
+    # after the lab: its device_ms needs whole profiler traces, which lose
+    # kernel records more often the more profiler sessions ran before it
+    f64 = phase_float64(g, causal, y, card, dual_mse)
     k2["io_launches"] = phase_io(g, y, dual_mse, card, dev)
     phase_dense(g, causal, y, card, dev)
     link = phase_hostlink(dev, card)
@@ -2964,7 +3331,11 @@ def main(dev=None):
     del g
     gm, causal_m, beta_m = genotypes(np.random.default_rng(SEED + 1), N, P,
                                      True, dev)
-    miss = phase_missing(gm, phenotype(gm, causal_m, beta_m, 8), card, gen)
+    y_m = phenotype(gm, causal_m, beta_m, 8)
+    miss = phase_missing(gm, y_m, card, gen)
+    for name, fields in phase_float64_missing(gm, y_m, card,
+                                              miss["mse"]).items():
+        f64[name].update(fields)
     wrapper_launches(gm, gen)
     for st, name in ((k1, "xt_dots_words"), (k2, "xt_dots_words_t")):
         ms, plain_ms, err, abs_err, bound_ms = miss[name]
@@ -2982,14 +3353,22 @@ def main(dev=None):
     k4 = dict(labs["unpack"], launches=labs["launches"]["unpack_words"])
     k5 = dict(labs["dot"], launches=labs["launches"]["int_dot_packed"])
     k6["launches"] = labs["launches"]["xt_dots_T"]
+    # the float64 entries' main widths: kernel 1's quad-word fit (m = 1),
+    # kernel 2's cv (m = 100); whole float64 score calls, as the f32 rows
+    for name, m in (("xt_dots_words_f64", 1), ("xt_dots_words_t_f64", 100)):
+        st = f64[name]
+        st.update(m=m, ms=st[f"ms_m{m}"], plain_ms=st[f"plain_ms_m{m}"],
+                  bound_ms=st[f"bound_ms_m{m}"], bound_by=st[f"bound_by_m{m}"],
+                  max_abs_err=0.0, library_ms=None)
     stats = {"xt_dots_words": k1, "xt_dots_words_t": k2, "read_words": k3,
-             "unpack_words": k4, "int_dot_packed": k5, "xt_dots_T": k6}
+             "unpack_words": k4, "int_dot_packed": k5, "xt_dots_T": k6,
+             **f64}
     for name, st in kprobe.items():
         stats[name] = dict(st, launches=probe_launches[name])
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], **st,
-             lab_launches=labs["launches"][name],
-             probe_launches=probe_launches[name])
+             lab_launches=labs["launches"].get(name, 0),
+             probe_launches=probe_launches.get(name, 0))
         for name, st in stats.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ internals (reference src/MendelIHT.jl:27-36 export list; the JAX package's
 ``mle_for_r`` as functions of (distribution, y, mu) on host arrays or
 tensors, ``initialize_beta``, and the legacy ``cv_iht_distribute_fold``.
 
-Arithmetic runs in float32, as the JAX package's without 64-bit mode, but
-where ``mu`` is a float64 tensor.
+``loglikelihood``, ``deviance``, ``score`` and ``mle_for_r`` run in
+float32, as the JAX package's without 64-bit mode, but where ``mu`` is a
+float64 tensor; ``initialize_beta`` and ``cv_iht_distribute_fold`` take a
+``dtype``, float32 or float64, as ``fit_iht`` does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .ops import glm
 from .ops.negbin import mle_for_r as _mle_for_r
+from .utils.device import float_dtype
 
 
 def _dtype(mu):
@@ -85,11 +88,11 @@ def initialize_beta(y, x, z=None, dtype=torch.float32):
     """Marginal univariate-regression warm start: per SNP j, y regressed on
     [1, x_j]; returns (b (p,), c (q,)) as numpy (reference
     initialize_beta!, src/utilities.jl:776-812)."""
-    from .models.fit import build_fit, check_dtype
+    from .models.fit import build_fit
     from .models.initialize import _initialize_beta
 
-    check_dtype("initialize_beta", dtype)
-    op, data, _, _ = build_fit(y, x, z, k=1)
+    dtype = float_dtype(dtype, "initialize_beta")
+    op, data, _, _ = build_fit(y, x, z, k=1, dtype=dtype)
     b, c = _initialize_beta(op, data, data.sample_mask[None, :])
     return b[0].cpu().numpy(), c[0].cpu().numpy()
 
@@ -106,14 +109,15 @@ def cv_iht_distribute_fold(d, l, x, z, y, J, path, q, *, destin="./",
     fold-size-weighted mean loss per k, as ``cv_iht``; ``parallel`` and
     ``showinfo`` are taken and ignored."""
     from .models.cv import _task_masks, meanloss
-    from .models.fit import build_fit, check_dtype
+    from .models.fit import build_fit
     from .models.initialize import init_state
     from .models.univariate import predict_deviance, run_iht
 
-    check_dtype("cv_iht_distribute_fold", dtype)
+    dtype = float_dtype(dtype, "cv_iht_distribute_fold")
     path = list(path)
     op, data, cfg, _ = build_fit(y, x, z, k=max(path), J=J, d=d, l=l,
-                                 debias=debias, max_iter=max_iter)
+                                 debias=debias, max_iter=max_iter,
+                                 dtype=dtype)
     folds, ks, train, test = _task_masks(op, q, path, folds, rng)
     st = init_state(op, data, cfg, ks, train)
     st = run_iht(op, data, cfg, st)

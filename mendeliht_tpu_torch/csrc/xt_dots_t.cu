@@ -18,7 +18,17 @@
 //     words_t (w, j), so the rounds are the MMA's K steps here
 //
 // Each computes its Pallas kernel's function exactly, and all equal each
-// other bit for bit on the same genotypes:
+// other bit for bit on the same genotypes.
+//
+// The float64 score of kernels 1 and 2 (RAW, entries xt_dots_words_raw and
+// xt_dots_words_t_raw, compiled from this file with -DXT_DOTS_RAW): the
+// same body and main loop on a digit image of eight 7-bit digits a column
+// (ops/decode.py::quantize_rhs_planes64), laid out as three 3-digit
+// "pseudo-columns" a column (the last padded with a zero digit), so the
+// loop runs unchanged at m' = 3m; only the store differs: it writes each
+// accumulator's exact int32 digit sum, and the wrapper combines them in
+// float64 (decode.combine_digits64).  Its operands and outputs:
+//
 //
 //   words_t (nw, p_all) words, read as uint32: word (w, j) holds bytes
 //           4w..4w+3 of SNP j's crumb-transposed row, so crumb q of its byte
@@ -45,7 +55,10 @@
 //           (m, p_all) f32, row-major: comb(x) = (16384*x_hi + 128*x_mid +
 //           x_lo) * scale in that f32 order from the exact int32 sums x_*;
 //           A = comb(a) + guard, M = comb(m) + guard, S = (3*comb(a) -
-//           2*comb(h)) + guard, with H the hi-bit plane (V^2 = 3V - 2H)
+//           2*comb(h)) + guard, with H the hi-bit plane (V^2 = 3V - 2H).
+//           RAW: the exact int32 sums of the value, missing and hi-bit
+//           planes, each (3m, p_all) int32, row 3c + d the sum of digit row
+//           d (hi, mid, lo) of (pseudo-)column c; scale and guard unread
 //
 // Decode per 32-bit word t, 16 crumbs at once: h = (t >> 1) & 0x55555555 is
 // every crumb's hi bit, v = h + (h & t) its value in {0,1,2} (missing -> 0),
@@ -287,8 +300,8 @@ __device__ __forceinline__ void gather(const uint4& u, uint32_t sel,
 // memory, each [digits: KS K steps x 4 planes x 2 K halves x rows/8 core
 // matrices of 128 bytes, one bulk copy][words: words_bytes<L>].  NG column
 // groups of 8 a warpgroup (NG = 0: m <= 2, one 8-row group); planes A, M
-// (MISS), H (SQ); L the word layout.
-template <int NG, bool MISS, bool SQ, Layout L>
+// (MISS), H (SQ); L the word layout; RAW stores the exact digit sums.
+template <int NG, bool MISS, bool SQ, Layout L, bool RAW>
 __global__ void __launch_bounds__(kThreads, 1)
 xt_dots_t_kernel(const Args args) {
   constexpr bool QUAD = L == Layout::QUAD;
@@ -579,7 +592,31 @@ xt_dots_t_kernel(const Args args) {
     const long long snp_a = static_cast<long long>(tile) * snps + snp_off +
                             16 * warp + (QUAD ? 2 * g : g);
     const size_t ld = args.p_all;
-    if constexpr (NG == 0) {
+    if constexpr (RAW) {
+      // the digit rows' exact sums: n8 blocks 3b, 3b+1, 3b+2 of a plane
+      // (registers i0, i0 + 4, i0 + 8) hold digit rows 0-2 of columns 8b ..
+      // 8b+7; plane p's output row 3c + d
+      static_assert(NG > 0, "RAW needs column groups (m' = 3m >= 3)");
+      int* out[3] = {reinterpret_cast<int*>(args.A),
+                     reinterpret_cast<int*>(args.M),
+                     reinterpret_cast<int*>(args.S)};
+      const int plane_out[3] = {0, MISS ? 1 : 2, 2};
+#pragma unroll
+      for (int b = 0; b < NG; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = col0 + (grp0 + b) * 8 + 2 * t + (e & 1);
+          const long long snp = snp_a + rstep * (e >> 1);
+          if (c >= args.m || snp >= args.p_all) continue;
+          const int i0 = 12 * b + e;
+#pragma unroll
+          for (int p = 0; p < kP; ++p)
+#pragma unroll
+            for (int d = 0; d < 3; ++d)
+              out[plane_out[p]][(3 * static_cast<size_t>(c) + d) * ld + snp] =
+                  acc[p][i0 + 4 * d];
+        }
+    } else if constexpr (NG == 0) {
       // rows 2t, 2t+1 of the group hold digit t of columns 0, 1: lane t = 0
       // gathers the mid and lo digits from lanes t+1, t+2
 #pragma unroll
@@ -634,9 +671,9 @@ xt_dots_t_kernel(const Args args) {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int NG, bool MISS, bool SQ, Layout L>
+template <int NG, bool MISS, bool SQ, Layout L, bool RAW>
 int launch(Args a, cudaStream_t stream) {
-  auto kern = xt_dots_t_kernel<NG, MISS, SQ, L>;
+  auto kern = xt_dots_t_kernel<NG, MISS, SQ, L, RAW>;
   constexpr int kS = stage_steps<NG>();
   // shared memory a block: the narrow widths leave room for three blocks
   // an SM; ROW's padded rows take 225 KB for the five stages that 220 KB
@@ -665,26 +702,31 @@ int launch(Args a, cudaStream_t stream) {
   return 0;
 }
 
-// ROW is built for A alone (kernel 7 has no M or S)
-template <int NG, Layout L>
+// ROW is built for A alone (kernel 7 has no M or S); RAW for column groups
+// (NG > 0) over T and QUAD
+template <int NG, Layout L, bool RAW>
 int launch_planes(const Args& a, bool miss, bool sq, cudaStream_t st) {
-  constexpr bool kMore = L != Layout::ROW;
-  constexpr int kP2 = kMore && 2 * NG <= kMaxGroups;  // every NG: one plane
-  constexpr int kP3 = kMore && 3 * NG <= kMaxGroups;
-  const int planes = 1 + miss + sq;
-  if (planes == 1) return launch<NG, false, false, L>(a, st);
-  if constexpr (kP2) {
-    if (planes == 2 && miss) return launch<NG, true, false, L>(a, st);
-    if (planes == 2) return launch<NG, false, true, L>(a, st);
+  if constexpr (RAW && (NG == 0 || L == Layout::ROW)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    constexpr bool kMore = L != Layout::ROW;
+    constexpr int kP2 = kMore && 2 * NG <= kMaxGroups;  // every NG: one plane
+    constexpr int kP3 = kMore && 3 * NG <= kMaxGroups;
+    const int planes = 1 + miss + sq;
+    if (planes == 1) return launch<NG, false, false, L, RAW>(a, st);
+    if constexpr (kP2) {
+      if (planes == 2 && miss) return launch<NG, true, false, L, RAW>(a, st);
+      if (planes == 2) return launch<NG, false, true, L, RAW>(a, st);
+    }
+    if constexpr (kP3) {
+      if (planes == 3) return launch<NG, true, true, L, RAW>(a, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (kP3) {
-    if (planes == 3) return launch<NG, true, true, L>(a, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the entry points' shared body: L as in xt_dots_t_kernel
-template <Layout L>
+// the entry points' shared body: L and RAW as in xt_dots_t_kernel
+template <Layout L, bool RAW>
 int run(const void* words, const void* digits, const void* scale,
         const void* guard, void* A, void* M, void* S, int nw, int p_all,
         int m, int want_missing, int want_sq, int ng, int split, int passes,
@@ -717,12 +759,12 @@ int run(const void* words, const void* digits, const void* scale,
     const bool miss = want_missing != 0, sq = want_sq != 0;
     int err;
     switch (ng) {
-      case 0: err = launch_planes<0, L>(a, miss, sq, st); break;
-      case 1: err = launch_planes<1, L>(a, miss, sq, st); break;
-      case 2: err = launch_planes<2, L>(a, miss, sq, st); break;
-      case 4: err = launch_planes<4, L>(a, miss, sq, st); break;
-      case 7: err = launch_planes<7, L>(a, miss, sq, st); break;
-      case 13: err = launch_planes<13, L>(a, miss, sq, st); break;
+      case 0: err = launch_planes<0, L, RAW>(a, miss, sq, st); break;
+      case 1: err = launch_planes<1, L, RAW>(a, miss, sq, st); break;
+      case 2: err = launch_planes<2, L, RAW>(a, miss, sq, st); break;
+      case 4: err = launch_planes<4, L, RAW>(a, miss, sq, st); break;
+      case 7: err = launch_planes<7, L, RAW>(a, miss, sq, st); break;
+      case 13: err = launch_planes<13, L, RAW>(a, miss, sq, st); break;
       default: err = static_cast<int>(cudaErrorInvalidValue);
     }
     if (err != 0) return err;
@@ -741,14 +783,20 @@ int run(const void* words, const void* digits, const void* scale,
 // every pointer 16-byte aligned, and p_all (T, QUAD) or nw (ROW) a
 // multiple of 4 (the wrapper checks).  M / S may be null when not wanted.
 // Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() so a refused launch is seen by the caller.
+// cudaGetLastError() so a refused launch is seen by the caller.  Built
+// with -DXT_DOTS_RAW, the file holds the float64 score's raw-sum entries
+// of kernels 2 and 1 instead (the same arguments; m the pseudo-columns,
+// A, M, S int32, scale and guard unread), a library of their own that
+// compiles beside this one.
+#ifndef XT_DOTS_RAW
 extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
                                const void* scale, const void* guard, void* A,
                                void* M, void* S, int nw, int p_all, int m,
                                int want_missing, int want_sq, int ng,
                                int split, int passes, void* stream) {
-  return run<Layout::T>(words_t, digits, scale, guard, A, M, S, nw, p_all, m,
-                        want_missing, want_sq, ng, split, passes, stream);
+  return run<Layout::T, false>(words_t, digits, scale, guard, A, M, S, nw,
+                               p_all, m, want_missing, want_sq, ng, split,
+                               passes, stream);
 }
 
 extern "C" int xt_dots_words(const void* words, const void* digits,
@@ -756,9 +804,9 @@ extern "C" int xt_dots_words(const void* words, const void* digits,
                              void* M, void* S, int nw, int p_all, int m,
                              int want_missing, int want_sq, int ng, int split,
                              int passes, void* stream) {
-  return run<Layout::QUAD>(words, digits, scale, guard, A, M, S, nw, p_all,
-                           m, want_missing, want_sq, ng, split, passes,
-                           stream);
+  return run<Layout::QUAD, false>(words, digits, scale, guard, A, M, S, nw,
+                                  p_all, m, want_missing, want_sq, ng, split,
+                                  passes, stream);
 }
 
 extern "C" int xt_dots_words_rows(const void* words, const void* digits,
@@ -767,6 +815,29 @@ extern "C" int xt_dots_words_rows(const void* words, const void* digits,
                                   int p_all, int m, int want_missing,
                                   int want_sq, int ng, int split, int passes,
                                   void* stream) {
-  return run<Layout::ROW>(words, digits, scale, guard, A, M, S, nw, p_all, m,
-                          want_missing, want_sq, ng, split, passes, stream);
+  return run<Layout::ROW, false>(words, digits, scale, guard, A, M, S, nw,
+                                 p_all, m, want_missing, want_sq, ng, split,
+                                 passes, stream);
 }
+#else
+extern "C" int xt_dots_words_t_raw(const void* words_t, const void* digits,
+                                   const void* scale, const void* guard,
+                                   void* A, void* M, void* S, int nw,
+                                   int p_all, int m, int want_missing,
+                                   int want_sq, int ng, int split, int passes,
+                                   void* stream) {
+  return run<Layout::T, true>(words_t, digits, scale, guard, A, M, S, nw,
+                              p_all, m, want_missing, want_sq, ng, split,
+                              passes, stream);
+}
+
+extern "C" int xt_dots_words_raw(const void* words, const void* digits,
+                                 const void* scale, const void* guard,
+                                 void* A, void* M, void* S, int nw, int p_all,
+                                 int m, int want_missing, int want_sq, int ng,
+                                 int split, int passes, void* stream) {
+  return run<Layout::QUAD, true>(words, digits, scale, guard, A, M, S, nw,
+                                 p_all, m, want_missing, want_sq, ng, split,
+                                 passes, stream);
+}
+#endif

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .snparray import PackedGenotypes, bed_chunks, bed_payload_of_codes
+from ..utils.device import float_dtype
 
 _BED_MAGIC = bytes([0x6C, 0x1B, 0x01])
 
@@ -83,8 +84,8 @@ def _bed_payload(prefix: str):
 def read_plink(prefix: str, dtype=None, device=None) -> SnpData:
     """Read `prefix`.bed/.bim/.fam into a :class:`SnpData` whose genotypes
     live on ``device`` (default the card) with per-SNP stats in ``dtype``
-    (default float32)."""
-    dtype = dtype or torch.float32
+    (default float32; float64 for a float64 fit)."""
+    dtype = float_dtype(dtype or torch.float32, "read_plink")
     bim_path, fam_path = prefix + ".bim", prefix + ".fam"
     payload, n, p = _bed_payload(prefix)
     bim = _read_table(bim_path, 6)

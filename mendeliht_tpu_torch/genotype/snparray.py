@@ -288,8 +288,7 @@ class PackedGenotypes:
         n_mis = (codes == 1).sum(axis=1)
         mu, inv_sd, maf_ = _stats_from_counts(n - n_mis, n_het, n_alt)
         g = cls.from_numpy(
-            _bytes_to_words(pack_codes(codes)), mu.astype(np.float32),
-            inv_sd.astype(np.float32), n=n, p=p,
+            _bytes_to_words(pack_codes(codes)), mu, inv_sd, n=n, p=p,
             has_missing=bool(n_mis.sum() > 0), device=device, dtype=dtype)
         g.maf_, g.n_missing = maf_, n_mis
         return g
@@ -301,9 +300,8 @@ class PackedGenotypes:
         """Build from an already crumb-transposed (p, n4) uint8 byte matrix
         with precomputed per-SNP stats."""
         return cls.from_numpy(
-            _bytes_to_words(np.asarray(packed)),
-            np.asarray(mu, np.float32), np.asarray(inv_sd, np.float32),
-            n=n, p=p, has_missing=has_missing, device=device, dtype=dtype)
+            _bytes_to_words(np.asarray(packed)), mu, inv_sd, n=n, p=p,
+            has_missing=has_missing, device=device, dtype=dtype)
 
     @classmethod
     def from_bed_bytes(cls, bed: np.ndarray, n: int, p: int, *, device=None,

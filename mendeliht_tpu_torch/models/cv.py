@@ -19,10 +19,11 @@ import numpy as np
 import torch
 
 from ..ops import glm
-from .fit import build_fit, check_dtype, is_multivariate
+from .fit import build_fit, is_multivariate
 from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
 from .univariate import cv_fused, run_iht
+from ..utils.device import float_dtype
 
 
 def allocate_fold_and_k(q: int, path):
@@ -47,14 +48,16 @@ def meanloss(fitloss, q, folds):
 def _task_masks(op, q, path, folds, rng):
     """The (fold, k) tasks of a cv on ``op``'s samples: (folds (n,), drawn
     from ``rng`` as the JAX package draws them when None; each task's k
-    (B,); its 0/1 train and test masks (B, n_pad)), on ``op``'s device."""
+    (B,); its 0/1 train and test masks (B, n_pad) in ``op``'s dtype), on
+    ``op``'s device."""
     n = op.n
     if folds is None:
         rng = np.random.default_rng() if rng is None else rng
         folds = rng.integers(1, q + 1, size=n)
     folds = np.asarray(folds)
     combos = allocate_fold_and_k(q, path)
-    train = np.zeros((len(combos), op.n_pad), np.float32)
+    train = np.zeros((len(combos), op.n_pad),
+                     torch.empty((), dtype=op.dtype).numpy().dtype)
     test = np.zeros_like(train)
     for i, (fold, _) in enumerate(combos):
         train[i, :n] = folds != fold
@@ -87,7 +90,8 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
     cv_iht does not take, is accepted and ignored as ``fit_iht`` ignores
     it.  As in the JAX package, ``memory_efficient`` is accepted and
     ignored, and so is ``checkpoint_every`` without a ``checkpoint_dir``;
-    ``dtype`` must be float32.  With ``checkpoint_dir`` the solve saves
+    ``dtype`` is float32 or float64, as in :func:`fit_iht`.  With
+    ``checkpoint_dir`` the solve saves
     its state there every ``checkpoint_every`` iterations and first
     resumes from the newest state saved there; ``show_progress`` prints
     the converged-task count to stderr (``univariate.run_segmented``, one
@@ -105,13 +109,13 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
                          rng=rng, checkpoint_dir=checkpoint_dir,
                          checkpoint_every=checkpoint_every,
                          show_progress=show_progress)
-    check_dtype("cv_iht", dtype)
+    dtype = float_dtype(dtype, "cv_iht")
     d = d if d is not None else glm.Normal()
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg, _ = build_fit(
         y, x, z, k=max(path), d=d, l=l, group=group, weight=weight,
         zkeep=zkeep, est_r=est_r, debias=debias, max_iter=max_iter,
-        min_iter=min_iter)
+        min_iter=min_iter, dtype=dtype)
     if max(path) > op.p:
         raise ValueError("Sparsity level in `path` cannot be larger than "
                          "total number of variables")
@@ -141,8 +145,8 @@ def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
     loglikelihoods (reference src/cross_validation.jl:232-277).  All models
     run as one batch of tasks; ``group``, ``weight`` and ``debias`` as in
     :func:`cv_iht`, ``use_maf`` accepted and ignored as in the JAX
-    package; ``dtype`` must be float32."""
-    check_dtype("iht_run_many_models", dtype)
+    package; ``dtype`` float32 or float64, as in :func:`fit_iht`."""
+    dtype = float_dtype(dtype, "iht_run_many_models")
     if not parallel:
         warnings.warn(
             "iht_run_many_models(parallel=False) is ignored: all path models "
@@ -152,7 +156,7 @@ def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg, _ = build_fit(y, x, z, k=max(path), d=d, l=l, group=group,
                                  weight=weight, est_r=est_r, debias=debias,
-                                 max_iter=max_iter)
+                                 max_iter=max_iter, dtype=dtype)
 
     B = len(path)
     cv_wts = data.sample_mask[None, :].expand(B, op.n_pad)

@@ -18,21 +18,7 @@ from .pve import pve as _pve
 from .results import IHTResult
 from .state import FitConfig, FitData
 from .univariate import finalize_iht, run_segmented, _sparse_extract
-
-
-def check_dtype(fn: str, dtype):
-    """Accept the float32 ``dtype`` the JAX package defaults to (as
-    ``torch.float32``, ``np.float32``, ``jnp.float32`` or "float32"); any
-    other raises NotImplementedError, since float64 fits are not ported."""
-    if dtype is torch.float32:
-        return
-    try:
-        if np.dtype(dtype) == np.float32:
-            return
-    except TypeError:
-        pass
-    raise NotImplementedError(f"{fn}(dtype={dtype!r}) is not ported yet: "
-                              "ROADMAP Queue 1 item 2 (float64 fits)")
+from ..utils.device import float_dtype
 
 
 def is_multivariate(y) -> bool:
@@ -73,9 +59,10 @@ def cfg_est_r_requested(est_r) -> bool:
     return est_r not in (None, "none", ":None", "None")
 
 
-def _prepare_univariate(y, x, z):
-    """Operator + zero-padded host arrays of the per-sample data."""
-    op = make_operator(x)
+def _prepare_univariate(y, x, z, dtype):
+    """Operator in ``dtype`` + zero-padded host arrays of the per-sample
+    data."""
+    op = make_operator(x, dtype)
     n, n_pad = op.n, op.n_pad
     y = np.asarray(y, dtype=np.float64).reshape(-1)
     if len(y) != n:
@@ -98,8 +85,9 @@ def _prepare_univariate(y, x, z):
 
 def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
               weight=None, zkeep=None, est_r="none", debias=False, tol=1e-4,
-              max_iter=200, min_iter=5, max_step=3):
-    """Shared setup: returns (op, data, cfg, k_scalar), k_scalar the total
+              max_iter=200, min_iter=5, max_step=3, dtype=torch.float32):
+    """Shared setup: returns (op, data, cfg, k_scalar), the operator and the
+    data in ``dtype`` (a torch dtype), k_scalar the total
     sparsity (sum of a vector k; J * k with groups).  ``l`` None takes the
     family's canonical link; ``est_r`` ("none", "mm", "newton", any case,
     with or without a leading colon) re-estimates the negative-binomial
@@ -110,7 +98,7 @@ def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
     dist = glm.dist_name(d if d is not None else glm.Normal())
     link = glm.link_name(l) if l is not None else glm._CANONICAL[dist]
     checky(y, dist)
-    op, y_pad, z_pad, mask = _prepare_univariate(y, x, z)
+    op, y_pad, z_pad, mask = _prepare_univariate(y, x, z, dtype)
     p, q = op.p, z_pad.shape[1]
 
     if zkeep is None:
@@ -225,8 +213,10 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
     ``checkpoint_dir`` every ``checkpoint_every`` iterations and resumes
     from the newest one there, as the JAX package's streamed fit does.  A
     resident fit ignores both, as there.  As in the JAX package,
-    ``memory_efficient`` is accepted and ignored; ``dtype`` must be
-    float32 (:func:`check_dtype`).
+    ``memory_efficient`` is accepted and ignored.  ``dtype`` is float32
+    or float64 (``utils.device.float_dtype``): the operator's statistics,
+    the data and the solve are in it, and a float64 fit's score on the card
+    is the exact float64 digit score of kernels 1 and 2.
 
     A y of shape (r, n), r > 1, is a multivariate fit
     (``models/mv.py::fit_mv_iht``, as the JAX package routes it): z is
@@ -240,7 +230,7 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
                           init_beta=init_beta, debias=debias, dtype=dtype,
                           checkpoint_dir=checkpoint_dir,
                           checkpoint_every=checkpoint_every)
-    check_dtype("fit_iht", dtype)
+    dtype = float_dtype(dtype, "fit_iht")
     d = d if d is not None else glm.Normal()
     if glm.dist_name(d) != "negativebinomial" and cfg_est_r_requested(est_r):
         raise ValueError("Only negative binomial regression supports "
@@ -248,7 +238,7 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
     op, data, cfg, k_scalar = build_fit(
         y, x, z, k=k, J=J, d=d, l=l, group=group, weight=weight, zkeep=zkeep,
         est_r=est_r, debias=debias, tol=tol, max_iter=max_iter,
-        min_iter=min_iter, max_step=max_step)
+        min_iter=min_iter, max_step=max_step, dtype=dtype)
     if init_beta and cfg.dist != "normal":
         raise ValueError("Initializing beta values only works for Gaussian "
                          "phenotypes! Sorry!")

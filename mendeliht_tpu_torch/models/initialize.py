@@ -38,7 +38,7 @@ def _initialize_beta(op, data: FitData, cv_wts):
     regressions) averaged into c[:, 0].  Returns (b (B, p), c (B, q)).  The
     moments come from one score pass at width 2B (``PackedOp.col_moments``):
     on the card its int8 digits hold the 0/1 ``cv_wts`` exactly and the WY
-    columns to 21 bits against their max."""
+    columns to 21 bits against their max (56 bits in a float64 fit)."""
     W = cv_wts
     WY = cv_wts * data.y[None, :]
     Sx, Sxx, Sxy = op.col_moments(W, WY)

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..ops.linalg import make_operator
-from .fit import check_dtype, streamed_segments
+from ..utils.device import float_dtype
+from .fit import streamed_segments
 from .initialize import _initialize_beta
 from .pve import masked_var
 from .results import MIHTResult, print_cv_results
@@ -461,10 +462,11 @@ def init_mv_state(op, data: MvData, cfg: MvConfig, k, cv_wts,
 # public API
 # ---------------------------------------------------------------------------
 
-def _prepare_mv(y, x, z):
-    """Operator + zero-padded tensors: Y (r, n_pad), z (n_pad, q) from a
-    (q, n) z (samples as columns), the sample mask (n_pad,)."""
-    op = make_operator(x)
+def _prepare_mv(y, x, z, dtype):
+    """Operator in ``dtype`` + zero-padded tensors in it: Y (r, n_pad), z
+    (n_pad, q) from a (q, n) z (samples as columns), the sample mask
+    (n_pad,)."""
+    op = make_operator(x, dtype)
     n, n_pad = op.n, op.n_pad
     Y = np.asarray(y, np.float64)
     if Y.ndim != 2 or Y.shape[1] != n:
@@ -490,9 +492,9 @@ def _prepare_mv(y, x, z):
 
 
 def build_mv(y, x, z=None, *, k=10, zkeep=None, tol=1e-4, max_iter=200,
-             min_iter=5, max_step=3):
-    """Shared setup of the mv fit and cv: (op, data, cfg)."""
-    op, Y_pad, z_pad, mask = _prepare_mv(y, x, z)
+             min_iter=5, max_step=3, dtype=torch.float32):
+    """Shared setup of the mv fit and cv: (op, data, cfg), in ``dtype``."""
+    op, Y_pad, z_pad, mask = _prepare_mv(y, x, z, dtype)
     r, q = Y_pad.shape[0], z_pad.shape[1]
     if zkeep is None:
         zkeep_arr = np.ones(q, bool)
@@ -529,17 +531,17 @@ def fit_mv_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
     in the JAX package, a fit on a HostStreamedGenotypes saves its state
     to ``checkpoint_dir`` every ``checkpoint_every`` iterations and
     resumes from the newest one there, and a resident fit ignores both;
-    ``dtype`` must be float32."""
+    ``dtype`` is float32 or float64 (``utils.device.float_dtype``)."""
     if int(np.min(k)) < 1:
         raise ValueError("Multivariate IHT requires k >= 1!")
     if debias:
         # reference multivariate.jl:570
         raise ValueError("Currently the debiasing routine for multivariate "
                          "IHT is broken, sorry!")
-    check_dtype("fit_iht", dtype)
+    dtype = float_dtype(dtype, "fit_iht")
     op, data, cfg = build_mv(y, x, z, k=k, zkeep=zkeep, tol=tol,
                              max_iter=max_iter, min_iter=min_iter,
-                             max_step=max_step)
+                             max_step=max_step, dtype=dtype)
     if verbose:
         from ..utils.printing import print_iht_signature, print_parameters
         print_iht_signature(io)
@@ -583,12 +585,13 @@ def cv_mv_iht(y, x, z=None, path=None, q=5, folds=None, zkeep=None,
     ``checkpoint_every`` iterations and resumes from the newest one, in
     ``checkpoint_dir`` itself where the tasks make one chunk, else in
     ``{checkpoint_dir}/chunk{lo}`` for the chunk from task ``lo`` on, as
-    in the JAX package.  ``dtype`` must be float32."""
-    check_dtype("cv_iht", dtype)
+    in the JAX package.  ``dtype`` is float32 or float64."""
+    dtype = float_dtype(dtype, "cv_iht")
     from .cv import _task_masks, meanloss
     path = list(path) if path is not None else list(range(1, 21))
     op, data, cfg = build_mv(y, x, z, k=max(path), zkeep=zkeep,
-                             max_iter=max_iter, min_iter=min_iter)
+                             max_iter=max_iter, min_iter=min_iter,
+                             dtype=dtype)
     if max(path) > op.p * data.Y.shape[0]:
         raise ValueError("Sparsity level in `path` cannot be larger than "
                          "total number of variables")

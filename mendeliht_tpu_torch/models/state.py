@@ -67,7 +67,8 @@ def state_from_numpy(cls, arrays: dict, device):
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
     """Solver configuration (the JAX package's, but for its sharded group
-    projection's candidate budget and its dtype: every fit here is f32)."""
+    projection's candidate budget and its dtype, which the tensors carry
+    here: the operator's and the data's, float32 or float64)."""
     dist: str = "normal"
     link: str = "identity"
     S: int = 16                 # support slot count (>= max k + zkeepn)

@@ -26,9 +26,12 @@ package's digit-plane function (``pallas_kernels.xt_dots_words`` and
 ``.xt_dots_words_t``): R split into three int8 digit planes, exact integer
 sums of the decoded value, missing and hi-bit planes against them, an f32
 combine and a NaN guard.  On the same genotypes the two are equal bit for
-bit.  ``xt_dots`` is the f32 function with R unquantised, the counterpart
-of the JAX package's ``decode.xt_dots``, which its operator runs off the
-TPU; the port's operator runs it on the CPU.
+bit.  A float64 R takes the float64 digit score instead: eight int8 digits
+of 7 bits (56 >= 53 bits, ``quantize_rhs_planes64``), their exact sums
+combined in float64 (``combine_digits64``), the score of a float64 fit on
+the card.  ``xt_dots`` is the function with R unquantised, in R's dtype,
+the counterpart of the JAX package's ``decode.xt_dots``, which its
+operator runs off the TPU; the port's operator runs it on the CPU.
 
 The kernel lab's versions (``tools/kernel_lab5.py``): ``xt_dots_T``, A
 through three int8 digit planes of R with exact integer sums, and the
@@ -95,9 +98,10 @@ def _chunk_snps(n4: int) -> int:
 
 def xt_dots(words: torch.Tensor, rhs: torch.Tensor, *, want_missing: bool,
             want_sq: bool = False, p: int | None = None):
-    """Raw-plane dots of the whole packed matrix against ``rhs`` in f32,
-    R unquantised: the counterpart of the JAX package's ``decode.xt_dots``
-    (which takes the byte rows), run by the operator on the CPU.
+    """Raw-plane dots of the whole packed matrix against ``rhs`` in its
+    dtype (f32 or float64), R unquantised: the counterpart of the JAX
+    package's ``decode.xt_dots`` (which takes the byte rows), run by the
+    operator on the CPU.
 
     words (p4, n4) int32; rhs (n_pad = 4*n4, m) float.  Returns (A, M, S):
     value dot (p, m), missing dot (p, m) or None, squared-value dot (p, m)
@@ -149,6 +153,59 @@ def quantize_rhs_planes(rhs: torch.Tensor):
                      ).to(torch.int32)
     rl = r - rh * 16384 - rm * 128
     return torch.cat([rh, rm, rl], dim=0).to(torch.int8), scale
+
+
+# the float64 digit score: DIGITS64 digits of 7 bits a column, most
+# significant first, each in [-64, 64]; a column's largest |R| maps to
+# 2^55, so r = R / scale keeps all 53 bits of every entry
+DIGITS64 = 8
+_TOP64 = 7 * (DIGITS64 - 1) + 6
+
+
+def quantize_rhs_planes64(rhs: torch.Tensor):
+    """float64 (n_pad, m) -> ((8m, n_pad) int8 digit planes, row ``d*m +
+    c`` digit d of column c, most significant first; (m,) float64 scale).
+
+    ``scale = max|R_col| / 2^55`` (2^-55 for an all-zero column), r =
+    round_half_even(R / scale) as int64 (|r| <= 2^55, exact: R has 53
+    bits), then the digits of r in base 128 by exact int64 arithmetic:
+    the top digit r / 2^49 rounded to nearest (ties up), then each
+    remainder's, the last the units, so ``r = sum_d 128^(7-d) digit_d``
+    exactly and every digit is in [-64, 64].  A column with a NaN or Inf
+    gets zero digits (its scores are NaN through :func:`nan_guard64`), so
+    the digits are defined on every device."""
+    rhs_t = rhs.t().to(torch.float64)                      # (m, n_pad)
+    finite = torch.isfinite(rhs_t).all(dim=1, keepdim=True)
+    rhs_t = torch.where(finite, rhs_t, torch.zeros_like(rhs_t))
+    mx = rhs_t.abs().amax(dim=1)
+    scale = torch.where(mx > 0, mx, torch.ones_like(mx)) * 2.0 ** -_TOP64
+    r = torch.round(rhs_t / scale[:, None]).to(torch.int64)
+    digits = []
+    for d in range(DIGITS64):
+        shift = 7 * (DIGITS64 - 1 - d)
+        q = (r + (1 << shift >> 1)) >> shift if shift else r
+        digits.append(q)
+        r = r - (q << shift)
+    return torch.cat(digits, dim=0).to(torch.int8), scale
+
+
+def combine_digits64(sums: torch.Tensor, scale: torch.Tensor
+                     ) -> torch.Tensor:
+    """(p, 8, m) exact digit sums (digit d of column c at ``[:, d, c]``, any
+    integer or float dtype that holds them exactly, any strides) -> (p, m)
+    float64 scores: Horner from the top digit, ``acc = 128*acc + sum_d``
+    (the product by 128 exact, one rounding a step), then ``* scale``.
+    Elementwise in one fixed order, so equal digit sums give equal scores
+    bit for bit on any device."""
+    acc = sums[:, 0].to(torch.float64)
+    for d in range(1, sums.shape[1]):
+        acc = acc * 128.0 + sums[:, d]
+    return acc * scale[None, :]
+
+
+def nan_guard64(rhs: torch.Tensor) -> torch.Tensor:
+    """(m,) float64 ``rhs.sum(0) * 0``: the float64 :func:`nan_guard`."""
+    return rhs.to(torch.float64).sum(dim=0) * 0.0
 
 
 def digit_sums(row_bytes, p_all: int, planes: torch.Tensor, *,
@@ -222,8 +279,9 @@ def nan_guard(rhs: torch.Tensor) -> torch.Tensor:
 
 def _digit_score(row_bytes, p_all: int, rhs: torch.Tensor, *,
                  want_missing: bool, want_sq: bool, p: int | None):
-    """The digit-plane score of both layouts: (A, M, S) f32 of the SNPs'
-    byte rows (``row_bytes``, :func:`digit_sums`) against ``rhs``.
+    """The digit-plane score of both layouts: (A, M, S) of the SNPs' byte
+    rows (``row_bytes``, :func:`digit_sums`) against ``rhs``: f32, or the
+    float64 digit score (:func:`_digit_score64`) where ``rhs`` is float64.
 
     R is split into three int8 digit planes (:func:`quantize_rhs_planes`);
     the value, missing and hi-bit sums against them are exact and combined
@@ -231,6 +289,9 @@ def _digit_score(row_bytes, p_all: int, rhs: torch.Tensor, *,
     :func:`nan_guard`, so a NaN or Inf in an rhs column is NaN in that
     output column and nowhere else.  ``p`` slices off the quad-padding SNPs
     (default: keep them; they are zero)."""
+    if rhs.dtype == torch.float64:
+        return _digit_score64(row_bytes, p_all, rhs, want_missing=want_missing,
+                              want_sq=want_sq, p=p)
     planes, scale = quantize_rhs_planes(rhs)
     guard = nan_guard(rhs)[None, :]
     a, mm, h = digit_sums(row_bytes, p_all, planes,
@@ -242,6 +303,44 @@ def _digit_score(row_bytes, p_all: int, rhs: torch.Tensor, *,
     return tuple(None if o is None else (o + guard)[:p_out] for o in (A, M, S))
 
 
+def digit_outputs64(a, mm, h, scale, guard, p: int | None):
+    """(A, M, S) float64 of the exact digit sums of the value, missing and
+    hi-bit planes (each (p_all, 8, m) or None): :func:`combine_digits64`,
+    ``S = 3A - 2H``, every output plus ``guard`` (:func:`nan_guard64`), cut
+    to ``p`` SNPs (default all).  The plain version and the card's
+    float64 entries both end here."""
+    A = combine_digits64(a, scale)
+    M = combine_digits64(mm, scale) if mm is not None else None
+    S = 3.0 * A - 2.0 * combine_digits64(h, scale) if h is not None else None
+    p_out = A.shape[0] if p is None else p
+    return tuple(None if o is None else (o + guard[None, :])[:p_out]
+                 for o in (A, M, S))
+
+
+def digit_sums64(row_bytes, p_all: int, rhs: torch.Tensor, *,
+                 want_missing: bool, want_sq: bool):
+    """The exact sums of the float64 digit score: ((V'D, Miss'D or None,
+    H'D or None), scale), each sum (p_all, 8, m) float64 with digit d of
+    column c at ``[:, d, c]``, D the digits of
+    :func:`quantize_rhs_planes64` (:func:`digit_sums`)."""
+    planes, scale = quantize_rhs_planes64(rhs)
+    sums = digit_sums(row_bytes, p_all, planes, want_missing=want_missing,
+                      want_sq=want_sq)
+    return tuple(None if x is None else x.view(p_all, DIGITS64, -1)
+                 for x in sums), scale
+
+
+def _digit_score64(row_bytes, p_all: int, rhs: torch.Tensor, *,
+                   want_missing: bool, want_sq: bool, p: int | None):
+    """The float64 digit score of both layouts: R in eight int8 digits
+    (:func:`quantize_rhs_planes64`), the value, missing and hi-bit sums
+    against them exact (:func:`digit_sums64`), combined in float64
+    (:func:`digit_outputs64`)."""
+    sums, scale = digit_sums64(row_bytes, p_all, rhs,
+                               want_missing=want_missing, want_sq=want_sq)
+    return digit_outputs64(*sums, scale, nan_guard64(rhs), p)
+
+
 def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
                   want_missing: bool, want_sq: bool = False,
                   p: int | None = None):
@@ -250,7 +349,7 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
     :func:`xt_dots`, f32: the function of ``mendeliht_tpu.ops.
     pallas_kernels.xt_dots_words`` (:func:`_digit_score`), equal bit for
     bit to :func:`xt_dots_words_t` on the same genotypes' transposed
-    words."""
+    words; float64 for a float64 rhs (the float64 digit score)."""
     return _digit_score(quad_rows(words), 4 * words.shape[0], rhs,
                         want_missing=want_missing, want_sq=want_sq, p=p)
 
@@ -262,7 +361,7 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
     planes of R: words_t (nw = n4/4, p_all) int32, rhs (16*nw, m) float.
     Returns (A, M, S) like :func:`xt_dots`, f32: the function of
     ``mendeliht_tpu.ops.pallas_kernels.xt_dots_words_t``
-    (:func:`_digit_score`)."""
+    (:func:`_digit_score`); float64 for a float64 rhs."""
     return _digit_score(t_rows(words_t), words_t.shape[1], rhs,
                         want_missing=want_missing, want_sq=want_sq, p=p)
 

@@ -7,7 +7,9 @@ loaded with ctypes; a failed build or launch raises.  There is no fallback
 from a CUDA tensor to the plain version.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels.
+main path went through the kernels; the float64 score's launches of kernels
+1 and 2 count under their own names (``xt_dots_words_f64``,
+``xt_dots_words_t_f64``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,17 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0,
             "xt_dots_T": 0, "unpack_words": 0, "int_dot_packed": 0,
-            "xt_i8_rounds": 0, "stream_xor": 0, "decode_only": 0}
+            "xt_i8_rounds": 0, "stream_xor": 0, "decode_only": 0,
+            "xt_dots_words_f64": 0, "xt_dots_words_t_f64": 0}
+
+# libraries built from a source under other flags: the float64 score's
+# raw-sum entries of kernels 1 and 2 (csrc/xt_dots_t.cu with
+# -DXT_DOTS_RAW), a library of their own so that it compiles beside the
+# f32 one and leaves it as it is
+_VARIANTS = {"xt_dots_t_raw": ("xt_dots_t", ("-DXT_DOTS_RAW",))}
+# the float64 launches: their raw-sum entry
+_RAW_ENTRIES = {"xt_dots_words_f64": "xt_dots_words_raw",
+                "xt_dots_words_t_f64": "xt_dots_words_t_raw"}
 
 TP = 1024          # the round-3 probe's row tile (tools/kernel_probe.py)
 # copies of the small operand that the packed-lhs dot stages, so that its
@@ -58,20 +70,23 @@ def _nvcc() -> str:
 
 
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``_build/<name>-<hash>.so`` unless that
+    """Compile ``csrc/<name>.cu`` (or, for a name of ``_VARIANTS``, its
+    source under its flags) into ``_build/<name>-<hash>.so`` unless that
     file exists (the hash covers the source, the shared ``csrc/*.cuh``
     headers and the flags); the compiler's report (registers, spills) is kept
     beside it as ``.log``.  Raises if nvcc is missing or fails."""
-    src = _CSRC / f"{name}.cu"
+    source, extra = _VARIANTS.get(name, (name, ()))
+    flags = (*_NVCC_FLAGS, *extra)
+    src = _CSRC / f"{source}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     out = _BUILD / f"{name}-{digest}.so"
     if out.is_file():
         return out
     _BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -124,7 +139,9 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
     ``xt_dots_words_t`` is of its transposed kernel: the kernel equals its
     plain version (``decode.xt_dots_words``) and kernel 2 on the same
     genotypes bit for bit; past the exact range the wrapper raises before
-    any work, on either device."""
+    any work, on either device.  A float64 rhs takes the float64 digit
+    score (float64 outputs; on the card the raw-sum entry, counted as
+    ``xt_dots_words_f64``)."""
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"words must be 2-D int32, got {words.dtype} "
                          f"{tuple(words.shape)}")
@@ -145,10 +162,11 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
 @dataclasses.dataclass(frozen=True)
 class ScoreImage:
     """What kernel 1 takes of an RHS besides the words: on the card the
-    digit image, per-column scale, guard and plan of ``_digit_operands``,
-    made once and read by any number of launches (a streamed pass runs
-    kernel 1 on each block of the words against one image); on the CPU
-    nothing but the RHS, which the plain version reads."""
+    digit image, per-column scale, guard and plan of ``_digit_operands``
+    (``_digit_operands64`` for a float64 RHS), made once and read by any
+    number of launches (a streamed pass runs kernel 1 on each block of the
+    words against one image); on the CPU nothing but the RHS, which the
+    plain version reads."""
     rhs: torch.Tensor            # (n_pad, m) float
     want_missing: bool
     want_sq: bool
@@ -157,6 +175,11 @@ class ScoreImage:
     @property
     def m(self) -> int:
         return self.rhs.shape[1]
+
+    @property
+    def f64(self) -> bool:
+        """Whether the image is of the float64 digit score."""
+        return self.rhs.dtype == torch.float64
 
 
 def score_image(rhs: torch.Tensor, *, want_missing: bool,
@@ -175,7 +198,9 @@ def score_image(rhs: torch.Tensor, *, want_missing: bool,
     if rhs.shape[0] % 16:
         raise ValueError(f"rhs {tuple(rhs.shape)}: n_pad must be a multiple "
                          "of 16 (16-byte loads, the digit image's K steps)")
-    return ScoreImage(rhs, want_missing, want_sq, _digit_operands(
+    make = (_digit_operands64 if rhs.dtype == torch.float64
+            else _digit_operands)
+    return ScoreImage(rhs, want_missing, want_sq, make(
         rhs, rhs.shape[0] // 16, want_missing, want_sq))
 
 
@@ -184,8 +209,9 @@ def xt_dots_words_image(words: torch.Tensor, image: ScoreImage,
     """Kernel 1 (``xt_dots_words``) on the quad words ``words`` (p4, n4)
     against a :class:`ScoreImage` of an RHS (4*n4, m): (A, M, S) as
     ``xt_dots_words`` returns them, one launch counted as
-    ``xt_dots_words``.  On a CPU tensor the plain version
-    ``decode.xt_dots_words`` of the image's RHS."""
+    ``xt_dots_words`` (``xt_dots_words_f64`` for a float64 image).  On a
+    CPU tensor the plain version ``decode.xt_dots_words`` of the image's
+    RHS."""
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"words must be 2-D int32, got {words.dtype} "
                          f"{tuple(words.shape)}")
@@ -201,9 +227,10 @@ def xt_dots_words_image(words: torch.Tensor, image: ScoreImage,
         return decode.xt_dots_words(words, rhs,
                                     want_missing=image.want_missing,
                                     want_sq=image.want_sq, p=p)
-    return _launch_score("xt_dots_words", words, image.operands, n4 // 4,
-                         4 * p4, image.m, image.want_missing, image.want_sq,
-                         p)
+    launch = _launch_score64 if image.f64 else _launch_score
+    return launch("xt_dots_words_f64" if image.f64 else "xt_dots_words",
+                  words, image.operands, n4 // 4, 4 * p4, image.m,
+                  image.want_missing, image.want_sq, p)
 
 
 def _check_exact_range(name: str, arr: torch.Tensor, n_pad: int, p_all: int,
@@ -237,6 +264,93 @@ def _digit_operands(rhs: torch.Tensor, nw: int, want_missing: bool,
                            ("guard", guard, torch.float32)):
         _check_card_tensor(name, t, dtype)
     return digits, scale, guard, (ng, int(split), passes)
+
+
+def pseudo_planes64(planes: torch.Tensor) -> torch.Tensor:
+    """(8m, n_pad) int8 digit planes (``decode.quantize_rhs_planes64``,
+    row d*m + c) -> (9m, n_pad) int8 planes of 3m pseudo-columns in the
+    [hi|mid|lo] order of ``decode.quantize_rhs_planes``: pseudo-column 3c +
+    j holds digits 3j, 3j+1, 3j+2 of column c as its hi, mid and lo rows
+    (digit 8 is a zero row), so the kernel's digit layout
+    (``_digit_rows_t``) and loop run unchanged at m' = 3m."""
+    m8, n_pad = planes.shape
+    m = m8 // 8
+    v9 = torch.cat([planes.view(8, m, n_pad),
+                    planes.new_zeros((1, m, n_pad))])         # digit k: v9[k]
+    return v9.view(3, 3, m, n_pad).permute(1, 2, 0, 3).reshape(9 * m, n_pad)
+
+
+def _digit_operands64(rhs: torch.Tensor, nw: int, want_missing: bool,
+                      want_sq: bool):
+    """``_digit_operands`` of the float64 score: the digit image of the
+    pseudo-columns (``pseudo_planes64``) laid out for m' = 3m, the (m,)
+    float64 scale and guard, and the plan of ``score_plan_t`` at m'."""
+    planes, scale = decode.quantize_rhs_planes64(rhs)
+    guard = decode.nan_guard64(rhs)
+    ng, split, passes = score_plan_t(3 * rhs.shape[1],
+                                     1 + want_missing + want_sq)
+    digits = _digit_stages_t(_digit_rows_t(pseudo_planes64(planes), nw, ng,
+                                           split, passes), passes)
+    _check_card_tensor("digits", digits, torch.int8)
+    return digits, scale, guard, (ng, int(split), passes)
+
+
+def _raw_sums64(name: str, words: torch.Tensor, digits: torch.Tensor,
+                plan: tuple, nw: int, p_all: int, m: int, want_missing: bool,
+                want_sq: bool):
+    """Launch the float64 score ``name`` (kernel 1 or 2's raw-sum entry,
+    ``_RAW_ENTRIES``) on ``words`` with ``_digit_operands64``'s digits and
+    plan at m' = 3m and count it: the exact int32 sums of the value,
+    missing and hi-bit planes, each (p_all, 8, m) (``raw_digit_sums64``)
+    or None."""
+    _check_card_tensor("words", words, torch.int32)
+    kw = dict(dtype=torch.int32, device=words.device)
+    wanted = (True, want_missing, want_sq)
+    raw = [torch.empty((9 * m, p_all), **kw) if w else None for w in wanted]
+    fn = _entry("xt_dots_t_raw", _RAW_ENTRIES[name], _SCORE_ARGS)
+    _launch(name, fn, words.device, words.data_ptr(), digits.data_ptr(),
+            None, None, *_ptrs(*raw), nw, p_all, 3 * m, int(want_missing),
+            int(want_sq), *plan)
+    return tuple(None if r is None else raw_digit_sums64(r, m) for r in raw)
+
+
+def _launch_score64(name: str, words: torch.Tensor, operands: tuple, nw: int,
+                    p_all: int, m: int, want_missing: bool, want_sq: bool,
+                    p: int | None):
+    """The float64 score ``name`` on the card: the exact sums of its
+    raw-sum entry (``_raw_sums64``) combined in float64 by
+    ``decode.digit_outputs64`` (torch ops on the card).  Returns (A, M, S)
+    float64 cut to ``p``."""
+    digits, scale, guard, plan = operands
+    sums = _raw_sums64(name, words, digits, plan, nw, p_all, m, want_missing,
+                       want_sq)
+    return decode.digit_outputs64(*sums, scale, guard, p)
+
+
+def digit_sums64(arr: torch.Tensor, rhs: torch.Tensor, *, transposed: bool,
+                 want_missing: bool, want_sq: bool = False):
+    """The exact digit sums of the float64 score on the card, before the
+    combine: kernel 2's raw-sum entry on words_t (``transposed``) or kernel
+    1's on the quad words, each launch counted as the float64 score's;
+    (V'D, Miss'D or None, H'D or None), each (p_all, 8, m) int32, equal to
+    ``decode.digit_sums64`` of the same R bit for bit."""
+    if rhs.dtype != torch.float64 or arr.device.type != "cuda":
+        raise ValueError("digit_sums64 takes a float64 rhs on the card")
+    nw = arr.shape[0] if transposed else arr.shape[1] // 4
+    p_all = arr.shape[1] if transposed else 4 * arr.shape[0]
+    _check_exact_range("words", arr, 16 * nw, p_all, rhs.shape[1])
+    digits, _, _, plan = _digit_operands64(rhs, nw, want_missing, want_sq)
+    name = "xt_dots_words_t_f64" if transposed else "xt_dots_words_f64"
+    return _raw_sums64(name, arr, digits, plan, nw, p_all, rhs.shape[1],
+                       want_missing, want_sq)
+
+
+def raw_digit_sums64(raw: torch.Tensor, m: int) -> torch.Tensor:
+    """A raw-sum entry's output plane, (9m, p_all) int32 with row 3c' + d
+    the sum of digit row d of pseudo-column c' = 3c + j (``pseudo_planes64``),
+    -> the (p_all, 8, m) view of ``decode.combine_digits64``: digit 3j + d
+    of column c (row 9c + 3j + d; the zero ninth digit dropped)."""
+    return raw.view(m, 9, raw.shape[1]).permute(2, 1, 0)[:, :decode.DIGITS64]
 
 
 # the lab's and the probe's A-only scores (kernels 6 and 7): their entry of
@@ -338,7 +452,7 @@ def score_plan_t(m: int, planes: int):
     if m <= 2:
         return 0, False, 1
     groups = -(-m // 8)
-    cap = _NG_PLANES_T // planes
+    cap = min(_NG_PLANES_T // planes, max(_NG_T))
     fit = lambda g: min(x for x in _NG_T if x >= g)          # noqa: E731
     if groups <= cap:
         return fit(groups), False, 1
@@ -402,7 +516,10 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
     are exact while 128 * 16*nw < 2^31, and past that the wrapper raises
     before any work, on either device.  The digit planes and their layout
     are torch ops here, as XLA runs them around the Pallas call; the kernel
-    equals its plain version (``decode.xt_dots_words_t``) bit for bit."""
+    equals its plain version (``decode.xt_dots_words_t``) bit for bit.  A
+    float64 rhs takes the float64 digit score: the raw-sum entry of the
+    same body (counted as ``xt_dots_words_t_f64``), its sums combined in
+    float64, float64 outputs equal to the plain version's bit for bit."""
     if words_t.dtype != torch.int32 or words_t.dim() != 2:
         raise ValueError(f"words_t must be 2-D int32, got {words_t.dtype} "
                          f"{tuple(words_t.shape)}")
@@ -421,6 +538,11 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
                                       want_sq=want_sq, p=p)
     if words_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {words_t.device}")
+    if rhs.dtype == torch.float64:
+        return _launch_score64(
+            "xt_dots_words_t_f64", words_t,
+            _digit_operands64(rhs, nw, want_missing, want_sq), nw, p_all,
+            rhs.shape[1], want_missing, want_sq, p)
     return _digit_score("xt_dots_words_t", words_t, rhs, nw, p_all,
                         want_missing, want_sq, p)
 

@@ -14,6 +14,12 @@ a TPU; on the CPU, whatever the layout, to the f32 function
 standardized dosages, or a caller's matrix) and computes the same products
 with ``torch.matmul`` / ``einsum`` in full f32, as the JAX package's
 ``DenseOp`` does at ``Precision.HIGHEST``.
+
+Every operator has a dtype, float32 or float64, the dtype of its fit: a
+PackedOp's per-SNP statistics are cast to it (the words are shared), a
+DenseOp's matrix is in it, and its products come back in it.  A float64
+score on the card runs kernels 1 and 2's float64 entries (the exact
+float64 digit score); on the CPU ``decode.xt_dots`` in float64.
 """
 
 from __future__ import annotations
@@ -59,7 +65,16 @@ def transposed_score(g: PackedGenotypes, m: int) -> bool:
 
 @dataclasses.dataclass
 class PackedOp:
+    """The standardized operator of PackedGenotypes in ``dtype`` (None:
+    the genotypes' own): ``mu`` and ``inv_sd`` are the genotypes' cast to
+    it, and every product is in it."""
     geno: PackedGenotypes
+    dtype: torch.dtype | None = None
+
+    def __post_init__(self):
+        self.dtype = self.dtype or self.geno.mu.dtype
+        self.mu = self.geno.mu.to(self.dtype)
+        self.inv_sd = self.geno.inv_sd.to(self.dtype)
 
     @property
     def n(self):
@@ -74,17 +89,14 @@ class PackedOp:
         return self.geno.n_pad
 
     @property
-    def dtype(self):
-        return self.geno.mu.dtype
-
-    @property
     def device(self):
         return self.geno.device
 
     def _xt_dots(self, RT: torch.Tensor, want_sq: bool = False):
         """Raw dots (A, M, S) of the whole matrix against RT (n_pad, m): on
-        the CPU the f32 function, else the score kernel that
-        :func:`transposed_score` picks."""
+        the CPU the unquantised function in RT's dtype, else the score
+        kernel that :func:`transposed_score` picks (its float64 entry for a
+        float64 RT)."""
         g = self.geno
         kw = dict(want_missing=g.has_missing, want_sq=want_sq, p=g.p)
         if RT.device.type == "cpu":
@@ -103,7 +115,7 @@ class PackedOp:
         A, M, _ = self._xt_dots(R.T)
         colsum = R.sum(dim=1)                                  # (B,)
         corr = M - colsum[None, :] if g.has_missing else -colsum[None, :]
-        out = g.inv_sd[:, None] * (A + g.mu[:, None] * corr)
+        out = self.inv_sd[:, None] * (A + self.mu[:, None] * corr)
         return out.T
 
     def forward_sel(self, idx: torch.Tensor, coef: torch.Tensor,
@@ -113,11 +125,11 @@ class PackedOp:
         idx (B, S) SNP indices; coef (B, S); valid (B, S) 0/1.  Invalid slots
         are ignored regardless of index value."""
         g = self.geno
-        coef_s = coef * g.inv_sd[idx] * valid
+        coef_s = coef * self.inv_sd[idx] * valid
         rows = self._rows_bytes(idx)
-        raw = decode.sparse_forward_rows(rows, idx, coef_s, g.mu,
+        raw = decode.sparse_forward_rows(rows, idx, coef_s, self.mu,
                                          want_missing=g.has_missing)
-        const = (coef_s * g.mu[idx]).sum(dim=1)                # (B,)
+        const = (coef_s * self.mu[idx]).sum(dim=1)             # (B,)
         return raw - const[:, None]
 
     def forward_sel_multi(self, idx: torch.Tensor, coef: torch.Tensor,
@@ -126,11 +138,11 @@ class PackedOp:
         indices shared by the traits, coef (B, R, S), valid (B, S) 0/1 ->
         (B, R, n_pad); each selected row decoded once for all R traits."""
         g = self.geno
-        coef_s = coef * (g.inv_sd[idx] * valid)[:, None, :]
+        coef_s = coef * (self.inv_sd[idx] * valid)[:, None, :]
         rows = self._rows_bytes(idx)
-        raw = decode.sparse_forward_rows_multi(rows, idx, coef_s, g.mu,
+        raw = decode.sparse_forward_rows_multi(rows, idx, coef_s, self.mu,
                                                want_missing=g.has_missing)
-        const = (coef_s * g.mu[idx][:, None, :]).sum(dim=2)    # (B, R)
+        const = (coef_s * self.mu[idx][:, None, :]).sum(dim=2)  # (B, R)
         return raw - const[:, :, None]
 
     def gather_cols(self, idx: torch.Tensor, valid: torch.Tensor):
@@ -141,8 +153,8 @@ class PackedOp:
         rows = self._rows_bytes(idx)
         val, miss = decode.gather_decode_rows(rows, self.dtype,
                                               want_missing=g.has_missing)
-        mu = g.mu[idx][:, :, None]
-        inv = g.inv_sd[idx][:, :, None]
+        mu = self.mu[idx][:, :, None]
+        inv = self.inv_sd[idx][:, :, None]
         if g.has_missing:
             val = val + mu * miss
         return (val - mu) * inv * valid[:, :, None]
@@ -156,7 +168,8 @@ class PackedOp:
         One score pass at width 2B with the squared plane S (and M where
         the genotypes miss calls): on the card kernel 2 (or kernel 1), whose
         int8 digits carry a 0/1 W exactly and quantise the WY columns to 21
-        bits against their max; on the CPU the f32 ``decode.xt_dots``."""
+        bits against their max (56 in a float64 operator); on the CPU the
+        unquantised ``decode.xt_dots``."""
         g = self.geno
         B = W.shape[0]
         R = torch.stack([W, WY], dim=0).reshape(2 * B, -1)   # (2B, n_pad)
@@ -164,7 +177,7 @@ class PackedOp:
         A = A.T.reshape(2, B, -1)
         Sq = Sq.T.reshape(2, B, -1)
         M = M.T.reshape(2, B, -1) if g.has_missing else torch.zeros_like(A)
-        mu, inv = g.mu[None, :], g.inv_sd[None, :]
+        mu, inv = self.mu[None, :], self.inv_sd[None, :]
         sumW = W.sum(dim=1)[:, None]
         sumWY = WY.sum(dim=1)[:, None]
         Sx = inv * (A[0] + mu * (M[0] - sumW))
@@ -199,8 +212,9 @@ _GATHER_BYTES = 1 << 30
 
 @dataclasses.dataclass
 class DenseOp:
-    """A dense (n, p) f32 design matrix, used as it is (the caller
-    standardizes), on its own device; ``n_pad = n``."""
+    """A dense (n, p) f32 or float64 design matrix, used as it is (the
+    caller standardizes), on its own device; ``n_pad = n``.  Its products
+    run in its dtype (``full_f32`` keeps TF32 out of the f32 ones)."""
     x: torch.Tensor
 
     @property
@@ -264,33 +278,40 @@ class DenseOp:
             return W @ self.x, W @ (self.x * self.x), WY @ self.x
 
 
-def make_operator(x):
-    """Wrap a design matrix in its operator.
+def make_operator(x, dtype=None):
+    """Wrap a design matrix in its operator, in ``dtype`` (float32 or
+    float64, the fit's, as the JAX package's ``make_operator(x, dtype)``;
+    None: genotypes keep their statistics' dtype, a dense matrix becomes
+    f32).
 
     A PackedOp (a StreamedPackedOp among them) or DenseOp is returned as
-    it is: that is how a caller runs the quad-word kernel on genotypes
-    without ``words_t``.  HostStreamedGenotypes (out of core) get a
-    ``StreamedPackedOp``.  Genotypes on a
-    CUDA device get the transposed dual layout, in place, where their packed
-    words fit ``MENDELIHT_DUAL_MAX_BYTES`` (default ``_DUAL_MAX_BYTES``), as
-    the JAX package stores it on a TPU; CPU genotypes never get it here.  A
-    dense matrix becomes a DenseOp in f32: a torch tensor on its own device,
-    a numpy array on the card (a caller who wants the CPU passes a CPU
-    tensor)."""
-    if isinstance(x, (PackedOp, DenseOp)):
-        return x
+    it is where it is in ``dtype``, else as an operator of the same kind
+    over the same genotypes or matrix in ``dtype``: that is how a caller
+    runs the quad-word kernel on genotypes without ``words_t``.
+    HostStreamedGenotypes (out of core) get a ``StreamedPackedOp``.
+    Genotypes on a CUDA device get the transposed dual layout, in place,
+    where their packed words fit ``MENDELIHT_DUAL_MAX_BYTES`` (default
+    ``_DUAL_MAX_BYTES``), as the JAX package stores it on a TPU; CPU
+    genotypes never get it here.  A dense matrix becomes a DenseOp: a
+    torch tensor on its own device, a numpy array on the card (a caller
+    who wants the CPU passes a CPU tensor)."""
+    if isinstance(x, DenseOp):
+        return x if dtype in (None, x.dtype) else DenseOp(x.x.to(dtype))
+    if isinstance(x, PackedOp):
+        return x if dtype in (None, x.dtype) else type(x)(x.geno, dtype)
     if isinstance(x, PackedGenotypes):
         if (x.device.type == "cuda" and x.words_t is None
                 and x.words.numel() * 4 <= _env_int(
                     "MENDELIHT_DUAL_MAX_BYTES", _DUAL_MAX_BYTES)):
             x.with_dual_layout()
-        return PackedOp(x)
+        return PackedOp(x, dtype)
+    dense = dtype or torch.float32
     if isinstance(x, torch.Tensor):
-        return DenseOp(x.to(torch.float32))
+        return DenseOp(x.to(dense))
     if isinstance(x, np.ndarray):
-        return DenseOp(torch.as_tensor(x, dtype=torch.float32,
+        return DenseOp(torch.as_tensor(x, dtype=dense,
                                        device=resolve_device()))
     from .streaming import HostStreamedGenotypes, StreamedPackedOp
     if isinstance(x, HostStreamedGenotypes):
-        return StreamedPackedOp(x)
+        return StreamedPackedOp(x, dtype)
     raise TypeError(f"unsupported design matrix type {type(x)}")

@@ -29,9 +29,9 @@ and streams the rest in blocks of ``block_p`` SNPs on each pass:
   fetch of the indices to the host (``syncs`` counts them), the distinct
   rows uploaded once.
 
-On the CPU the blocks are views of the host words and take the f32
-function ``decode.xt_dots``, as ``PackedOp`` does there; nothing is
-copied.
+On the CPU the blocks are views of the host words and take the
+unquantised ``decode.xt_dots`` in R's dtype, as ``PackedOp`` does there;
+nothing is copied.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from . import decode, kernels
 from .linalg import PackedOp, _env_int
 from ..genotype.snparray import (_LANE, PackedGenotypes, _ceil_to, bed_stats,
                                  repacked_bed_chunks)
-from ..utils.device import resolve_device
+from ..utils.device import float_dtype, resolve_device
 
 # the JAX package's defaults, sized for a v5e's ~14.5 GiB of usable HBM
 _RESIDENT_DEFAULT = 10 * 2**30
@@ -181,8 +181,10 @@ class HostStreamedGenotypes:
         words: the payload is repacked on ``device`` (default the card; it
         raises where there is none and ``device`` is not "cpu") a chunk of
         SNPs at a time, and each chunk's words come back to one host
-        array, so the packed matrix is never on the device whole."""
+        array, so the packed matrix is never on the device whole.  mu and
+        1/sd are in ``dtype``, float32 or float64."""
         from ..genotype.plink import _bed_payload
+        dtype = float_dtype(dtype, "HostStreamedGenotypes.from_plink")
         device = resolve_device(device)
         bed, n, p = _bed_payload(prefix)
         words = np.zeros((-(-p // 4), _ceil_to(-(-n // 4), _LANE)), np.int32)
@@ -201,13 +203,16 @@ class StreamedPackedOp(PackedOp):
     ``forward_sel_multi``, ``gather_cols``) over HostStreamedGenotypes,
     on their device.
 
-    ``prefix`` holds the resident quad rows as PackedGenotypes without the
-    transposed layout; ``p_res`` is its SNPs.  ``syncs`` counts the host
-    fetches of the forward products' indices, ``copies`` the blocks
-    copied to the card."""
+    ``dtype`` is the operator's, as :class:`PackedOp`'s; a float64 pass
+    runs kernel 1's float64 entry on each block against one float64 digit
+    image.  ``prefix`` holds the resident quad rows as PackedGenotypes
+    without the transposed layout; ``p_res`` is its SNPs.  ``syncs``
+    counts the host fetches of the forward products' indices, ``copies``
+    the blocks copied to the card."""
 
-    def __init__(self, geno: HostStreamedGenotypes):
-        super().__init__(geno)
+    def __init__(self, geno: HostStreamedGenotypes,
+                 dtype: torch.dtype | None = None):
+        super().__init__(geno, dtype)
         budget = (geno.resident_bytes if geno.resident_bytes is not None
                   else _resident_budget())
         p4, n4 = geno.words.shape
@@ -241,9 +246,9 @@ class StreamedPackedOp(PackedOp):
 
     def _xt_dots(self, RT: torch.Tensor, want_sq: bool = False):
         """Raw dots (A, M, S) of the whole matrix against RT (n_pad, m), as
-        ``PackedOp._xt_dots`` returns them: on the CPU the f32 function on
-        views of the host words, on the card kernel 1 on the prefix and on
-        each streamed block against one image of RT."""
+        ``PackedOp._xt_dots`` returns them: on the CPU the unquantised
+        function on views of the host words, on the card kernel 1 on the
+        prefix and on each streamed block against one image of RT."""
         kw = dict(want_missing=self.geno.has_missing, want_sq=want_sq)
         if RT.device.type != "cpu":
             return self._xt_dots_card(RT, kw)

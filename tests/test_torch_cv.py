@@ -633,13 +633,26 @@ def test_iht_run_many_models_accepts_float32_dtype(plain_problem, dtype):
 
 
 def test_float64_dtype_raises_in_cv_and_path(plain_problem):
+    """A float64 dtype raised NotImplementedError before float64 fits were
+    ported: now the cv and the path run in float64, with the float32 runs'
+    best k; bfloat16 and None still raise."""
     x, y, folds = plain_problem
-    with pytest.raises(NotImplementedError, match="float64 fits"):
-        mt.cv_iht(y, _port(x), path=[1], q=3, folds=folds, verbose=False,
-                  dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="float64 fits"):
-        mt.iht_run_many_models(y, _port(x), path=[1], verbose=False,
-                               dtype=torch.float64)
+    kw = dict(path=[1, 3], q=3, folds=folds, verbose=False)
+    mse = mt.cv_iht(y, _port(x), dtype=np.float64, **kw)
+    want = mt.cv_iht(y, _port(x), **kw)
+    assert np.argmin(mse) == np.argmin(want)
+    np.testing.assert_allclose(mse, want, rtol=1e-4)
+    logl = mt.iht_run_many_models(y, _port(x), path=[1, 3], verbose=False,
+                                  dtype=torch.float64)
+    assert np.isfinite(logl).all()
+    for bad in (jnp.bfloat16, None):
+        with pytest.raises(NotImplementedError,
+                           match="float32 or float64 only"):
+            mt.cv_iht(y, _port(x), dtype=bad, **kw)
+        with pytest.raises(NotImplementedError,
+                           match="float32 or float64 only"):
+            mt.iht_run_many_models(y, _port(x), path=[1], verbose=False,
+                                   dtype=bad)
 
 
 def test_cv_unported_inputs_raise(plain_problem):

@@ -259,9 +259,20 @@ def test_jax_api_arguments_accepted(small_sim, tmp_path, monkeypatch, kwargs):
 @pytest.mark.parametrize("dtype", [torch.float64, np.float64, "float64",
                                    jnp.bfloat16, None])
 def test_other_dtypes_raise(small_sim, dtype):
+    """float64, however it is spelled, runs a float64 fit: beta and c
+    float64, the float32 fit's support.  A dtype no fit runs in (bfloat16,
+    None) raises NotImplementedError naming the two that do."""
     x, y, _, _ = small_sim
-    with pytest.raises(NotImplementedError, match="float64 fits"):
-        mt.fit_iht(y, _port_genotypes(x), k=5, verbose=False, dtype=dtype)
+    g = _port_genotypes(x)
+    if dtype is None or dtype is jnp.bfloat16:
+        with pytest.raises(NotImplementedError,
+                           match="float32 or float64 only"):
+            mt.fit_iht(y, g, k=5, verbose=False, dtype=dtype)
+        return
+    r = mt.fit_iht(y, g, k=5, verbose=False, dtype=dtype)
+    assert r.beta.dtype == np.float64 and np.asarray(r.c).dtype == np.float64
+    assert _support(r.beta) == _support(mt.fit_iht(y, g, k=5,
+                                                   verbose=False).beta)
 
 
 @pytest.mark.parametrize("n,p", [(301, 8195), (10, 13)])

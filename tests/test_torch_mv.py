@@ -561,9 +561,21 @@ def test_unported_inputs_raise(geno, sims, tmp_path):
     # TypeError
     with pytest.raises(TypeError, match="unsupported design matrix type"):
         mt.cv_iht(Y, object(), path=[1], q=2, verbose=False)
+    # a float64 dtype raised NotImplementedError before float64 fits were
+    # ported: now the fit and the cv run in float64; bfloat16 and None
+    # still raise
+    r64 = mt.fit_iht(Y, t, k=3, verbose=False, dtype=np.float64)
+    assert r64.beta.dtype == r64.Sigma.dtype == np.float64
+    assert _entries(r64.beta) == _entries(mt.fit_iht(Y, t, k=3,
+                                                     verbose=False).beta)
+    mse = mt.cv_iht(Y, t, path=[1, 3], q=2, folds=np.tile([1, 2], N // 2),
+                    verbose=False, dtype=np.float64)
+    assert mse.dtype == np.float64 and np.isfinite(mse).all()
     for fn in (mt.fit_iht, mt.cv_iht):
-        with pytest.raises(NotImplementedError, match="float64 fits"):
-            fn(Y, t, verbose=False, dtype=np.float64)
+        for bad in (jnp.bfloat16, None):
+            with pytest.raises(NotImplementedError,
+                               match="float32 or float64 only"):
+                fn(Y, t, verbose=False, dtype=bad)
     # the resident fit takes checkpoint_dir and ignores it, as the JAX
     # package's resident fit does; nothing is written
     a = mt.fit_iht(Y, t, k=3, verbose=False,
