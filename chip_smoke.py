@@ -7,13 +7,12 @@ Phases, one or more lines each; any failure raises (non-zero exit, no
 result line):
 
 1. device     name, ``nvidia-smi`` name and power limit; TF32 off
-2. build      the four CUDA sources of ``mendeliht_tpu_torch/csrc`` and
-              ``xt_dots_t.cu`` again under ``-DXT_DOTS_RAW`` (the float64
-              score's raw-sum entries of kernels 1 and 2), one nvcc each,
-              all started together; ptxas register/spill lines, and the
-              registers, spills and shared memory of kernels 1, 2 (and 6)
-              and 7 (``xt_dots_t.cu``, one body, three layouts) and of the
-              raw-sum entries summed up
+2. build      the four CUDA sources of ``mendeliht_tpu_torch/csrc``, one
+              nvcc each, all started together; ptxas register/spill lines,
+              and the registers, spills and shared memory of kernels 1, 2
+              (and 6) and 7 (``xt_dots_t.cu``, one body, three layouts) and
+              of the float64 score's raw-sum entries of kernels 1 and 2
+              summed up
 3. kernel     kernel 1 (``xt_dots_words``, quad words, int8 digit planes on
               the tensor cores) vs its plain PyTorch version on the card,
               bit for bit: n=10k x p=65,536 and n=200k x p=4,096 (long
@@ -399,10 +398,8 @@ CV_TOL = 1e-4      # cv mse, card vs CPU: f32 sums in another order
 # (and 200 with S, 100 with M), the dual fit's warm runs, and the float64
 # fit's beta, card vs CPU, within this share of max|beta|
 F64_WIDTHS, F64_WARM, F64_PARITY_TOL = (1, 8, 100), 2, 1e-9
-# the sources built, one nvcc each: xt_dots_t_raw is xt_dots_t.cu under
-# -DXT_DOTS_RAW, the float64 score's raw-sum entries of kernels 1 and 2
-SOURCES = ("xt_dots_t", "xt_dots_t_raw", "read_probe", "int_probe",
-           "kernel_probe")
+# the sources built, one nvcc each
+SOURCES = ("xt_dots_t", "read_probe", "int_probe", "kernel_probe")
 # kernel 6 runs kernel 2's body on the same words at the same width: its
 # m = 100 time may exceed kernel 2's by no more than run-to-run noise
 SAME_BODY_SLACK = 1.10
@@ -589,32 +586,27 @@ def phase_build():
     log = next(lib for lib in libs if lib.stem.startswith("xt_dots_t-"))
     text = log.with_suffix(".log").read_text()
     smem = sorted(set(re.findall(r"(\d+) bytes smem", text)))
-    # each instantiation's block of the log; the layout is its last
-    # template argument (Layout: 0 T, 1 QUAD, 2 ROW)
-    found = {"0": [], "1": [], "2": []}
+    # each instantiation's block of the log; its last two template
+    # arguments are the layout (Layout: 0 T, 1 QUAD, 2 ROW) and RAW
+    found = {}
     for block in text.split("Compiling entry function '")[1:]:
-        layout = re.search(r"LayoutE(\d)E", block.split("'", 1)[0]).group(1)
-        found[layout].append((
+        key = re.search(r"LayoutE(\d)ELb(\d)E",
+                        block.split("'", 1)[0]).groups()
+        found.setdefault(key, []).append((
             int(re.search(r"Used (\d+) registers", block).group(1)),
             max(map(int, re.findall(r"(\d+) bytes spill", block)),
                 default=0)))
-    for kernel, layout in (("1 (quad words)", "1"),
-                           ("2 and 6 (transposed)", "0"),
-                           ("7 (row-major)", "2")):
-        regs = [r for r, _ in found[layout]]
+    for kernel, key in (("1 (quad words)", ("1", "0")),
+                        ("2 and 6 (transposed)", ("0", "0")),
+                        ("7 (row-major)", ("2", "0")),
+                        ("1's float64 raw-sum entry", ("1", "1")),
+                        ("2's float64 raw-sum entry", ("0", "1"))):
+        regs = [r for r, _ in found[key]]
         print(f"[build] kernel {kernel}, xt_dots_t.cu: {len(regs)} "
               f"instantiations, registers {min(regs)}-{max(regs)} a thread, "
-              f"spill bytes {max(b for _, b in found[layout])} at most, "
+              f"spill bytes {max(b for _, b in found[key])} at most, "
               f"static shared memory {smem} bytes (the stage ring is "
               "dynamic: 3-8 stages, sized at launch)", flush=True)
-    raw = next(lib for lib in libs if lib.stem.startswith("xt_dots_t_raw-"))
-    text = raw.with_suffix(".log").read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-    spill = max(map(int, re.findall(r"(\d+) bytes spill", text)), default=0)
-    print(f"[build] kernels 1 and 2's float64 raw-sum entries, xt_dots_t.cu "
-          f"-DXT_DOTS_RAW: {len(regs)} instantiations, registers "
-          f"{min(regs)}-{max(regs)} a thread, spill bytes {spill} at most",
-          flush=True)
 
 
 def check_cases(name, kernel, plain, arr, g, gen):
@@ -2973,20 +2965,24 @@ def rhs64_on(g, m, gen):
 
 def f64_bound(g, m, planes):
     """Bound of one float64 score pass at width m with ``planes`` output
-    planes: the words, R (float64) and the (9m, p) int32 digit sums of
-    each plane moved once; 9 digit rows x 2*n_pad*p*m int8 operations a
-    plane (3 pseudo-columns of 3 digit rows a column)."""
+    planes: the words, R (float64) and the (8m, p) int32 digit sums of
+    each plane moved once; 8 digit rows x 2*n_pad*p*m int8 operations a
+    plane (the eight 7-bit digits that carry R's 53 bits; the kernel's
+    ninth, zero row of the pseudo-column layout is its own cost, not the
+    function's)."""
+    digits = decode.DIGITS64
     nbytes = (g.words.numel() * 4 + 8 * g.n_pad * m
-              + planes * 4 * 9 * m * g.p)
-    return bound(g.device, nbytes, planes * 9 * 2 * g.n_pad * g.p * m, "int8")
+              + planes * 4 * digits * m * g.p)
+    return bound(g.device, nbytes, planes * digits * 2 * g.n_pad * g.p * m,
+                 "int8")
 
 
 def check_f64_sums(label, g, rhs, kw, chunk=250_000):
     """Kernels 2 and 1's float64 entries before the combine
-    (``kernels.digit_sums64``) bit for bit against the plain digit sums
+    (``kernels.raw_sums64``) bit for bit against the plain digit sums
     (``decode.digit_sums64``), compared a chunk of SNPs at a time."""
     for transposed, arr in ((True, g.words_t), (False, g.words)):
-        raw = kernels.digit_sums64(arr, rhs, transposed=transposed, **kw)
+        raw = kernels.raw_sums64(arr, rhs, transposed=transposed, **kw)
         for lo in range(0, g.p, chunk):
             hi = min(lo + chunk, g.p)
             quads = g.words[lo // 4:-(-hi // 4)]
@@ -3011,7 +3007,7 @@ def f64_widths(label, g, gen, widths):
     bit against the plain float64 score and each other, and within
     1e-13 * n_pad * max|R_col| of the unquantised float64
     ``decode.xt_dots``; then timed in turns (plain; kernel 2, kernel 1,
-    kernel 1, kernel 2; the raw-sum entry alone, ``digit_sums64``, no
+    kernel 1, kernel 2; the raw-sum entry alone, ``raw_sums64``, no
     combine, in the same turns; plain) beside the bound.  Returns each
     entry's fields for the kernels line, keyed like ``paired_widths``'."""
     out = {"xt_dots_words_f64": {}, "xt_dots_words_t_f64": {}}
@@ -3040,7 +3036,7 @@ def f64_widths(label, g, gen, widths):
                  True),
                 ("xt_dots_words_f64", kernels.xt_dots_words, g.words, False)):
             calls[name] = (lambda k=kern, a=arr: k(a, rhs, **kwp))
-            raw_calls[name] = (lambda a=arr, t=tr: kernels.digit_sums64(
+            raw_calls[name] = (lambda a=arr, t=tr: kernels.raw_sums64(
                 a, rhs, transposed=t, **kw))
             got = calls[name]()
             if not all(same(a, b) for a, b in zip(got, ref) if b is not None):

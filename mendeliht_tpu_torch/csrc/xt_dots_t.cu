@@ -21,14 +21,14 @@
 // other bit for bit on the same genotypes.
 //
 // The float64 score of kernels 1 and 2 (RAW, entries xt_dots_words_raw and
-// xt_dots_words_t_raw, compiled from this file with -DXT_DOTS_RAW): the
-// same body and main loop on a digit image of eight 7-bit digits a column
-// (ops/decode.py::quantize_rhs_planes64), laid out as three 3-digit
-// "pseudo-columns" a column (the last padded with a zero digit), so the
-// loop runs unchanged at m' = 3m; only the store differs: it writes each
-// accumulator's exact int32 digit sum, and the wrapper combines them in
-// float64 (decode.combine_digits64).  Its operands and outputs:
+// xt_dots_words_t_raw): the same body and main loop on a digit image of
+// eight 7-bit digits a column (ops/decode.py::quantize_rhs_planes64), laid
+// out as three 3-digit "pseudo-columns" a column (the last padded with a
+// zero digit), so the loop runs unchanged at m' = 3m; only the store
+// differs: it writes each accumulator's exact int32 digit sum, and the
+// wrapper combines them in float64 (decode.combine_digits64).
 //
+// Operands and outputs:
 //
 //   words_t (nw, p_all) words, read as uint32: word (w, j) holds bytes
 //           4w..4w+3 of SNP j's crumb-transposed row, so crumb q of its byte
@@ -783,12 +783,9 @@ int run(const void* words, const void* digits, const void* scale,
 // every pointer 16-byte aligned, and p_all (T, QUAD) or nw (ROW) a
 // multiple of 4 (the wrapper checks).  M / S may be null when not wanted.
 // Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() so a refused launch is seen by the caller.  Built
-// with -DXT_DOTS_RAW, the file holds the float64 score's raw-sum entries
-// of kernels 2 and 1 instead (the same arguments; m the pseudo-columns,
-// A, M, S int32, scale and guard unread), a library of their own that
-// compiles beside this one.
-#ifndef XT_DOTS_RAW
+// cudaGetLastError() so a refused launch is seen by the caller.  The
+// float64 score's raw-sum entries of kernels 2 and 1 (*_raw) take the same
+// arguments: m the pseudo-columns, A, M, S int32, scale and guard unread.
 extern "C" int xt_dots_words_t(const void* words_t, const void* digits,
                                const void* scale, const void* guard, void* A,
                                void* M, void* S, int nw, int p_all, int m,
@@ -819,7 +816,7 @@ extern "C" int xt_dots_words_rows(const void* words, const void* digits,
                                  p_all, m, want_missing, want_sq, ng, split,
                                  passes, stream);
 }
-#else
+
 extern "C" int xt_dots_words_t_raw(const void* words_t, const void* digits,
                                    const void* scale, const void* guard,
                                    void* A, void* M, void* S, int nw,
@@ -840,4 +837,3 @@ extern "C" int xt_dots_words_raw(const void* words, const void* digits,
                                  p_all, m, want_missing, want_sq, ng, split,
                                  passes, stream);
 }
-#endif

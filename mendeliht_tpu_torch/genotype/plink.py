@@ -85,7 +85,8 @@ def read_plink(prefix: str, dtype=None, device=None) -> SnpData:
     """Read `prefix`.bed/.bim/.fam into a :class:`SnpData` whose genotypes
     live on ``device`` (default the card) with per-SNP stats in ``dtype``
     (default float32; float64 for a float64 fit)."""
-    dtype = float_dtype(dtype or torch.float32, "read_plink")
+    dtype = float_dtype(torch.float32 if dtype is None else dtype,
+                        "read_plink")
     bim_path, fam_path = prefix + ".bim", prefix + ".fam"
     payload, n, p = _bed_payload(prefix)
     bim = _read_table(bim_path, 6)

@@ -38,12 +38,7 @@ LAUNCHES = {"xt_dots_words": 0, "xt_dots_words_t": 0, "read_words": 0,
             "xt_i8_rounds": 0, "stream_xor": 0, "decode_only": 0,
             "xt_dots_words_f64": 0, "xt_dots_words_t_f64": 0}
 
-# libraries built from a source under other flags: the float64 score's
-# raw-sum entries of kernels 1 and 2 (csrc/xt_dots_t.cu with
-# -DXT_DOTS_RAW), a library of their own so that it compiles beside the
-# f32 one and leaves it as it is
-_VARIANTS = {"xt_dots_t_raw": ("xt_dots_t", ("-DXT_DOTS_RAW",))}
-# the float64 launches: their raw-sum entry
+# the float64 launches: their raw-sum entry of csrc/xt_dots_t.cu
 _RAW_ENTRIES = {"xt_dots_words_f64": "xt_dots_words_raw",
                 "xt_dots_words_t_f64": "xt_dots_words_t_raw"}
 
@@ -70,23 +65,20 @@ def _nvcc() -> str:
 
 
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (or, for a name of ``_VARIANTS``, its
-    source under its flags) into ``_build/<name>-<hash>.so`` unless that
+    """Compile ``csrc/<name>.cu`` into ``_build/<name>-<hash>.so`` unless that
     file exists (the hash covers the source, the shared ``csrc/*.cuh``
     headers and the flags); the compiler's report (registers, spills) is kept
     beside it as ``.log``.  Raises if nvcc is missing or fails."""
-    source, extra = _VARIANTS.get(name, (name, ()))
-    flags = (*_NVCC_FLAGS, *extra)
-    src = _CSRC / f"{source}.cu"
+    src = _CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(flags).encode()).hexdigest()[:16]
+                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _BUILD / f"{name}-{digest}.so"
     if out.is_file():
         return out
     _BUILD.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -142,18 +134,7 @@ def xt_dots_words(words: torch.Tensor, rhs: torch.Tensor, *,
     any work, on either device.  A float64 rhs takes the float64 digit
     score (float64 outputs; on the card the raw-sum entry, counted as
     ``xt_dots_words_f64``)."""
-    if words.dtype != torch.int32 or words.dim() != 2:
-        raise ValueError(f"words must be 2-D int32, got {words.dtype} "
-                         f"{tuple(words.shape)}")
-    if rhs.dim() != 2 or rhs.shape[0] != 4 * words.shape[1]:
-        raise ValueError(f"rhs {tuple(rhs.shape)} does not match words "
-                         f"{tuple(words.shape)}: need (4*n4, m)")
-    p4, n4 = words.shape
-    _check_exact_range("words", words, 4 * n4, 4 * p4, rhs.shape[1])
-    if rhs.device != words.device:
-        raise ValueError(f"words on {words.device}, rhs on {rhs.device}")
-    if words.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {words.device}")
+    _score_dims(words, rhs, transposed=False)
     return xt_dots_words_image(
         words, score_image(rhs, want_missing=want_missing, want_sq=want_sq),
         p=p)
@@ -233,6 +214,34 @@ def xt_dots_words_image(words: torch.Tensor, image: ScoreImage,
                   image.want_missing, image.want_sq, p)
 
 
+def _score_dims(arr: torch.Tensor, rhs: torch.Tensor, *, transposed: bool):
+    """Check the words of a score (``words_t`` (nw, p_all) when
+    ``transposed``, else the quad words (p4, n4)) against its RHS (n_pad,
+    m) and the exact range, on a device with a kernel or its plain
+    version; returns (nw, p_all)."""
+    name = "words_t" if transposed else "words"
+    if arr.dtype != torch.int32 or arr.dim() != 2:
+        raise ValueError(f"{name} must be 2-D int32, got {arr.dtype} "
+                         f"{tuple(arr.shape)}")
+    if transposed and arr.shape[1] % 4:
+        raise ValueError(f"words_t {tuple(arr.shape)}: the SNP columns "
+                         "must be quad-padded (a multiple of 4)")
+    if transposed:
+        (nw, p_all), n_pad, need = arr.shape, 16 * arr.shape[0], "16*nw"
+    else:
+        nw, p_all = arr.shape[1] // 4, 4 * arr.shape[0]
+        n_pad, need = 4 * arr.shape[1], "4*n4"
+    if rhs.dim() != 2 or rhs.shape[0] != n_pad:
+        raise ValueError(f"rhs {tuple(rhs.shape)} does not match {name} "
+                         f"{tuple(arr.shape)}: need ({need}, m)")
+    _check_exact_range(name, arr, n_pad, p_all, rhs.shape[1])
+    if rhs.device != arr.device:
+        raise ValueError(f"{name} on {arr.device}, rhs on {rhs.device}")
+    if arr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {arr.device}")
+    return nw, p_all
+
+
 def _check_exact_range(name: str, arr: torch.Tensor, n_pad: int, p_all: int,
                        m: int):
     """Raise before any work where the int32 digit sums of the score
@@ -301,17 +310,17 @@ def _raw_sums64(name: str, words: torch.Tensor, digits: torch.Tensor,
     """Launch the float64 score ``name`` (kernel 1 or 2's raw-sum entry,
     ``_RAW_ENTRIES``) on ``words`` with ``_digit_operands64``'s digits and
     plan at m' = 3m and count it: the exact int32 sums of the value,
-    missing and hi-bit planes, each (p_all, 8, m) (``raw_digit_sums64``)
+    missing and hi-bit planes, each (p_all, 8, m) (``raw_view64``)
     or None."""
     _check_card_tensor("words", words, torch.int32)
     kw = dict(dtype=torch.int32, device=words.device)
     wanted = (True, want_missing, want_sq)
     raw = [torch.empty((9 * m, p_all), **kw) if w else None for w in wanted]
-    fn = _entry("xt_dots_t_raw", _RAW_ENTRIES[name], _SCORE_ARGS)
+    fn = _entry("xt_dots_t", _RAW_ENTRIES[name], _SCORE_ARGS)
     _launch(name, fn, words.device, words.data_ptr(), digits.data_ptr(),
             None, None, *_ptrs(*raw), nw, p_all, 3 * m, int(want_missing),
             int(want_sq), *plan)
-    return tuple(None if r is None else raw_digit_sums64(r, m) for r in raw)
+    return tuple(None if r is None else raw_view64(r, m) for r in raw)
 
 
 def _launch_score64(name: str, words: torch.Tensor, operands: tuple, nw: int,
@@ -327,25 +336,24 @@ def _launch_score64(name: str, words: torch.Tensor, operands: tuple, nw: int,
     return decode.digit_outputs64(*sums, scale, guard, p)
 
 
-def digit_sums64(arr: torch.Tensor, rhs: torch.Tensor, *, transposed: bool,
-                 want_missing: bool, want_sq: bool = False):
+def raw_sums64(arr: torch.Tensor, rhs: torch.Tensor, *, transposed: bool,
+               want_missing: bool, want_sq: bool = False):
     """The exact digit sums of the float64 score on the card, before the
     combine: kernel 2's raw-sum entry on words_t (``transposed``) or kernel
     1's on the quad words, each launch counted as the float64 score's;
     (V'D, Miss'D or None, H'D or None), each (p_all, 8, m) int32, equal to
-    ``decode.digit_sums64`` of the same R bit for bit."""
+    the float64 sums of ``decode.digit_sums64`` of the same R bit for
+    bit."""
+    nw, p_all = _score_dims(arr, rhs, transposed=transposed)
     if rhs.dtype != torch.float64 or arr.device.type != "cuda":
-        raise ValueError("digit_sums64 takes a float64 rhs on the card")
-    nw = arr.shape[0] if transposed else arr.shape[1] // 4
-    p_all = arr.shape[1] if transposed else 4 * arr.shape[0]
-    _check_exact_range("words", arr, 16 * nw, p_all, rhs.shape[1])
+        raise ValueError("raw_sums64 takes a float64 rhs on the card")
     digits, _, _, plan = _digit_operands64(rhs, nw, want_missing, want_sq)
     name = "xt_dots_words_t_f64" if transposed else "xt_dots_words_f64"
     return _raw_sums64(name, arr, digits, plan, nw, p_all, rhs.shape[1],
                        want_missing, want_sq)
 
 
-def raw_digit_sums64(raw: torch.Tensor, m: int) -> torch.Tensor:
+def raw_view64(raw: torch.Tensor, m: int) -> torch.Tensor:
     """A raw-sum entry's output plane, (9m, p_all) int32 with row 3c' + d
     the sum of digit row d of pseudo-column c' = 3c + j (``pseudo_planes64``),
     -> the (p_all, 8, m) view of ``decode.combine_digits64``: digit 3j + d
@@ -520,24 +528,10 @@ def xt_dots_words_t(words_t: torch.Tensor, rhs: torch.Tensor, *,
     float64 rhs takes the float64 digit score: the raw-sum entry of the
     same body (counted as ``xt_dots_words_t_f64``), its sums combined in
     float64, float64 outputs equal to the plain version's bit for bit."""
-    if words_t.dtype != torch.int32 or words_t.dim() != 2:
-        raise ValueError(f"words_t must be 2-D int32, got {words_t.dtype} "
-                         f"{tuple(words_t.shape)}")
-    if words_t.shape[1] % 4:
-        raise ValueError(f"words_t {tuple(words_t.shape)}: the SNP columns "
-                         "must be quad-padded (a multiple of 4)")
-    if rhs.dim() != 2 or rhs.shape[0] != 16 * words_t.shape[0]:
-        raise ValueError(f"rhs {tuple(rhs.shape)} does not match words_t "
-                         f"{tuple(words_t.shape)}: need (16*nw, m)")
-    nw, p_all = words_t.shape
-    _check_exact_range("words_t", words_t, 16 * nw, p_all, rhs.shape[1])
-    if rhs.device != words_t.device:
-        raise ValueError(f"words_t on {words_t.device}, rhs on {rhs.device}")
+    nw, p_all = _score_dims(words_t, rhs, transposed=True)
     if words_t.device.type == "cpu":
         return decode.xt_dots_words_t(words_t, rhs, want_missing=want_missing,
                                       want_sq=want_sq, p=p)
-    if words_t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {words_t.device}")
     if rhs.dtype == torch.float64:
         return _launch_score64(
             "xt_dots_words_t_f64", words_t,

@@ -33,7 +33,7 @@ import torch
 
 from . import decode, kernels
 from ..genotype.snparray import PackedGenotypes
-from ..utils.device import resolve_device
+from ..utils.device import float_dtype, resolve_device
 
 # the JAX package's values and overrides: the widest RHS routed to the
 # transposed layout when it is stored, and the packed-bytes budget under
@@ -72,7 +72,8 @@ class PackedOp:
     dtype: torch.dtype | None = None
 
     def __post_init__(self):
-        self.dtype = self.dtype or self.geno.mu.dtype
+        if self.dtype is None:
+            self.dtype = self.geno.mu.dtype
         self.mu = self.geno.mu.to(self.dtype)
         self.inv_sd = self.geno.inv_sd.to(self.dtype)
 
@@ -295,6 +296,8 @@ def make_operator(x, dtype=None):
     genotypes never get it here.  A dense matrix becomes a DenseOp: a
     torch tensor on its own device, a numpy array on the card (a caller
     who wants the CPU passes a CPU tensor)."""
+    if dtype is not None:
+        dtype = float_dtype(dtype, "make_operator")
     if isinstance(x, DenseOp):
         return x if dtype in (None, x.dtype) else DenseOp(x.x.to(dtype))
     if isinstance(x, PackedOp):
@@ -305,7 +308,7 @@ def make_operator(x, dtype=None):
                     "MENDELIHT_DUAL_MAX_BYTES", _DUAL_MAX_BYTES)):
             x.with_dual_layout()
         return PackedOp(x, dtype)
-    dense = dtype or torch.float32
+    dense = torch.float32 if dtype is None else dtype
     if isinstance(x, torch.Tensor):
         return DenseOp(x.to(dense))
     if isinstance(x, np.ndarray):

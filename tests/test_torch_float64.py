@@ -40,7 +40,7 @@ import torch
 import mendeliht_tpu_torch as mt
 from mendeliht_tpu_torch.genotype.snparray import _bytes_to_words, pack_codes
 from mendeliht_tpu_torch.ops import decode, kernels
-from mendeliht_tpu_torch.ops.linalg import PackedOp
+from mendeliht_tpu_torch.ops.linalg import PackedOp, make_operator
 
 BOUND = 1e-13                 # digit score vs unquantised, x n_pad max|R|
 FIT_TOL = 1e-9                # beta / c of max|beta|, logl and mse relative
@@ -139,7 +139,7 @@ def test_raw_sum_layout_is_the_plain_score():
     """The card's float64 path read back on the CPU: the pseudo-column
     digit image (``pseudo_planes64``) run through the f32 kernels' digit
     sums, laid out as the raw-sum entry stores them (row 3c' + d), then
-    ``raw_digit_sums64`` and ``digit_outputs64``, equals the plain float64
+    ``raw_view64`` and ``digit_outputs64``, equals the plain float64
     score bit for bit; and the kernel's plan at m' = 3m."""
     n, p, m = 300, 203, 5
     words = _words(_codes(9, n, p))
@@ -156,7 +156,7 @@ def test_raw_sum_layout_is_the_plain_score():
         return x.view(-1, 3, mp).permute(2, 1, 0).reshape(3 * mp, -1).to(
             torch.int32)
 
-    raw = [kernels.raw_digit_sums64(stored(x), m) for x in sums]
+    raw = [kernels.raw_view64(stored(x), m) for x in sums]
     want, _ = decode.digit_sums64(decode.t_rows(words_t), words_t.shape[1], R,
                                   want_missing=True, want_sq=True)
     for r, w in zip(raw, want):
@@ -230,7 +230,7 @@ def test_float64_entries_match_plain_on_card(cuda_device, m):
             plain, _ = decode.digit_sums64(decode.quad_rows(words),
                                            4 * words.shape[0], R, **kw)
             for transposed, arr in ((True, words_t), (False, words)):
-                raw = kernels.digit_sums64(arr, R, transposed=transposed, **kw)
+                raw = kernels.raw_sums64(arr, R, transposed=transposed, **kw)
                 for r, w in zip(raw, plain):
                     assert (r is None) == (w is None)
                     if r is not None:
@@ -357,6 +357,12 @@ def _jax_oracle(inp_path, out_path):
         verbose=False, dtype=f64))
     out["many_logl"] = np.asarray(m.iht_run_many_models(
         inp["y_cv"], g_cv, path=CV_PATH, verbose=False, dtype=f64))
+    b, c = m.initialize_beta(inp["y"], g, dtype=f64)
+    out.update(initb_b=np.asarray(b), initb_c=np.asarray(c))
+    out["fold_mse"] = np.asarray(m.cv_iht_distribute_fold(
+        m.Normal(), None, g_cv, None, inp["y_cv"], 1, CV_PATH, CV_Q,
+        destin=str(Path(out_path).parent / "jax_folds"), folds=inp["folds"],
+        dtype=f64))
     A, M, S = jdecode.xt_dots(jnp.asarray(g.packed_np()),
                               jnp.asarray(inp["R"]), want_missing=True,
                               want_sq=True)
@@ -476,6 +482,22 @@ def test_cv_and_path_match_jax(oracle):
     np.testing.assert_allclose(logl, want["many_logl"], rtol=FIT_TOL, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, np.float64,
+                                   np.dtype("float64"), "float64"])
+def test_make_operator_takes_any_float64_spelling(dtype):
+    """``make_operator(x, dtype)`` with float64 as a torch, numpy (class or
+    dtype instance) or named dtype: packed and dense operators in float64,
+    none rounded to f32; bfloat16 raises."""
+    g = _genotypes(_codes(5, 40, 30).T.copy())
+    op = make_operator(PackedOp(g, torch.float32), dtype)
+    dense = make_operator(torch.zeros((4, 3)), dtype)
+    assert op.dtype == op.mu.dtype == op.inv_sd.dtype == torch.float64
+    assert torch.equal(op.mu, g.mu) and torch.equal(op.inv_sd, g.inv_sd)
+    assert dense.dtype == dense.x.dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
+        make_operator(g, torch.bfloat16)
+
+
 def test_packed_equals_dense(oracle):
     """``tests/x64_worker.py``'s check in the port: the float64 fit on the
     packed genotypes and on their dense standardized matrix agree to 1e-10
@@ -536,7 +558,8 @@ def test_plink_readers_take_float64(oracle, tmp_path):
     prefix = str(tmp_path / "x")
     mt.write_plink_bed(prefix + ".bed", inp["codes"])
     mt.make_bim_fam_files(inp["codes"], inp["y"], prefix)
-    for dtype in (torch.float64, np.float64, "float64"):
+    for dtype in (torch.float64, np.float64, np.dtype("float64"),
+                  "float64"):
         snp = mt.read_plink(prefix, dtype=dtype, device="cpu")
         s = mt.HostStreamedGenotypes.from_plink(prefix, dtype=dtype,
                                                 device="cpu")
@@ -571,14 +594,34 @@ def test_float64_checkpoint_restores_float64(oracle, tmp_path):
 
 def test_initialize_beta_takes_float64(oracle):
     """``compat.initialize_beta`` with a float64 dtype: float64 b and c,
-    within rounding of the float64 fit's own warm start (``col_moments`` in
-    float64 on the CPU)."""
-    inp, _ = oracle
+    within 1e-9 of max|b| of the JAX package's float64 warm start; the f32
+    call still returns f32."""
+    inp, want = oracle
     g = _genotypes(inp["codes"])
     b, c = mt.initialize_beta(inp["y"], g, dtype=torch.float64)
     b32, _ = mt.initialize_beta(inp["y"], g)
     assert b.dtype == c.dtype == np.float64 and b32.dtype == np.float32
-    np.testing.assert_allclose(b, b32, rtol=0, atol=1e-4)
+    scale = np.abs(want["initb_b"]).max()
+    np.testing.assert_allclose(b, want["initb_b"], rtol=0,
+                               atol=FIT_TOL * scale)
+    np.testing.assert_allclose(c, want["initb_c"], rtol=0,
+                               atol=FIT_TOL * scale)
+
+
+def test_cv_iht_distribute_fold_takes_float64(oracle, tmp_path):
+    """``compat.cv_iht_distribute_fold`` with a float64 dtype: its mean
+    loss within 1e-9 relative of the JAX package's float64 one, and equal
+    to the port's float64 ``cv_iht`` on the same folds."""
+    inp, want = oracle
+    g = _genotypes(inp["codes_cv"])
+    got = mt.cv_iht_distribute_fold(
+        mt.Normal(), None, g, None, inp["y_cv"], 1, CV_PATH, CV_Q,
+        destin=str(tmp_path), folds=inp["folds"], dtype=torch.float64)
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, want["fold_mse"], rtol=FIT_TOL, atol=0)
+    np.testing.assert_allclose(got, mt.cv_iht(
+        inp["y_cv"], g, path=CV_PATH, q=CV_Q, folds=inp["folds"],
+        verbose=False, dtype=torch.float64), rtol=FIT_TOL, atol=0)
 
 
 if __name__ == "__main__":
