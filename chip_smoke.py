@@ -87,6 +87,25 @@ result line):
               budget runs), cold then CVQ_WARM warm runs: mse equal to the
               dual cv's bit for bit, best k 10, kernel-1 launches and no
               kernel-2 launch, the warm median and range
+   sharded    the multi-GPU path (``mendeliht_tpu_torch.parallel``) on
+              the one card: (a) a world of one rank on NCCL in this
+              process, ``ShardedPackedOp`` over the whole genotypes: its
+              ``xtr`` at m = 1 and 100 torch.equal to kernel 1 on the
+              quad-word ``PackedOp``, one launch a call, kernel 1 on the
+              shard's words equal to its plain version; the fit (k = 10)
+              and the cv (the cv phase's grid and folds) through it equal
+              to the quad-word ones bit for bit (support, iterations,
+              logl, betas, c; mse), timed cold and warm in turns with them
+              (the hooks' cost); (b) SHARD_RANKS rank processes on the one
+              card over gloo, the genotypes written as a PLINK trio and
+              each rank's half read by ``multihost.load_bed_shard``: the
+              fit and cv against the single-device quad-word ones (the
+              same support and best k, iterations within one, betas within
+              SHARD_BETA_TOL, mse within SHARD_MSE_TOL relative), both
+              ranks the same result, each rank's kernel-1 launches,
+              collectives, walls and peak memory; after the kprobe phase
+              (sharded-profile), a ``profiling.trace`` of a warm
+              quad-word and a warm world-of-1 sharded fit and cv
 10. profile   ``profiling.trace`` over one warm cv and one warm dual fit:
               wall, device busy and idle share, launches, syncs, the
               heaviest device kernels
@@ -265,7 +284,9 @@ bit for bit, on the round-3 words of the kernel cases at m in {1, 8, 64}
 
 Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
-(kernel 1; ``cv_launches`` from the cv-quad run, ``family_launches`` from
+(kernel 1; ``cv_launches`` from the cv-quad run, ``sharded_launches``
+from the sharded phase's fit and cv in the world of one rank and on each
+of the two ranks, ``family_launches`` from
 the Bernoulli quad-word fit, ``options_launches`` from the init_beta
 quad-word fit), the cv (kernel 2; ``family_launches`` from each family's
 fit and the Bernoulli cv, ``options_launches`` from each option's fit and
@@ -297,7 +318,9 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
+import sys
 import tempfile
 import time
 import types
@@ -390,6 +413,15 @@ STREAM_CKPT_EVERY, STREAM_KILL_AT = 5, 8
 HYBRID_COPIES = 8
 # data sheet: PCIe Gen5 x16, 64 GB/s a direction
 PCIE_BYTES_PER_S = 64e9
+# the sharded phase: warm runs of the world-of-1 fit and cv, each in turns
+# with the quad-word one, and of each rank's fit and cv; the ranks, and the
+# timeout of their collectives and processes (s); the two-rank run against
+# the single-device quad-word one: betas within SHARD_BETA_TOL absolute and
+# the cv mse within SHARD_MSE_TOL relative (the forward products sum over
+# the ranks in another f32 order; tests/test_multihost.py's bounds)
+SHARD_FIT_WARM, SHARD_CV_WARM, SHARD_RANK_WARM = 3, 2, 1
+SHARD_RANKS, SHARD_TIMEOUT = 2, 600
+SHARD_BETA_TOL, SHARD_MSE_TOL = 1e-3, 1e-4
 CV_MAX_ITER = 100                        # cv_iht's default
 FIT_MAX_ITER = 200                       # fit_iht's default
 SEED = 2026
@@ -1187,6 +1219,307 @@ def phase_cv_quad(g, y, card, dual_mse):
     if not equal or best != 10 or launches < 2:
         raise AssertionError(f"the quad-word cv differs: equal {equal}, best "
                              f"k {best}, {launches} kernel-1 launches")
+    return launches
+
+
+def free_port():
+    """A free TCP port on this machine, for a process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_sharded_xtr(sop, quad, g, gen):
+    """The sharded operator's xtr at m = 1 and 100 torch.equal to the
+    single-device quad-word one (kernel 1 on the same words), one kernel-1
+    launch a call, and kernel 1 on the shard's words bit for bit against
+    its plain version."""
+    words = sop.geno.words
+    for m in (1, 100):
+        R = rhs_on(g, m, gen).T.contiguous()
+        reset_launches()
+        got = sop.xtr(R)
+        launched = kernels.LAUNCHES["xt_dots_words"]
+        equal = torch.equal(got, quad.xtr(R))
+        kw = dict(want_missing=g.has_missing, p=sop.p_local)
+        plain = all(same(a, b) for a, b in zip(
+            kernels.xt_dots_words(words, R.T, **kw),
+            decode.xt_dots_words(words, R.T, **kw)) if a is not None)
+        print(f"[sharded] world of 1 (NCCL): xtr at m={m} equal to the "
+              f"quad-word PackedOp's {equal}, {launched} kernel-1 launch; "
+              f"kernel 1 on the shard equal to its plain version {plain}",
+              flush=True)
+        if not (equal and plain and launched == 1):
+            raise AssertionError(f"sharded: xtr at m={m} differs")
+
+
+def sharded_world_of_one(g, y, card, dual_mse, gen):
+    """The sharded code path in a world of one rank on NCCL, in this
+    process: xtr, then the Gaussian fit and the cv through ShardedPackedOp
+    against the quad-word PackedOp's, bit for bit, timed in turns
+    (quad, sharded, sharded, quad, ...); returns (the quad-word fit and cv,
+    kernel 1's launches in the sharded fit and cv)."""
+    from mendeliht_tpu_torch.parallel import make_mesh, shard_geno_op
+    from mendeliht_tpu_torch.parallel import multihost as mh
+
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    mh.init_process_group(f"tcp://localhost:{free_port()}", world_size=1,
+                          rank=0, backend="nccl", timeout=SHARD_TIMEOUT)
+    try:
+        sop = shard_geno_op(quad, make_mesh(1, 1, device=g.device))
+        check_sharded_xtr(sop, quad, g, gen)
+        calls = sop.mesh.calls
+        runs, walls, launches = {}, {"quad": [], "sharded": []}, {}
+        for run in range(1 + SHARD_FIT_WARM):
+            order = (("quad", quad), ("sharded", sop))
+            for name, x in order if run % 2 == 0 else order[::-1]:
+                reset_launches()
+                before = dict(calls)
+                t0 = time.perf_counter()
+                r = fit_iht(y, x, k=K, verbose=False)
+                walls[name].append(time.perf_counter() - t0)
+                if name == "sharded":
+                    fit_calls = {k: calls[k] - before[k] for k in calls}
+                runs.setdefault(name, r)
+                if not same_fit(r, runs[name]):
+                    raise AssertionError(f"sharded: a warm {name} fit "
+                                         "differs from the cold one")
+                launches[name] = dict(kernels.LAUNCHES)
+        sq, ss = runs["quad"], runs["sharded"]
+        fit_launch = launches["sharded"]["xt_dots_words"]
+        equal = same_fit(ss, sq)
+        print(f"[sharded] world of 1: fit {N} x {P} k={K} through "
+              f"ShardedPackedOp equal to the quad-word fit bit for bit "
+              f"{equal} (support of {np.count_nonzero(ss.beta)}, {ss.iter} "
+              f"iterations, logl {ss.logl}); kernel-1 launches {fit_launch}, "
+              f"quad {launches['quad']['xt_dots_words']}; collectives a "
+              f"sharded fit {fit_calls}", flush=True)
+        if (not equal or fit_launch < ss.iter + 1
+                or launches["sharded"]["xt_dots_words_t"] != 0):
+            raise AssertionError("sharded: the world-of-1 fit differs from "
+                                 "the quad-word fit")
+        print_turns("fit", walls, card)
+
+        mses, walls, cv_launch = {}, {"quad": [], "sharded": []}, {}
+        peak = {}
+        for run in range(1 + SHARD_CV_WARM):
+            order = (("quad", quad), ("sharded", sop))
+            for name, x in order if run % 2 == 0 else order[::-1]:
+                torch.cuda.reset_peak_memory_stats()
+                before = dict(calls)
+                mse, wall, counts, st = run_cv(x, y)
+                del st
+                if name == "sharded":
+                    cv_calls = {k: calls[k] - before[k] for k in calls}
+                walls[name].append(wall)
+                peak[name] = torch.cuda.max_memory_allocated()
+                if not np.array_equal(mse, dual_mse):
+                    raise AssertionError(f"sharded: the {name} cv's mse "
+                                         "differs from the dual cv's")
+                mses[name] = mse
+                cv_launch[name] = counts
+        best = CV_PATH[int(np.argmin(mses["sharded"]))]
+        cv_k1 = cv_launch["sharded"]["xt_dots_words"]
+        print(f"[sharded] world of 1: cv path 1:{CV_PATH[-1]} q={CV_Q} "
+              f"through ShardedPackedOp: mse equal to the quad-word and dual "
+              f"cvs' bit for bit True, best k {best}; kernel-1 launches "
+              f"{cv_k1}; collectives {cv_calls}; peak device memory "
+              f"{peak['sharded'] / 2**30:.2f} GiB (quad "
+              f"{peak['quad'] / 2**30:.2f} GiB)", flush=True)
+        if cv_k1 < 2 or cv_launch["sharded"]["xt_dots_words_t"] != 0:
+            raise AssertionError("sharded: the world-of-1 cv did not run "
+                                 "kernel 1 alone")
+        print_turns("cv", walls, card)
+    finally:
+        torch.distributed.destroy_process_group()
+    return (sq, mses["quad"]), {"world1_fit": fit_launch,
+                                "world1_cv": cv_k1}
+
+
+def print_turns(what, walls, card):
+    """The cold and warm walls of the quad-word and sharded runs taken in
+    turns, and the warm medians' difference (the hooks' cost)."""
+    med = {k: float(np.median(v[1:])) for k, v in walls.items()}
+    print(f"[sharded] world of 1 on {card}: {what} cold quad "
+          f"{walls['quad'][0]:.4f} s, sharded {walls['sharded'][0]:.4f} s; "
+          f"warm (in turns) quad median {med['quad']:.4f} s (range "
+          f"{min(walls['quad'][1:]):.4f}-{max(walls['quad'][1:]):.4f}), "
+          f"sharded median {med['sharded']:.4f} s (range "
+          f"{min(walls['sharded'][1:]):.4f}-{max(walls['sharded'][1:]):.4f});"
+          f" sharded - quad {med['sharded'] - med['quad']:+.4f} s",
+          flush=True)
+
+
+def sharded_rank(rank, tmp):
+    """One of SHARD_RANKS rank processes on the one card (gloo, the
+    collectives staged through the host): this rank's SNP shard of
+    ``tmp/flagship.bed`` by ``multihost.load_bed_shard``, then the fit
+    (cold, warm) and the cv (cold, warm) through ShardedPackedOp; the
+    results, walls, kernel-1 launches and peak memory to
+    ``tmp/rank<rank>.json``."""
+    from mendeliht_tpu_torch.parallel import ShardedPackedOp
+    from mendeliht_tpu_torch.parallel import multihost as mh
+
+    rank, dev = int(rank), torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mh.init_process_group("file://" + os.path.join(tmp, "init"),
+                          world_size=SHARD_RANKS, rank=rank, backend="gloo",
+                          timeout=SHARD_TIMEOUT)
+    mesh = mh.make_global_mesh(n_task=1, n_snp=SHARD_RANKS, device=dev)
+    t0 = time.perf_counter()
+    geno, p_true = mh.load_bed_shard(os.path.join(tmp, "flagship"), mesh)
+    sync()
+    out = {"load_s": time.perf_counter() - t0, "p_local": geno.p,
+           "p_true": p_true}
+    y = np.load(os.path.join(tmp, "y.npy"))
+    op = ShardedPackedOp(geno, mesh)
+    walls = []
+    for _ in range(1 + SHARD_RANK_WARM):
+        reset_launches()
+        before = dict(mesh.calls)
+        t0 = time.perf_counter()
+        r = fit_iht(y, op, k=K, verbose=False)
+        walls.append(time.perf_counter() - t0)
+    sel = np.flatnonzero(r.beta[:p_true])
+    out["fit"] = dict(support=sel.tolist(), beta=r.beta[sel].tolist(),
+                      c=r.c.tolist(), iter=r.iter, logl=r.logl, walls=walls,
+                      launches=kernels.LAUNCHES["xt_dots_words"],
+                      calls={k: v - before[k] for k, v in mesh.calls.items()})
+    walls = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(1 + SHARD_RANK_WARM):
+        reset_launches()
+        before = dict(mesh.calls)
+        t0 = time.perf_counter()
+        mse = cv_iht(y, op, path=CV_PATH, q=CV_Q, verbose=False,
+                     max_iter=CV_MAX_ITER, rng=np.random.default_rng(SEED))
+        walls.append(time.perf_counter() - t0)
+    out["cv"] = dict(mse=mse.tolist(), walls=walls,
+                     launches=kernels.LAUNCHES["xt_dots_words"],
+                     calls={k: v - before[k] for k, v in mesh.calls.items()},
+                     peak=torch.cuda.max_memory_allocated(dev))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def sharded_two_ranks(g, y, card, quad_fit, quad_mse):
+    """SHARD_RANKS rank processes on the one card over gloo, each reading
+    its half of the genotypes' PLINK trio: the fit and cv against the
+    single-device quad-word ones (the same support and best k, iterations
+    within one, betas within SHARD_BETA_TOL, mse within SHARD_MSE_TOL
+    relative), both ranks the same result, each rank's kernel-1 launches;
+    returns those launches."""
+    tmp = tempfile.mkdtemp(prefix="mendeliht_sharded_")
+    procs = []
+    try:
+        t_write = write_trio(os.path.join(tmp, "flagship"), g, y)
+        np.save(os.path.join(tmp, "y.npy"), y)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.sharded_rank(*sys.argv[1:])", str(r), tmp],
+            cwd=here, env=env) for r in range(SHARD_RANKS)]
+        for pr in procs:
+            pr.wait(timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if any(pr.returncode != 0 for pr in procs):
+            raise AssertionError("sharded: a rank process failed: exit codes "
+                                 f"{[pr.returncode for pr in procs]}")
+        res = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    sel = np.flatnonzero(quad_fit.beta)
+    it, logl, beta = quad_fit.iter, quad_fit.logl, quad_fit.beta[sel]
+    fit, cv = res[0]["fit"], res[0]["cv"]
+    mse = np.asarray(cv["mse"])
+    err = float(np.max(np.abs(mse - quad_mse) / np.abs(quad_mse)))
+    beta_err = (float(np.max(np.abs(np.asarray(fit["beta"]) - beta)))
+                if fit["support"] == sel.tolist() else float("inf"))
+    best, qbest = (CV_PATH[int(np.argmin(v))] for v in (mse, quad_mse))
+    agree = all(r["cv"]["mse"] == cv["mse"] and all(
+        r["fit"][k] == fit[k] for k in ("support", "beta", "c", "iter",
+                                        "logl")) for r in res)
+    loads = ", ".join(f"{r['p_local']} SNPs in {r['load_s']:.2f} s"
+                      for r in res)
+    print(f"[sharded] {SHARD_RANKS} ranks on one card (gloo, host-staged "
+          f"collectives): PLINK trio written in {t_write:.2f} s; ranks "
+          f"started, loaded their shards ({loads}), fitted and "
+          f"cross-validated in {wall:.1f} s", flush=True)
+    print(f"[sharded] {SHARD_RANKS} ranks: fit support equal to the "
+          f"quad-word fit's {fit['support'] == sel.tolist()}, iterations "
+          f"{fit['iter']} (quad {it}), max|beta - quad| {beta_err:.3g}, "
+          f"logl {fit['logl']} (quad {logl}); cv best k {best} (quad "
+          f"{qbest}), mse max rel err {err:.3g}; both ranks the same "
+          f"result {agree}", flush=True)
+    for r, out in enumerate(res):
+        print(f"[sharded] rank {r} on {card}: fit cold "
+              f"{out['fit']['walls'][0]:.4f} s, warm "
+              f"{min(out['fit']['walls'][1:]):.4f}-"
+              f"{max(out['fit']['walls'][1:]):.4f} s, kernel-1 launches "
+              f"{out['fit']['launches']}, collectives {out['fit']['calls']};"
+              f" cv cold {out['cv']['walls'][0]:.4f} s, warm "
+              f"{min(out['cv']['walls'][1:]):.4f}-"
+              f"{max(out['cv']['walls'][1:]):.4f} s, kernel-1 launches "
+              f"{out['cv']['launches']}, collectives {out['cv']['calls']}, "
+              f"peak device memory {out['cv']['peak'] / 2**30:.2f} GiB",
+              flush=True)
+    if (fit["support"] != sel.tolist() or abs(fit["iter"] - it) > 1
+            or not beta_err <= SHARD_BETA_TOL or best != qbest
+            or not err <= SHARD_MSE_TOL or not agree
+            or any(r["fit"]["launches"] < r["fit"]["iter"] + 1
+                   or r["cv"]["launches"] < 2 for r in res)):
+        raise AssertionError("sharded: the two-rank fit or cv differs from "
+                             "the single-device one")
+    return {"ranks2_fit": [r["fit"]["launches"] for r in res],
+            "ranks2_cv": [r["cv"]["launches"] for r in res]}
+
+
+def phase_sharded_profile(g, y, card):
+    """Where the hooks' cost goes: a warm quad-word and a warm world-of-1
+    sharded fit and cv, each traced (in a world of one rank on NCCL made
+    again and warmed by one untraced fit; after the lab and the probe,
+    whose ``device_ms`` needs whole traces, which lose kernel records more
+    often the more profiler sessions ran before)."""
+    from mendeliht_tpu_torch.parallel import make_mesh, shard_geno_op
+    from mendeliht_tpu_torch.parallel import multihost as mh
+
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    mh.init_process_group(f"tcp://localhost:{free_port()}", world_size=1,
+                          rank=0, backend="nccl", timeout=SHARD_TIMEOUT)
+    try:
+        sop = shard_geno_op(quad, make_mesh(1, 1, device=g.device))
+        fit_iht(y, sop, k=K, verbose=False)     # the new world's NCCL set-up
+        phase_profile(g, y, card, calls=tuple(
+            (f"{what} {name}", "xt_dots_t", call)
+            for name, x in (("quad", quad), ("sharded (world of 1)", sop))
+            for what, call in (
+                ("fit", lambda x=x: fit_iht(y, x, k=K, verbose=False)),
+                ("cv", lambda x=x: run_cv(x, y)))))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_sharded(g, y, card, dual_mse, gen):
+    """The multi-GPU path (``mendeliht_tpu_torch.parallel``) on the one
+    card: a world of one rank on NCCL, then SHARD_RANKS ranks over gloo;
+    returns kernel 1's launches in each run."""
+    t0 = time.perf_counter()
+    (quad_fit, quad_mse), launches = sharded_world_of_one(g, y, card,
+                                                          dual_mse, gen)
+    launches.update(sharded_two_ranks(g, y, card, quad_fit, quad_mse))
+    print(f"[sharded] phase wall {time.perf_counter() - t0:.1f} s; kernel-1 "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -3292,9 +3625,11 @@ def main(dev=None):
     k1["launches"], _ = phase_fit(g, causal, y, card)
     k2["launches"], dual_mse = phase_cv("cv", g, y, card, warm=CV_WARM)
     k1["cv_launches"] = phase_cv_quad(g, y, card, dual_mse)
+    k1["sharded_launches"] = phase_sharded(g, y, card, dual_mse, gen)
     phase_profile(g, y, card)
     labs = phase_lab(g, card)
     kprobe, probe_launches = phase_kprobe(g, card, gen)
+    phase_sharded_profile(g, y, card)
     k1.update(int8_bound_of(g, missing=False)(1), library_ms=None)
     k2.update(int8_bound_of(g, missing=False)(100), library_ms=None)
     print(f"[kernel-t] m=100: kernel 1 {k1['ms_m100']:.3f} ms, kernel 2 "

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import build_words_t
-from ..utils.device import resolve_device
+from ..utils.device import float_dtype, resolve_device
 
 # samples per crumb plane are padded to a multiple of _LANE bytes; the value
 # is the JAX package's, so both packages pad every n to the same n4
@@ -219,15 +219,15 @@ class PackedGenotypes:
     n: int                   # true sample count
     p: int                   # true SNP count
     has_missing: bool        # skip the missing-plane work when False
-    # optional second, score-only layout: the transposed per-SNP words
-    # (n4/4, 4*p4) of ops/kernels.build_words_t, built by with_dual_layout;
-    # never used for gathers
-    words_t: torch.Tensor | None = None
     # host-side minor allele frequencies (float64) and missing calls per
     # SNP where the counts were seen (``from_codes``, ``from_bed_bytes``),
     # else None: ``maf`` then derives the frequencies from mu
     maf_: np.ndarray | None = None
     n_missing: np.ndarray | None = None
+    # optional second, score-only layout: the transposed per-SNP words
+    # (n4/4, 4*p4) of ops/kernels.build_words_t, built by with_dual_layout;
+    # never used for gathers
+    words_t: torch.Tensor | None = None
 
     @property
     def shape(self):
@@ -257,7 +257,9 @@ class PackedGenotypes:
                    dtype=torch.float32) -> "PackedGenotypes":
         """Take host quad words plus per-SNP stats (e.g. the JAX package's
         ``np.asarray(g.words)``, ``np.asarray(g.mu)``, ``np.asarray(g.inv_sd)``)
-        onto ``device``."""
+        onto ``device``, the stats in ``dtype`` (float32 or float64, in any
+        spelling ``utils.device.float_dtype`` takes)."""
+        dtype = float_dtype(dtype, "PackedGenotypes")
         words = np.ascontiguousarray(
             np.asarray(words).astype(np.dtype("<i4"), copy=False))
         if not words.flags.writeable:       # e.g. a view of a JAX array
@@ -274,11 +276,13 @@ class PackedGenotypes:
             n=int(n), p=int(p), has_missing=bool(has_missing))
 
     @classmethod
-    def from_codes(cls, codes: np.ndarray, *, device, sample_major: bool = True,
-                   dtype=torch.float32) -> "PackedGenotypes":
-        """Build from a dense uint8 code matrix (values 0..3).
+    def from_codes(cls, codes: np.ndarray, sample_major: bool = True,
+                   dtype=torch.float32, *, device=None) -> "PackedGenotypes":
+        """Build from a dense uint8 code matrix (values 0..3) on ``device``
+        (default the card, ``utils.device.resolve_device``).
         ``sample_major=True`` means codes is (n, p) like the reference's
         univariate x."""
+        device = resolve_device(device)
         if sample_major:
             codes = np.ascontiguousarray(codes.T)
         codes = codes.astype(np.uint8, copy=False)
@@ -295,17 +299,19 @@ class PackedGenotypes:
 
     @classmethod
     def from_packed(cls, packed: np.ndarray, mu, inv_sd, *, n: int, p: int,
-                    has_missing: bool, device,
-                    dtype=torch.float32) -> "PackedGenotypes":
+                    has_missing: bool, dtype=torch.float32,
+                    device=None) -> "PackedGenotypes":
         """Build from an already crumb-transposed (p, n4) uint8 byte matrix
-        with precomputed per-SNP stats."""
+        with precomputed per-SNP stats, on ``device`` (default the card)."""
         return cls.from_numpy(
             _bytes_to_words(np.asarray(packed)), mu, inv_sd, n=n, p=p,
-            has_missing=has_missing, device=device, dtype=dtype)
+            has_missing=has_missing, device=resolve_device(device),
+            dtype=dtype)
 
     @classmethod
-    def from_bed_bytes(cls, bed: np.ndarray, n: int, p: int, *, device=None,
-                       dtype=torch.float32) -> "PackedGenotypes":
+    def from_bed_bytes(cls, bed: np.ndarray, n: int, p: int,
+                       dtype=torch.float32, *,
+                       device=None) -> "PackedGenotypes":
         """Build from a raw PLINK ``.bed`` SNP-major payload (no 3-byte
         header) on ``device`` (default the card): sample ``i`` of SNP ``j``
         sits in crumb ``i % 4`` of byte ``j * ceil(n/4) + i // 4``.
@@ -315,6 +321,7 @@ class PackedGenotypes:
         holds the words and one chunk.  The counts come back as int64 and
         give mu, 1/sd and maf in float64 on the host (``_stats_from_counts``,
         as the JAX package computes them), cast to ``dtype`` after."""
+        dtype = float_dtype(dtype, "PackedGenotypes.from_bed_bytes")
         device = resolve_device(device)
         words = torch.zeros((-(-p // 4), _ceil_to(-(-n // 4), _LANE)),
                             dtype=torch.int32, device=device)

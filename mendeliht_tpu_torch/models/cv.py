@@ -22,7 +22,7 @@ from ..ops import glm
 from .fit import build_fit, is_multivariate
 from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
-from .univariate import cv_fused, run_iht
+from .univariate import _all_tasks, cv_fused, run_iht
 from ..utils.device import float_dtype
 
 
@@ -162,7 +162,7 @@ def iht_run_many_models(y, x, z=None, d=None, l=None, path=None,
     cv_wts = data.sample_mask[None, :].expand(B, op.n_pad)
     st = init_state(op, data, cfg, path, cv_wts)
     st = run_iht(op, data, cfg, st)
-    logls = st.best_logl.cpu().numpy().astype(np.float64)
+    logls = _all_tasks(op, st.best_logl).cpu().numpy().astype(np.float64)
     if verbose:
         print_a_bunch_of_path_results(sys.stdout, logls, path)
     return logls

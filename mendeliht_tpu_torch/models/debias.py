@@ -14,7 +14,7 @@ import torch
 
 from ..ops import glm
 from .state import FitConfig, FitData
-from .univariate import _split_sel
+from .univariate import _put_b, _split_sel, _take_b
 
 _IRLS_MAX = 25
 _IRLS_TOL = 1e-6
@@ -25,7 +25,7 @@ def debias_refit(op, data: FitData, cfg: FitConfig, st):
     gidx, gval = _split_sel(st.sel_idx, st.sel_valid, op.p)
     Xk = op.gather_cols(gidx, gval)                       # (B, S, n_pad)
     S = Xk.shape[1]
-    beta0 = torch.gather(st.b, 1, gidx) * gval
+    beta0 = _take_b(op, st.b, gidx, gval) * gval
 
     m = data.sample_mask[None, :]
     eye = torch.eye(S, dtype=Xk.dtype, device=Xk.device)[None]
@@ -53,10 +53,4 @@ def debias_refit(op, data: FitData, cfg: FitConfig, st):
                 / (prev.abs().max() + 1.0)) > _IRLS_TOL:
             beta, prev, i = irls_step(beta), beta, i + 1
 
-    # write the valid slots alone: an invalid slot's index (0) may be a
-    # valid slot's too
-    hit = torch.zeros_like(st.b, dtype=torch.int32).scatter_add_(
-        1, gidx, gval.to(torch.int32)) > 0
-    refit = torch.zeros_like(st.b).scatter_add_(
-        1, gidx, torch.where(gval, beta, torch.zeros_like(beta)))
-    return torch.where(hit, refit, st.b)
+    return _put_b(op, st.b, gidx, gval, beta)

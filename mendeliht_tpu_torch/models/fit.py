@@ -115,7 +115,7 @@ def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
         check_group(k, group if group is not None else np.asarray([]))
     kw = dict(dtype=op.dtype, device=op.device)
     extra = {}
-    n_groups = 0
+    n_groups = group_cand = 0
     if use_group:
         group_arr = np.asarray(group, np.int64)
         if group_arr.shape != (p,):
@@ -124,9 +124,11 @@ def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
         if group_k_is_vector:
             gks = np.asarray(k, np.int64)
             k_scalar = int(np.sum(gks))
+            group_cand = min(p, int(np.sum(gks)))
         else:
             gks = np.full(n_groups, int(k), np.int64)
             k_scalar = int(J) * int(k)
+            group_cand = min(p, n_groups * int(k))
         extra.update(group=torch.as_tensor(group_arr, device=op.device),
                      group_ks=torch.as_tensor(gks, device=op.device))
     else:
@@ -154,6 +156,7 @@ def build_fit(y, x, z=None, *, k=10, J=1, d=None, l=None, group=None,
                     debias=bool(debias), use_group=bool(use_group),
                     J=int(J), n_groups=n_groups,
                     group_k_is_vector=group_k_is_vector,
+                    group_cand=group_cand,
                     has_weight=bool(has_weight))
     return op, data, cfg, k_scalar
 
@@ -178,7 +181,7 @@ def fit_fused_sparse(op, data: FitData, cfg: FitConfig, ks, cv_wts,
     st = run_segmented(op, data, cfg, st, **segments)
     st = finalize_iht(op, data, cfg, st)
     sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)
-    return _sparse_extract(st, sigma_g)
+    return _sparse_extract(op, st, sigma_g)
 
 
 def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,

@@ -12,11 +12,9 @@ import dataclasses
 import torch
 
 from ..ops import glm
-from ..ops.projections import (project_group_sparse_batched,
-                               project_group_sparse_per_task,
-                               project_topk_joint)
 from .state import IHTState, FitConfig, FitData
-from .univariate import _score
+from .univariate import (_local_tasks, _proj_group, _proj_joint, _score,
+                         _snp_reduce)
 
 
 def _newton_intercept(link: str, ybar, n_iter: int = 20):
@@ -54,7 +52,7 @@ def _initialize_beta(op, data: FitData, cv_wts):
 
     q = data.z.shape[1]
     c = torch.zeros((cv_wts.shape[0], q), dtype=b.dtype, device=b.device)
-    icept_sum = icept.sum(dim=1)
+    icept_sum = _snp_reduce(op, icept.sum(dim=1), "sum")
     if q > 1:
         # non-genetic covariates (columns 2..q; column 1 is the intercept)
         zc_cols = data.z[:, 1:]                              # (n_pad, q-1)
@@ -81,9 +79,13 @@ def init_state(op, data: FitData, cfg: FitConfig, k, cv_wts,
     (already zero at padding); ``init_beta`` starts from
     :func:`_initialize_beta`."""
     dtype, device = op.dtype, op.device
+    k = torch.as_tensor(k, dtype=torch.int64, device=device).reshape(
+        cv_wts.shape[0])
+    # a sharded operator's rank holds its task rows and SNP columns
+    k, cv_wts = _local_tasks(op, k, cv_wts)
     B = cv_wts.shape[0]
-    p, q, n_pad = op.p, data.z.shape[1], op.n_pad
-    k = torch.as_tensor(k, dtype=torch.int64, device=device).reshape(B)
+    p = getattr(op, "p_local", op.p)
+    q, n_pad = data.z.shape[1], op.n_pad
     cv_wts = cv_wts.to(dtype)
     zeros = dict(dtype=dtype, device=device)
 
@@ -122,8 +124,8 @@ def init_state(op, data: FitData, cfg: FitConfig, k, cv_wts,
         # the linear predictors, mean and logl stay the intercept-only ones
         # (the JAX package's init_state does the same)
         b, c = _initialize_beta(op, data, st.cv_wts)
-        b, c, sel_idx, _, sel_valid = project_topk_joint(
-            b, c, k + cfg.zkeepn, data.zkeep, cfg.S, weight=weight)
+        b, c, sel_idx, _, sel_valid = _proj_joint(
+            op, b, c, k + cfg.zkeepn, data.zkeep, cfg.S, weight=weight)
         return dataclasses.replace(
             st, b=b, c=c, b0=b, c0=c, sel_idx=sel_idx, sel_valid=sel_valid,
             idc=c != 0)
@@ -132,20 +134,16 @@ def init_state(op, data: FitData, cfg: FitConfig, k, cv_wts,
         # the score but takes the support of the all-zero b, so the support
         # is empty and idc all true; the first step then takes the 1e-8
         # stepsize guard where the covariates' score is zero
-        if cfg.group_k_is_vector:
-            df_p = project_group_sparse_batched(
-                df, data.group, cfg.J, data.group_ks, cfg.n_groups)
-        else:
-            df_p = project_group_sparse_per_task(
-                df, data.group, cfg.J, k, cfg.n_groups)
+        df_p = _proj_group(op, cfg, df, data.group, data.group_ks,
+                           None if cfg.group_k_is_vector else k)
         return dataclasses.replace(
             st, df=df_p, sel_valid=torch.zeros_like(st.sel_valid),
             idc=torch.ones((B, q), dtype=torch.bool, device=device))
     # top-(k + zkeepn) of |score| defines the initial support; the score is
     # replaced by its projection, so the first gradient step moves only the
     # selected entries (reference src/utilities.jl:416-431)
-    df_p, df2_p, sel_idx, _, sel_valid = project_topk_joint(
-        df, df2, k + cfg.zkeepn, data.zkeep, cfg.S, weight=weight)
+    df_p, df2_p, sel_idx, _, sel_valid = _proj_joint(
+        op, df, df2, k + cfg.zkeepn, data.zkeep, cfg.S, weight=weight)
     df2_p = torch.where(data.zkeep[None, :], df2, df2_p)
     return dataclasses.replace(
         st, df=df_p, df2=df2_p, sel_idx=sel_idx, sel_valid=sel_valid,

@@ -32,7 +32,8 @@ from .initialize import _initialize_beta
 from .pve import masked_var
 from .results import MIHTResult, print_cv_results
 from .state import FitConfig, FitData, state_from_numpy
-from .univariate import _where_b as _where_t, run_segmented
+from .univariate import (_all_tasks, _local_tasks, _snp_reduce,
+                         _where_b as _where_t, run_segmented)
 
 _GUARD = 1e-8
 
@@ -135,11 +136,42 @@ def _column_support(Bm, S: int):
     return sel_idx, vals != 0
 
 
-def _take_b_multi(arr, gidx, gval):
+# --- operator-routed projections, gathers and score ----------------------
+# A sharded operator (parallel.ShardedPackedOp) holds its rank's SNP columns
+# of the (T, r, p) tensors and overrides these, as the JAX package routes
+# them (mendeliht_tpu/models/mv.py:139-220; the univariate dispatchers of
+# models/univariate.py say more); any other operator takes the
+# single-device code.
+
+def _proj_joint_mv_op(op, Bm, Cm, k_plus_keep, zkeep, S_entries: int):
+    f = getattr(op, "project_joint_mv", None)
+    if f is not None:
+        return f(Bm, Cm, k_plus_keep, zkeep, S_entries)
+    return _project_joint_mv(Bm, Cm, k_plus_keep, zkeep, S_entries)
+
+
+def _col_support_op(op, Bm, S: int):
+    f = getattr(op, "column_support_mv", None)
+    if f is not None:
+        return f(Bm, S)
+    return _column_support(Bm, S)
+
+
+def _take_b_multi(op, arr, gidx, gval):
     """Masked (T, r, S) gather from a (T, r, p) array along the SNP axis."""
+    f = getattr(op, "take_b_multi", None)
+    if f is not None:
+        return f(arr, gidx, gval)
     T, r, _ = arr.shape
     v = torch.gather(arr, 2, gidx[:, None, :].expand(T, r, gidx.shape[1]))
     return v * gval[:, None, :]
+
+
+def _all_snps(op, x):
+    """A (T, r, p) tensor whole from this operator's columns of it (a
+    sharded operator gathers its ranks' columns; any other has them)."""
+    f = getattr(op, "gather_snps", None)
+    return x if f is None else f(x)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +179,7 @@ def _take_b_multi(arr, gidx, gval):
 # ---------------------------------------------------------------------------
 
 def _forward_mv(op, data: MvData, Bm, Cm, sel_idx, sel_valid):
-    Bsel = _take_b_multi(Bm, sel_idx, sel_valid)
+    Bsel = _take_b_multi(op, Bm, sel_idx, sel_valid)
     BX = op.forward_sel_multi(sel_idx, Bsel, sel_valid.to(Bm.dtype))
     CZ = torch.einsum("trq,nq->trn", Cm, data.z)
     return BX, CZ
@@ -185,8 +217,12 @@ def _score_mv(op, data: MvData, gamma, resid):
     """df = (Gamma R) X', df2 = (Gamma R) Z' (reference score!, :66-70):
     one score pass at m = T·r."""
     GR = torch.einsum("trs,tsn->trn", gamma, resid)          # (T, r, n_pad)
-    T, r, n_pad = GR.shape
-    df = op.xtr(GR.reshape(T * r, n_pad)).reshape(T, r, -1)
+    f = getattr(op, "xtr_multi", None)
+    if f is not None:
+        df = f(GR)
+    else:
+        T, r, n_pad = GR.shape
+        df = op.xtr(GR.reshape(T * r, n_pad)).reshape(T, r, -1)
     df2 = torch.einsum("trn,nq->trq", GR, data.z)
     return df, df2
 
@@ -197,7 +233,7 @@ def _stepsize_full(op, data: MvData, st: MIHTState):
     the covariate terms left out as there).  ``cholesky_ex`` leaves finite
     values where Gamma is not positive definite, so U is set to NaN there
     (JAX's Cholesky returns NaN) and eta falls to the 1e-8 guard."""
-    df_sel = _take_b_multi(st.df, st.sel_idx, st.sel_valid)
+    df_sel = _take_b_multi(op, st.df, st.sel_idx, st.sel_valid)
     numer = (df_sel * df_sel).sum(dim=(1, 2))
     dfX = op.forward_sel_multi(st.sel_idx, df_sel,
                                st.sel_valid.to(st.df.dtype))
@@ -211,12 +247,12 @@ def _stepsize_full(op, data: MvData, st: MIHTState):
     return torch.where(bad, torch.full_like(eta, _GUARD), eta)
 
 
-def _gradstep_mv(cfg: MvConfig, st: MIHTState, eta, zkeep):
+def _gradstep_mv(op, cfg: MvConfig, st: MIHTState, eta, zkeep):
     B1 = st.B0 + eta[:, None, None] * st.df
     C1 = st.C0 + eta[:, None, None] * st.df2
-    B_new, C_new = _project_joint_mv(B1, C1, st.k + cfg.zkeepn, zkeep,
+    B_new, C_new = _proj_joint_mv_op(op, B1, C1, st.k + cfg.zkeepn, zkeep,
                                      cfg.S_entries)
-    sel_idx, sel_valid = _column_support(B_new, cfg.S)
+    sel_idx, sel_valid = _col_support_op(op, B_new, cfg.S)
     return B_new, C_new, sel_idx, sel_valid, (C_new != 0).any(dim=1)
 
 
@@ -241,7 +277,8 @@ def _mv_take_step(op, data: MvData, cfg: MvConfig, st: MIHTState, eta_t,
                   nsamples):
     """One projected gradient step + model refresh at stepsize eta_t (the
     body of the backtracking line search)."""
-    B, C, sel_idx, sel_valid, idc = _gradstep_mv(cfg, st, eta_t, data.zkeep)
+    B, C, sel_idx, sel_valid, idc = _gradstep_mv(op, cfg, st, eta_t,
+                                                 data.zkeep)
     BX, CZ = _forward_mv(op, data, B, C, sel_idx, sel_valid)
     mu = BX + CZ
     resid = _resid(data, mu, st.cv_wts)
@@ -291,10 +328,11 @@ def _mv_post_step(op, data: MvData, cfg: MvConfig, st: MIHTState, cur, eta,
 
     bad = act & (torch.isnan(new.logl) | torch.isinf(new.logl))
     it = new.iteration + 1
-    dB = (new.B - new.B0).abs().amax(dim=(1, 2))
+    dB, B0 = _snp_reduce(op, torch.stack([
+        (new.B - new.B0).abs().amax(dim=(1, 2)),
+        new.B0.abs().amax(dim=(1, 2))]), "max")
     dC = (new.C - new.C0).abs().amax(dim=(1, 2))
-    denom = torch.maximum(new.B0.abs().amax(dim=(1, 2)),
-                          new.C0.abs().amax(dim=(1, 2))) + 1.0
+    denom = torch.maximum(B0, new.C0.abs().amax(dim=(1, 2))) + 1.0
     scaled = torch.maximum(dB, dC) / denom
     done = act & (((it >= cfg.min_iter) & (scaled < cfg.tol)) | bad)
     return dataclasses.replace(
@@ -322,7 +360,7 @@ def finalize_mv_iht(op, data: MvData, cfg: MvConfig, st: MIHTState
     improved = st.logl > st.best_logl
     best_B = _where_t(improved, st.B, st.best_B)
     best_C = _where_t(improved, st.C, st.best_C)
-    sel_idx, sel_valid = _column_support(best_B, cfg.S)
+    sel_idx, sel_valid = _col_support_op(op, best_B, cfg.S)
     BX, CZ = _forward_mv(op, data, best_B, best_C, sel_idx, sel_valid)
     return dataclasses.replace(
         st, B=best_B, C=best_C, best_B=best_B, best_C=best_C,
@@ -368,7 +406,8 @@ def cv_mv(op, data: MvData, cfg: MvConfig, ks, train_wts, test_wts,
     cv's progress lines)."""
     st = init_mv_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
     st = run_mv_iht(op, data, cfg, st, **segments)
-    return predict_mse_mv(data, st, test_wts)
+    (test_wts,) = _local_tasks(op, test_wts)
+    return _all_tasks(op, predict_mse_mv(data, st, test_wts))
 
 
 # ---------------------------------------------------------------------------
@@ -396,10 +435,14 @@ def init_mv_state(op, data: MvData, cfg: MvConfig, k, cv_wts,
     cv_wts (T, n_pad) 0/1 training masks; ``init_beta`` starts from
     :func:`_initialize_beta_mv`."""
     dtype, device = op.dtype, op.device
+    k = torch.as_tensor(k, dtype=torch.int64, device=device).reshape(
+        cv_wts.shape[0])
+    # a sharded operator's rank holds its task rows and SNP columns
+    k, cv_wts = _local_tasks(op, k, cv_wts)
     T = cv_wts.shape[0]
     r = data.Y.shape[0]
-    p, q, n_pad = op.p, data.z.shape[1], op.n_pad
-    k = torch.as_tensor(k, dtype=torch.int64, device=device).reshape(T)
+    p = getattr(op, "p_local", op.p)
+    q, n_pad = data.z.shape[1], op.n_pad
     cv_wts = cv_wts.to(dtype)
     nsamples = cv_wts.sum(dim=1)
     kw = dict(dtype=dtype, device=device)
@@ -432,9 +475,9 @@ def init_mv_state(op, data: MvData, cfg: MvConfig, k, cv_wts,
 
     if init_beta:
         Bm, Cm = _initialize_beta_mv(op, data, cv_wts)
-        Bm, Cm = _project_joint_mv(Bm, Cm, k + cfg.zkeepn, data.zkeep,
+        Bm, Cm = _proj_joint_mv_op(op, Bm, Cm, k + cfg.zkeepn, data.zkeep,
                                    cfg.S_entries)
-        sel_idx, sel_valid = _column_support(Bm, cfg.S)
+        sel_idx, sel_valid = _col_support_op(op, Bm, cfg.S)
         st = dataclasses.replace(st, B=Bm, C=Cm, B0=Bm, C0=Cm,
                                  sel_idx=sel_idx, sel_valid=sel_valid,
                                  idc=(Cm != 0).any(dim=1))
@@ -449,10 +492,10 @@ def init_mv_state(op, data: MvData, cfg: MvConfig, k, cv_wts,
     # the initial support from the projected score (reference :436-445);
     # the projected score replaces df, so the first gradient step moves
     # only the selected entries
-    df_p, df2_p = _project_joint_mv(df, df2, k + cfg.zkeepn, data.zkeep,
+    df_p, df2_p = _proj_joint_mv_op(op, df, df2, k + cfg.zkeepn, data.zkeep,
                                     cfg.S_entries)
     df2_p = torch.where(data.zkeep[None, None, :], df2, df2_p)
-    sel_idx, sel_valid = _column_support(df_p, cfg.S)
+    sel_idx, sel_valid = _col_support_op(op, df_p, cfg.S)
     return dataclasses.replace(st, df=df_p, df2=df2_p, sel_idx=sel_idx,
                                sel_valid=sel_valid,
                                idc=(df2_p != 0).any(dim=1))
@@ -553,8 +596,9 @@ def fit_mv_iht(y, x, z=None, k=10, d=None, l=None, verbose=True, tol=1e-4,
         init_beta=init_beta, **streamed_segments(
             op, checkpoint_dir, checkpoint_every, verbose))
     B_h, C_h, logl_h, iters_h, failed_h, Sigma_h, sg_h = (
-        t[0].cpu().numpy() for t in (st.B, st.C, st.best_logl, st.iters,
-                                     st.failed, Sigma, sigma_g))
+        _all_tasks(op, t)[0].cpu().numpy() for t in (
+            _all_snps(op, st.B), st.C, st.best_logl, st.iters, st.failed,
+            Sigma, sigma_g))
     tot = _time.time() - t0
     if bool(failed_h):
         raise FloatingPointError("Loglikelihood function is NaN/Inf, "

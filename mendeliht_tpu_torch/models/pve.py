@@ -8,9 +8,9 @@ n-1 divisor over the true (unpadded) samples, without sample masking."""
 from __future__ import annotations
 
 
-def masked_var(x, mask, n_true, dim=-1):
-    xb = (x * mask).sum(dim=dim, keepdim=True) / n_true
-    ss = (((x - xb) ** 2) * mask).sum(dim=dim)
+def masked_var(x, mask, n_true, axis=-1):
+    xb = (x * mask).sum(dim=axis, keepdim=True) / n_true
+    ss = (((x - xb) ** 2) * mask).sum(dim=axis)
     return ss / (n_true - 1)
 
 

@@ -66,9 +66,9 @@ def state_from_numpy(cls, arrays: dict, device):
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
-    """Solver configuration (the JAX package's, but for its sharded group
-    projection's candidate budget and its dtype, which the tensors carry
-    here: the operator's and the data's, float32 or float64)."""
+    """Solver configuration (the JAX package's, but for its dtype, which
+    the tensors carry here: the operator's and the data's, float32 or
+    float64)."""
     dist: str = "normal"
     link: str = "identity"
     S: int = 16                 # support slot count (>= max k + zkeepn)
@@ -83,6 +83,10 @@ class FitConfig:
     J: int = 1                  # groups kept by the group projection
     n_groups: int = 0
     group_k_is_vector: bool = False
+    # per-shard candidate budget of the sharded group projection (at least
+    # the survivors of a shard's per-group top-k; ShardedPackedOp.
+    # project_group_sparse)
+    group_cand: int = 0
     has_weight: bool = False
     log_iters: bool = False     # print a progress line per iteration
     # a file the progress lines also go to (fit_iht's io)

@@ -21,7 +21,7 @@ import torch
 from ..ops import glm, negbin
 from ..ops.projections import (project_group_sparse_batched,
                                project_group_sparse_per_task,
-                               project_topk_joint, select_support)
+                               project_topk_joint, put_slots, select_support)
 from .state import IHTState, FitConfig, FitData
 
 _INF_STEP_GUARD = 1e-8
@@ -42,17 +42,88 @@ def _split_sel(sel_idx, sel_valid, p):
     return gidx, sel_valid & is_g
 
 
-def _take_b(arr, gidx, gval):
+# --- operator-routed support primitives and SNP-axis reductions ----------
+# A sharded operator (parallel.ShardedPackedOp) holds only its rank's SNP
+# columns of every (B, p) array, so it overrides these, as the JAX
+# package's dispatchers route them (mendeliht_tpu/models/univariate.py:
+# 53-95): gathers and projections exchange (B, S) candidate lists between
+# its ranks, reductions over the SNP axis combine its ranks' partial ones,
+# and the task axis is split over its rank groups.  Any other operator
+# takes the single-device code.
+
+def _take_b(op, arr, gidx, gval):
     """Masked (B, S) gather from a (B, p) array along the SNP axis."""
+    f = getattr(op, "take_b", None)
+    if f is not None:
+        return f(arr, gidx, gval)
     v = torch.gather(arr, 1, gidx)
     return torch.where(gval, v, torch.zeros_like(v))
+
+
+def _put_b(op, arr, gidx, gval, vals):
+    """``arr`` (B, p) with the valid slots' entries replaced by ``vals``
+    (B, S) (``ops.projections.put_slots``)."""
+    f = getattr(op, "put_b", None)
+    if f is not None:
+        return f(arr, gidx, gval, vals)
+    return put_slots(arr, gidx, gval, vals)
+
+
+def _proj_joint(op, b, c, k_plus_keep, zkeep, S, weight=None):
+    f = getattr(op, "project_topk_joint", None)
+    if f is not None:
+        return f(b, c, k_plus_keep, zkeep, S, weight=weight)
+    return project_topk_joint(b, c, k_plus_keep, zkeep, S, weight=weight)
+
+
+def _sel_support(op, b, c, zkeep, S):
+    f = getattr(op, "select_support", None)
+    if f is not None:
+        return f(b, c, zkeep, S)
+    return select_support(b, c, zkeep, S)
+
+
+def _proj_group(op, cfg, b1, group, group_ks, k_task):
+    """The doubly-sparse projection; ``k_task`` None takes the per-group
+    caps ``group_ks``, else every group's cap is the task's own k."""
+    f = getattr(op, "project_group_sparse", None)
+    if f is not None:
+        return f(b1, group, cfg.J, group_ks, k_task, cfg.n_groups,
+                 cfg.group_cand)
+    if k_task is None:
+        return project_group_sparse_batched(b1, group, cfg.J, group_ks,
+                                            cfg.n_groups)
+    return project_group_sparse_per_task(b1, group, cfg.J, k_task,
+                                         cfg.n_groups)
+
+
+def _snp_reduce(op, x, how: str):
+    """``x``, a reduction over the SNP axis of this operator's columns,
+    reduced over all of them: ``how`` "max" or "sum" (a sharded operator
+    combines its ranks' partial results; any other has them all)."""
+    f = getattr(op, "reduce_snp", None)
+    return x if f is None else f(x, how)
+
+
+def _local_tasks(op, *arrays):
+    """The rows of this operator's tasks of each (B, ...) array (a sharded
+    operator's task group holds a block of them; any other all)."""
+    f = getattr(op, "task_rows", None)
+    return arrays if f is None else tuple(f(a) for a in arrays)
+
+
+def _all_tasks(op, x):
+    """The (B, ...) result of every task from this operator's rows of it
+    (the inverse of :func:`_local_tasks`)."""
+    f = getattr(op, "gather_tasks", None)
+    return x if f is None else f(x)
 
 
 def _stepsize(op, data: FitData, cfg: FitConfig, st: IHTState):
     """eta = ||grad_supp||^2 / ||sqrt(W) X grad_supp||^2
     (reference src/utilities.jl:722-764)."""
     gidx, gval = _split_sel(st.sel_idx, st.sel_valid, op.p)
-    df_sel = _take_b(st.df, gidx, gval)
+    df_sel = _take_b(op, st.df, gidx, gval)
     numer = (df_sel * df_sel).sum(dim=1)
     df2_supp = torch.where(st.idc, st.df2, torch.zeros_like(st.df2))
     numer = numer + (df2_supp * df2_supp).sum(dim=1)
@@ -69,7 +140,7 @@ def _stepsize(op, data: FitData, cfg: FitConfig, st: IHTState):
     return torch.where(bad, torch.full_like(eta, _INF_STEP_GUARD), eta)
 
 
-def _gradstep(data: FitData, cfg: FitConfig, st: IHTState, eta):
+def _gradstep(op, data: FitData, cfg: FitConfig, st: IHTState, eta):
     """b = P_k(b0 + eta*df), c = P(c0 + eta*df2); returns (b, c, sel_idx,
     sel_valid, idc) (reference src/utilities.jl:252-280)."""
     b1 = st.b0 + eta[:, None] * st.df
@@ -78,17 +149,13 @@ def _gradstep(data: FitData, cfg: FitConfig, st: IHTState, eta):
         # the group path projects the genetic coefficients alone
         # (reference src/utilities.jl:267-269); a scalar per-group k is the
         # task's own st.k, which cv varies per (fold, k) combo
-        if cfg.group_k_is_vector:
-            b_new = project_group_sparse_batched(
-                b1, data.group, cfg.J, data.group_ks, cfg.n_groups)
-        else:
-            b_new = project_group_sparse_per_task(
-                b1, data.group, cfg.J, st.k, cfg.n_groups)
-        sel_idx, sel_valid = select_support(b_new, torch.zeros_like(c1),
-                                            data.zkeep, cfg.S)
+        b_new = _proj_group(op, cfg, b1, data.group, data.group_ks,
+                            None if cfg.group_k_is_vector else st.k)
+        sel_idx, sel_valid = _sel_support(op, b_new, torch.zeros_like(c1),
+                                          data.zkeep, cfg.S)
         return b_new, c1, sel_idx, sel_valid, c1 != 0
-    b_new, c_new, sel_idx, _, sel_valid = project_topk_joint(
-        b1, c1, st.k + cfg.zkeepn, data.zkeep, cfg.S,
+    b_new, c_new, sel_idx, _, sel_valid = _proj_joint(
+        op, b1, c1, st.k + cfg.zkeepn, data.zkeep, cfg.S,
         weight=data.weight if cfg.has_weight else None)
     return b_new, c_new, sel_idx, sel_valid, c_new != 0
 
@@ -97,7 +164,7 @@ def _forward(op, data: FitData, cfg: FitConfig, b, c, sel_idx, sel_valid):
     """xb = X[:, supp] b_supp; zc = Z c; both clamped to +-20 for every
     family but the normal (reference src/utilities.jl:93-118)."""
     gidx, gval = _split_sel(sel_idx, sel_valid, op.p)
-    bcoef = _take_b(b, gidx, gval)
+    bcoef = _take_b(op, b, gidx, gval)
     xb = op.forward_sel(gidx, bcoef, gval.to(b.dtype))
     zc = c @ data.z.T
     if cfg.dist != "normal":
@@ -142,7 +209,7 @@ def _save_prev(st: IHTState) -> IHTState:
 def _take_step(op, data: FitData, cfg: FitConfig, st: IHTState, eta_t):
     """One projected gradient step + model refresh at stepsize eta_t (the
     body of the backtracking line search, reference src/fit.jl:213-263)."""
-    b, c, sel_idx, sel_valid, idc = _gradstep(data, cfg, st, eta_t)
+    b, c, sel_idx, sel_valid, idc = _gradstep(op, data, cfg, st, eta_t)
     xb, zc = _forward(op, data, cfg, b, c, sel_idx, sel_valid)
     mu = glm.linkinv(cfg.link, xb + zc)
     nb_r = _maybe_update_r(data, cfg, mu, st.nb_r, st.cv_wts)
@@ -197,13 +264,14 @@ def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
     # (reference src/fit.jl:188, utilities.jl:1014-1020)
     if cfg.debias and new.iteration + 1 >= 5:
         from .debias import debias_refit
-        supp_same = ((new.b != 0) == (new.b0 != 0)).all(dim=1)
+        supp_same = _snp_reduce(
+            op, ((new.b != 0) != (new.b0 != 0)).sum(dim=1), "sum") == 0
         new = dataclasses.replace(new, b=_where_b(
             act & supp_same, debias_refit(op, data, cfg, new), new.b))
 
     # convergence (reference src/utilities.jl:953-957, fit.jl:193-203)
     it = new.iteration + 1             # 1-based iteration just completed
-    scaled = _scaled_change(new)
+    scaled = _scaled_change(op, new)
     done = act & (((it >= cfg.min_iter) & (scaled < cfg.tol)) | bad)
     new = dataclasses.replace(
         new, active=act & ~done, failed=new.failed | bad,
@@ -220,11 +288,12 @@ def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
     return new
 
 
-def _scaled_change(st: IHTState):
+def _scaled_change(op, st: IHTState):
     """max|[b;c] - [b0;c0]| / (max|[b0;c0]| + 1) per task."""
-    db = (st.b - st.b0).abs().amax(dim=1)
+    db, b0 = _snp_reduce(op, torch.stack([(st.b - st.b0).abs().amax(dim=1),
+                                          st.b0.abs().amax(dim=1)]), "max")
     dc = (st.c - st.c0).abs().amax(dim=1)
-    denom = torch.maximum(st.b0.abs().amax(dim=1), st.c0.abs().amax(dim=1))
+    denom = torch.maximum(b0, st.c0.abs().amax(dim=1))
     return torch.maximum(db, dc) / (denom + 1.0)
 
 
@@ -250,7 +319,7 @@ def finalize_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
     best_b = _where_b(improved, st.b, st.best_b)
     best_c = _where_b(improved, st.c, st.best_c)
     best_logl = torch.where(improved, st.logl, st.best_logl)
-    sel_idx, sel_valid = select_support(best_b, best_c, data.zkeep, cfg.S)
+    sel_idx, sel_valid = _sel_support(op, best_b, best_c, data.zkeep, cfg.S)
     xb, zc = _forward(op, data, cfg, best_b, best_c, sel_idx, sel_valid)
     mu = glm.linkinv(cfg.link, xb)     # genotype-only mean, used by pve
     return dataclasses.replace(
@@ -342,12 +411,19 @@ def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts,
 
     st = init_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
     st = run_iht(op, data, cfg, st, **segments)
-    return predict_deviance(op, data, cfg, st, test_wts)
+    (test_wts,) = _local_tasks(op, test_wts)
+    return _all_tasks(op, predict_deviance(op, data, cfg, st, test_wts))
 
 
-def _sparse_extract(st: IHTState, sigma_g):
-    """Sparse result pieces: ~S floats instead of the (B, p) beta."""
-    full = torch.cat([st.b, st.c], dim=1)
-    sel_bc = torch.gather(full, 1, st.sel_idx) * st.sel_valid
-    return (st.sel_idx, st.sel_valid, sel_bc, st.c, st.best_logl, st.iters,
-            st.failed, sigma_g)
+def _sparse_extract(op, st: IHTState, sigma_g):
+    """Sparse result pieces of every task: ~S floats instead of the (B, p)
+    beta."""
+    p = op.p
+    gidx, gval = _split_sel(st.sel_idx, st.sel_valid, p)
+    is_c = st.sel_idx >= p
+    cidx = torch.where(is_c, st.sel_idx - p, torch.zeros_like(st.sel_idx))
+    sel_bc = torch.where(is_c, torch.gather(st.c, 1, cidx),
+                         _take_b(op, st.b, gidx, gval)) * st.sel_valid
+    return tuple(_all_tasks(op, t) for t in (
+        st.sel_idx, st.sel_valid, sel_bc, st.c, st.best_logl, st.iters,
+        st.failed, sigma_g))

@@ -285,10 +285,11 @@ def make_operator(x, dtype=None):
     None: genotypes keep their statistics' dtype, a dense matrix becomes
     f32).
 
-    A PackedOp (a StreamedPackedOp among them) or DenseOp is returned as
-    it is where it is in ``dtype``, else as an operator of the same kind
-    over the same genotypes or matrix in ``dtype``: that is how a caller
-    runs the quad-word kernel on genotypes without ``words_t``.
+    A PackedOp (a StreamedPackedOp among them), DenseOp or
+    ``parallel.ShardedPackedOp`` is returned as it is where it is in
+    ``dtype``, else as an operator of the same kind over the same genotypes
+    or matrix in ``dtype``: that is how a caller runs the quad-word kernel
+    on genotypes without ``words_t``.
     HostStreamedGenotypes (out of core) get a ``StreamedPackedOp``.
     Genotypes on a CUDA device get the transposed dual layout, in place,
     where their packed words fit ``MENDELIHT_DUAL_MAX_BYTES`` (default
@@ -302,6 +303,9 @@ def make_operator(x, dtype=None):
         return x if dtype in (None, x.dtype) else DenseOp(x.x.to(dtype))
     if isinstance(x, PackedOp):
         return x if dtype in (None, x.dtype) else type(x)(x.geno, dtype)
+    if hasattr(x, "mesh"):                    # a parallel.ShardedPackedOp
+        return (x if dtype in (None, x.dtype)
+                else dataclasses.replace(x, dtype=dtype))
     if isinstance(x, PackedGenotypes):
         if (x.device.type == "cuda" and x.words_t is None
                 and x.words.numel() * 4 <= _env_int(

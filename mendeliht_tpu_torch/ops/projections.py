@@ -68,6 +68,17 @@ def select_support(b, c, zkeep, S: int, weight=None):
     return topi, vals != 0
 
 
+def put_slots(arr, idx, valid, vals):
+    """``arr`` (B, p) with entry ``idx[t, s]`` of each valid slot replaced
+    by ``vals[t, s]`` (idx, valid, vals (B, S)); an invalid slot writes
+    nothing, though its index may be a valid slot's too."""
+    hit = torch.zeros_like(arr, dtype=torch.int32).scatter_add_(
+        1, idx, valid.to(torch.int32)) > 0
+    new = torch.zeros_like(arr).scatter_add_(
+        1, idx, torch.where(valid, vals, torch.zeros_like(vals)))
+    return torch.where(hit, new, arr)
+
+
 def project_k(x, k: int, weight=None):
     """Single-vector top-k hard threshold (reference src/utilities.jl:553-559):
     keeps exactly min(k, nnz) entries of ``x`` (p,) by (weighted) magnitude,
@@ -83,15 +94,18 @@ def project_k(x, k: int, weight=None):
 
 def _group_sparse(y, group0, ks, J: int, n_groups: int):
     """Doubly-sparse projection of each row of y (B, p): group0 (p,) int64
-    in [0, n_groups), ks (B, n_groups) int64 the per-group caps of each row.
-    A row keeps an entry that ranks below its group's cap within the group
-    (by magnitude, stably) in one of the J groups with the largest l2 norm
-    of those entries (stably); every other entry is zeroed."""
+    in [0, n_groups), or (B, p) with each row's own groups (a sharded
+    projection's candidates), ks (B, n_groups) int64 the per-group caps of
+    each row.  A row keeps an entry that ranks below its group's cap within
+    the group (by magnitude, stably) in one of the J groups with the
+    largest l2 norm of those entries (stably); every other entry is
+    zeroed."""
     B, p = y.shape
     dev = y.device
     pos = torch.arange(p, device=dev).expand(B, p)
     order = torch.sort(-y.abs(), dim=1, stable=True).indices   # magnitude desc
-    g_sorted = group0[order]
+    rows = group0.dim() == 2
+    g_sorted = torch.gather(group0, 1, order) if rows else group0[order]
     # occurrence index of each entry within its group, in magnitude order
     ord2 = torch.sort(g_sorted, dim=1, stable=True).indices
     g2 = torch.gather(g_sorted, 1, ord2)
@@ -103,8 +117,9 @@ def _group_sparse(y, group0, ks, J: int, n_groups: int):
     in_topk = rank_in_group < torch.gather(ks, 1, group0.expand(B, p))
     # group norms from the top-k contributions
     contrib = torch.where(in_topk, y * y, torch.zeros_like(y))
-    gnorm = torch.zeros((B, n_groups), dtype=y.dtype,
-                        device=dev).index_add_(1, group0, contrib)
+    gnorm = torch.zeros((B, n_groups), dtype=y.dtype, device=dev)
+    gnorm = (gnorm.scatter_add_(1, group0, contrib) if rows
+             else gnorm.index_add_(1, group0, contrib))
     grank_order = torch.sort(-gnorm, dim=1, stable=True).indices
     grank = torch.zeros_like(grank_order).scatter_(
         1, grank_order,

@@ -102,9 +102,11 @@ class HostStreamedGenotypes:
     SNPs), and up to ``resident_bytes`` of the leading quad rows stay on
     the device (None: ``MENDELIHT_STREAM_RESIDENT_BYTES``, default 10 GiB;
     0 streams everything).  The page lock of ``words`` and the resident
-    prefix (:meth:`resident_words`) last as long as these genotypes."""
+    prefix (:meth:`resident_words`) last as long as these genotypes.
+    The host words are the field ``words_np``, the JAX package's name;
+    ``words`` reads the same array."""
 
-    words: np.ndarray             # (ceil(p/4), n4) int32 quad words, host
+    words_np: np.ndarray          # (ceil(p/4), n4) int32 quad words, host
     mu: torch.Tensor              # (p,) on the device
     inv_sd: torch.Tensor          # (p,) on the device
     n: int
@@ -115,6 +117,11 @@ class HostStreamedGenotypes:
     # the registration and the prefix, made by the first operator
     _held: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False, compare=False)
+
+    @property
+    def words(self) -> np.ndarray:
+        """The host quad words (``words_np``)."""
+        return self.words_np
 
     @property
     def shape(self):
@@ -167,7 +174,7 @@ class HostStreamedGenotypes:
                       ) -> "HostStreamedGenotypes":
         """Genotypes' words moved to host memory (a view where they lie
         on the CPU); mu and 1/sd stay on their device."""
-        return cls(words=np.ascontiguousarray(geno.words.cpu().numpy()),
+        return cls(words_np=np.ascontiguousarray(geno.words.cpu().numpy()),
                    mu=geno.mu, inv_sd=geno.inv_sd, n=geno.n, p=geno.p,
                    has_missing=geno.has_missing, block_bytes=block_bytes,
                    resident_bytes=resident_bytes)
@@ -193,8 +200,8 @@ class HostStreamedGenotypes:
             words[lo // 4:lo // 4 + w.shape[0]] = w.cpu().numpy()
             counts[:, lo:hi] = c.cpu().numpy()
         stats = bed_stats(counts, n, dtype, device)
-        return cls(words=words, mu=stats["mu"], inv_sd=stats["inv_sd"], n=n,
-                   p=p, has_missing=stats["has_missing"],
+        return cls(words_np=words, mu=stats["mu"], inv_sd=stats["inv_sd"],
+                   n=n, p=p, has_missing=stats["has_missing"],
                    block_bytes=block_bytes, resident_bytes=resident_bytes)
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 _PREFIX = "step_"
@@ -31,15 +32,20 @@ def _path(directory: str, step: int) -> str:
     return os.path.join(os.path.abspath(directory), f"{_PREFIX}{step}")
 
 
-def save_state(directory: str, st, step: int) -> str:
+def save_state(directory: str, st, step: int,
+               extra: dict | None = None) -> str:
     """Save the state dataclass ``st`` (an ``IHTState`` or ``MIHTState``)
     as ``directory/step_<step>``; keep the newest two steps.  Returns the
-    path."""
+    path.  ``extra`` (name -> array) is saved beside the state under the
+    key ``"extra"`` and never read back, as in the JAX package."""
     os.makedirs(directory, exist_ok=True)
     payload = {}
     for f in dataclasses.fields(st):
         v = getattr(st, f.name)
         payload[f.name] = v.detach().cpu() if isinstance(v, torch.Tensor) else v
+    if extra:
+        payload["extra"] = {k: torch.as_tensor(np.asarray(v))
+                            for k, v in extra.items()}
     path = _path(directory, step)
     tmp = os.path.join(os.path.dirname(path),
                        f".{_PREFIX}{step}.{os.getpid()}.tmp")

@@ -40,6 +40,17 @@ from mendeliht_tpu_torch.ops import decode as tdecode
 from mendeliht_tpu_torch.ops import kernels as tkernels
 from mendeliht_tpu_torch.ops import linalg as tlinalg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 2e-5
 
 

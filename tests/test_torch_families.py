@@ -48,6 +48,17 @@ from mendeliht_tpu_torch.models.initialize import init_state as tinit_state
 from mendeliht_tpu_torch.models.state import IHTState
 from mendeliht_tpu_torch.ops import glm as tglm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # (family, link, est_r) of every fit compared; the index is the seed offset
 # of its response
 CASES = [("bernoulli", None, "none"), ("bernoulli", "probit", "none"),

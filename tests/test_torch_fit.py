@@ -28,6 +28,17 @@ from mendeliht_tpu_torch.models.state import IHTState
 from mendeliht_tpu_torch.utils.simulate import simulate_packed_problem
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_genotypes(g):
     """The port's PackedGenotypes holding the JAX package's arrays."""
     return mt.PackedGenotypes.from_numpy(

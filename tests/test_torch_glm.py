@@ -29,6 +29,17 @@ from mendeliht_tpu_torch.ops import glm as tglm
 from mendeliht_tpu_torch.ops import negbin as tnegbin
 from mendeliht_tpu_torch.utils.simulate import simulate_random_response
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 LINKS = ["identity", "logit", "log", "inverse", "sqrt", "probit", "cloglog",
          "inversesquare"]
 FAMILIES = ["normal", "bernoulli", "poisson", "negativebinomial", "gamma",

@@ -25,6 +25,17 @@ import mendeliht_tpu_torch
 from mendeliht_tpu_torch.genotype.snparray import _bytes_to_words, pack_codes
 from mendeliht_tpu_torch.ops import decode, kernels
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 PKG = Path(mendeliht_tpu_torch.__file__).resolve().parent
 MODULES = sorted(PKG.rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "mendeliht_tpu")
@@ -52,7 +63,9 @@ def test_package_has_modules():
             "utils/wrapper.py", "utils/standardize.py", "utils/device.py",
             "tools/kernel_lab5.py", "tools/kernel_probe.py",
             "ops/streaming.py", "utils/checkpoint.py", "models/streamed.py",
-            "models/mv_streamed.py"} <= names
+            "models/mv_streamed.py", "parallel/__init__.py",
+            "parallel/mesh.py", "parallel/sharded_ops.py",
+            "parallel/multihost.py", "parallel/dryrun.py"} <= names
     for src in ("xt_dots_t.cu", "read_probe.cu", "int_probe.cu",
                 "kernel_probe.cu", "i8_mma.cuh"):
         assert (PKG / "csrc" / src).is_file()

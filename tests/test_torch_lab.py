@@ -31,6 +31,17 @@ from mendeliht_tpu_torch.ops import decode, kernels
 from mendeliht_tpu_torch.tools import kernel_lab5 as tlab
 from mendeliht_tpu_torch.utils import profiling
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 LAB = Path(__file__).resolve().parent.parent / "tools" / "kernel_lab5.py"
 _CACHE_KEYS = ("jax_compilation_cache_dir",
                "jax_persistent_cache_min_entry_size_bytes",

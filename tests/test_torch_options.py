@@ -56,6 +56,17 @@ from mendeliht_tpu_torch.models.state import IHTState
 from mendeliht_tpu_torch.ops import linalg as tlinalg
 from mendeliht_tpu_torch.ops import projections as tproj
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N, P, K = 300, 600, 5
 GROUP = np.repeat(np.arange(1, 11), 60)             # 10 groups of 60 SNPs
 GROUP_KS = [2, 1, 3, 0, 2, 1, 1, 2, 0, 1]

@@ -26,6 +26,17 @@ from mendeliht_tpu_torch.ops import kernels as tkernels
 from mendeliht_tpu_torch.ops import projections as tproj
 from mendeliht_tpu_torch.ops.linalg import PackedOp as TPackedOp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # f32 sums of the same terms in another order: the bound tests/test_pallas.py
 # holds the Pallas kernel to, relative to the output's column scale
 TOL = 2e-5

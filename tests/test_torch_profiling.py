@@ -14,6 +14,17 @@ from mendeliht_tpu_torch.genotype.snparray import _bytes_to_words, pack_codes
 from mendeliht_tpu_torch.ops import kernels
 from mendeliht_tpu_torch.utils import profiling
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
 

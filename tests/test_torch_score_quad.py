@@ -32,6 +32,17 @@ from mendeliht_tpu_torch.ops import decode, kernels
 from test_torch_score import _assert_s_close, _combine_kernel_order
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: where
+    other test processes keep every core busy, the default thread pool
+    oversubscribes the cores and each small op waits on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(seed, n, p, m, missing):
     """JAX-package quad words and packed bytes; an rhs whose pad samples are
     zero; for m >= 4 column 1 all zero (scale 2^-20), column 2 with a NaN
