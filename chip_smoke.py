@@ -103,7 +103,18 @@ result line):
               same support and best k, iterations within one, betas within
               SHARD_BETA_TOL, mse within SHARD_MSE_TOL relative), both
               ranks the same result, each rank's kernel-1 launches,
-              collectives, walls and peak memory; after the kprobe phase
+              collectives, walls and peak memory; checkpoints: in (a) a
+              cv checkpointed every SHARD_CK_EVERY iterations equal to
+              the quad-word cv bit for bit, and called again on its
+              directory (the last step restored through NCCL) equal
+              again; on each rank a cv stopped by
+              max_iter = SHARD_CK_STOP, then the cv resumed from its
+              directory equal to the rank's uninterrupted cv bit for bit
+              (both ranks alike), each save's wall (the gather to rank 0
+              and its write) and the file's bytes; then, in this process,
+              the single-device quad-word cv resumed from the ranks'
+              stopped directory within SHARD_MSE_TOL of the quad-word
+              cv, the same best k; after the kprobe phase
               (sharded-profile), a ``profiling.trace`` of a warm
               quad-word and a warm world-of-1 sharded fit and cv
 10. profile   ``profiling.trace`` over one warm cv and one warm dual fit:
@@ -286,7 +297,9 @@ Kernel launch counts in the kernels line come from the runs of the paths
 each kernel serves, with the counts set to 0 just before: the quad-word fit
 (kernel 1; ``cv_launches`` from the cv-quad run, ``sharded_launches``
 from the sharded phase's fit and cv in the world of one rank and on each
-of the two ranks, ``family_launches`` from
+of the two ranks, its checkpointed cv in the world of one rank, each
+rank's resumed cv and the single-device cv resumed from the ranks'
+checkpoint, ``family_launches`` from
 the Bernoulli quad-word fit, ``options_launches`` from the init_beta
 quad-word fit), the cv (kernel 2; ``family_launches`` from each family's
 fit and the Bernoulli cv, ``options_launches`` from each option's fit and
@@ -422,6 +435,9 @@ PCIE_BYTES_PER_S = 64e9
 SHARD_FIT_WARM, SHARD_CV_WARM, SHARD_RANK_WARM = 3, 2, 1
 SHARD_RANKS, SHARD_TIMEOUT = 2, 600
 SHARD_BETA_TOL, SHARD_MSE_TOL = 1e-3, 1e-4
+# the sharded checkpoints: a save every SHARD_CK_EVERY iterations; a rank's
+# cv stopped by max_iter = SHARD_CK_STOP (its last step 3) and resumed
+SHARD_CK_EVERY, SHARD_CK_STOP = 5, 4
 CV_MAX_ITER = 100                        # cv_iht's default
 FIT_MAX_ITER = 200                       # fit_iht's default
 SEED = 2026
@@ -1330,10 +1346,48 @@ def sharded_world_of_one(g, y, card, dual_mse, gen):
             raise AssertionError("sharded: the world-of-1 cv did not run "
                                  "kernel 1 alone")
         print_turns("cv", walls, card)
+        ck = tempfile.mkdtemp(prefix="mendeliht_ck1_")
+        try:
+            with timed_saves(sop) as saves:
+                mse, wall, counts, st = run_cv(
+                    sop, y, checkpoint_dir=ck, checkpoint_every=SHARD_CK_EVERY)
+            del st
+            steps = sorted(checkpoint.all_steps(ck))
+            # called again on its directory: restores the last step (its
+            # tasks all converged) through the collectives, then finalizes
+            again, again_wall, again_counts, st = run_cv(
+                sop, y, checkpoint_dir=ck, checkpoint_every=SHARD_CK_EVERY)
+            del st
+        finally:
+            shutil.rmtree(ck, ignore_errors=True)
+        ck_k1 = counts["xt_dots_words"]
+        equal = np.array_equal(mse, mses["quad"])
+        again_equal = np.array_equal(again, mse)
+        print(f"[sharded] world of 1: cv checkpointed every "
+              f"{SHARD_CK_EVERY} through ShardedPackedOp: mse equal to the "
+              f"quad-word cv's bit for bit {equal}; {wall:.4f} s with "
+              f"{save_text(saves)}; steps kept {steps}; kernel-1 launches "
+              f"{ck_k1}; called again on its directory: mse equal bit for "
+              f"bit {again_equal} in {again_wall:.4f} s, kernel-1 launches "
+              f"{again_counts['xt_dots_words']}", flush=True)
+        if (not equal or ck_k1 < 2 or not saves or len(steps) > 2
+                or not again_equal
+                or not 1 <= again_counts["xt_dots_words"] < ck_k1):
+            raise AssertionError("sharded: the world-of-1 checkpointed cv "
+                                 "differs from the quad-word cv")
     finally:
         torch.distributed.destroy_process_group()
     return (sq, mses["quad"]), {"world1_fit": fit_launch,
-                                "world1_cv": cv_k1}
+                                "world1_cv": cv_k1,
+                                "world1_cv_checkpointed": ck_k1}
+
+
+def save_text(saves):
+    """The saves of :func:`timed_saves` as text."""
+    return "saves " + ", ".join(
+        f"step {step} {wall:.3f} s" + (f" ({size / 1e9:.3f} GB)" if size
+                                       else "")
+        for step, wall, size in saves)
 
 
 def print_turns(what, walls, card):
@@ -1398,6 +1452,26 @@ def sharded_rank(rank, tmp):
                      launches=kernels.LAUNCHES["xt_dots_words"],
                      calls={k: v - before[k] for k, v in mesh.calls.items()},
                      peak=torch.cuda.max_memory_allocated(dev))
+    # checkpoints: a cv stopped by max_iter, then resumed from its directory
+    ck = os.path.join(tmp, "ck")
+    cv_kw = dict(path=CV_PATH, q=CV_Q, verbose=False, checkpoint_dir=ck,
+                 checkpoint_every=SHARD_CK_EVERY)
+    with timed_saves(op) as saves:
+        t0 = time.perf_counter()
+        cv_iht(y, op, max_iter=SHARD_CK_STOP,
+               rng=np.random.default_rng(SEED), **cv_kw)
+        stop_wall = time.perf_counter() - t0
+        if rank == 0:            # the single-device resume's, in the parent
+            shutil.copytree(ck, os.path.join(tmp, "ck_stop"))
+        reset_launches()
+        t0 = time.perf_counter()
+        resumed = cv_iht(y, op, max_iter=CV_MAX_ITER,
+                         rng=np.random.default_rng(SEED), **cv_kw)
+        resumed_wall = time.perf_counter() - t0
+    out["ck"] = dict(mse=resumed.tolist(), saves=saves, stop_wall=stop_wall,
+                     wall=resumed_wall,
+                     launches=kernels.LAUNCHES["xt_dots_words"],
+                     equal=bool(np.array_equal(resumed, mse)))
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -1433,6 +1507,8 @@ def sharded_two_ranks(g, y, card, quad_fit, quad_mse):
         for r in range(SHARD_RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 res.append(json.load(f))
+        one = one_device_resume(g, y, card, os.path.join(tmp, "ck_stop"),
+                                quad_mse, res[0]["cv"]["launches"])
     finally:
         for pr in procs:
             if pr.poll() is None:
@@ -1481,8 +1557,47 @@ def sharded_two_ranks(g, y, card, quad_fit, quad_mse):
                    or r["cv"]["launches"] < 2 for r in res)):
         raise AssertionError("sharded: the two-rank fit or cv differs from "
                              "the single-device one")
+    for r, out in enumerate(res):
+        ck = out["ck"]
+        print(f"[sharded] rank {r} on {card}: cv stopped by max_iter="
+              f"{SHARD_CK_STOP} in {ck['stop_wall']:.3f} s, then resumed in "
+              f"{ck['wall']:.3f} s: mse equal to the rank's uninterrupted "
+              f"cv's bit for bit {ck['equal']}; {save_text(ck['saves'])}; "
+              f"kernel-1 launches of the resumed cv {ck['launches']}",
+              flush=True)
+    if not all(r["ck"]["equal"] and r["ck"]["mse"] == cv["mse"]
+               and r["ck"]["saves"] and 1 <= r["ck"]["launches"]
+               < r["cv"]["launches"] for r in res):
+        raise AssertionError("sharded: a resumed cv differs from the "
+                             "uninterrupted one, or did not resume")
     return {"ranks2_fit": [r["fit"]["launches"] for r in res],
-            "ranks2_cv": [r["cv"]["launches"] for r in res]}
+            "ranks2_cv": [r["cv"]["launches"] for r in res],
+            "ranks2_cv_resumed": [r["ck"]["launches"] for r in res],
+            "one_device_cv_resumed": one}
+
+
+def one_device_resume(g, y, card, stop, quad_mse, whole):
+    """The single-device quad-word cv resumed from the ranks' checkpoint
+    in ``stop`` (their cv stopped at step SHARD_CK_STOP - 1): mse within
+    SHARD_MSE_TOL of the quad-word cv's, the same best k, fewer kernel-1
+    launches than a whole cv's ``whole``; returns its launches."""
+    quad = PackedOp(dataclasses.replace(g, words_t=None))
+    at = checkpoint.latest_step(stop)
+    mse, wall, counts, st = run_cv(quad, y, checkpoint_dir=stop,
+                                   checkpoint_every=SHARD_CK_EVERY)
+    del st
+    launches = counts["xt_dots_words"]
+    err = float(np.max(np.abs(mse - quad_mse) / np.abs(quad_mse)))
+    best, qbest = (CV_PATH[int(np.argmin(v))] for v in (mse, quad_mse))
+    print(f"[sharded] one device on {card}: the quad-word cv resumed from "
+          f"the two ranks' checkpoint (step {at}) in {wall:.3f} s: mse max "
+          f"rel err {err:.3g} against the quad-word cv, best k {best} "
+          f"(quad {qbest}); kernel-1 launches {launches}", flush=True)
+    if at != SHARD_CK_STOP - 1 or not err <= SHARD_MSE_TOL or best != qbest \
+            or not 1 <= launches < whole:
+        raise AssertionError("sharded: the single-device cv resumed from "
+                             "the ranks' checkpoint differs")
+    return launches
 
 
 def phase_sharded_profile(g, y, card):
@@ -3096,23 +3211,26 @@ def timed_fit(y, x, **kw):
 
 
 @contextlib.contextmanager
-def timed_saves():
-    """Records (step, wall s, file bytes) of every checkpoint saved in the
-    body."""
-    saves, save = [], checkpoint.save_state
+def timed_saves(owner=checkpoint):
+    """Records (step, wall s, file bytes, None where this process wrote
+    none) of every checkpoint saved in the body through
+    ``owner.save_state``: ``utils/checkpoint.py``'s, or a sharded
+    operator's (its gather to the first rank and that rank's write)."""
+    saves, save = [], owner.save_state
 
     def timed(directory, st, step):
         sync()
         t0 = time.perf_counter()
         path = save(directory, st, step)
-        saves.append((step, time.perf_counter() - t0, os.path.getsize(path)))
+        saves.append((step, time.perf_counter() - t0,
+                      path and os.path.getsize(path)))
         return path
 
-    checkpoint.save_state = timed
+    owner.save_state = timed
     try:
         yield saves
     finally:
-        checkpoint.save_state = save
+        owner.save_state = save
 
 
 def phase_stream(g, y, dual_mse, card, gen, link):

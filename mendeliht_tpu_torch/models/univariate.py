@@ -119,6 +119,39 @@ def _all_tasks(op, x):
     return x if f is None else f(x)
 
 
+def _save_state(op, directory, st, step):
+    """Save ``st`` as checkpoint ``step`` in ``directory`` (a sharded
+    operator writes one file of the whole state from one rank; any other
+    ``utils/checkpoint.py``'s file of its own)."""
+    f = getattr(op, "save_state", None)
+    if f is not None:
+        return f(directory, st, step)
+    from ..utils import checkpoint
+    return checkpoint.save_state(directory, st, step)
+
+
+def _restore_state(op, directory, like):
+    """(the newest state saved in ``directory``, as this operator's block
+    of ``like``'s, its step), or None where nothing was saved."""
+    f = getattr(op, "restore_state", None)
+    if f is not None:
+        return f(directory, like)
+    from ..utils import checkpoint
+    return checkpoint.restore_state(directory, like)
+
+
+def _progress(op, st):
+    """(tasks, active tasks, iteration) of the whole solve: this
+    operator's task rows' counts summed over every task row, and their
+    largest iteration (a row whose tasks all converged stops advancing;
+    the rows still active are all at it)."""
+    row = torch.tensor([[st.active.shape[0], int(st.active.sum()),
+                         st.iteration]], device=st.active.device)
+    rows = _all_tasks(op, row).cpu()
+    return (int(rows[:, 0].sum()), int(rows[:, 1].sum()),
+            int(rows[:, 2].max()))
+
+
 def _stepsize(op, data: FitData, cfg: FitConfig, st: IHTState):
     """eta = ||grad_supp||^2 / ||sqrt(W) X grad_supp||^2
     (reference src/utilities.jl:722-764)."""
@@ -346,15 +379,20 @@ def run_segmented(op, data, cfg, st, advance=run_segment, *,
     src/cross_validation.jl:95; tasks converge in lockstep here), as
     ``\r`` updates on a terminal and as lines otherwise.  The step is
     deterministic given the state, so how the run is segmented, or where
-    it was killed and resumed, does not change a bit of the result."""
+    it was killed and resumed, does not change a bit of the result.
+
+    On a sharded operator every count is the whole solve's (every rank
+    runs as many segments and meets the others in each save), the saves
+    and the restore go through the operator (``_save_state`` /
+    ``_restore_state``: one file of the whole state), and the step is the
+    largest iteration of the task rows."""
     if checkpoint_dir is None and not progress:
         return advance(op, data, cfg, st, cfg.max_iter - 1)
-    from ..utils.checkpoint import restore_state, save_state
     if checkpoint_dir is not None:
         if checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be at least 1, got "
                              f"{checkpoint_every}")
-        restored = restore_state(checkpoint_dir, st)
+        restored = _restore_state(op, checkpoint_dir, st)
         if restored is not None:
             st, at = restored
             if verbose:
@@ -362,19 +400,18 @@ def run_segmented(op, data, cfg, st, advance=run_segment, *,
         step = checkpoint_every
     else:
         step = _PROGRESS_STEP
-    B = int(st.active.shape[0])
     tty = progress and getattr(sys.stderr, "isatty", lambda: False)()
-    n_active = int(st.active.sum())
-    while st.iteration < cfg.max_iter - 1 and n_active:
-        st = advance(op, data, cfg, st, st.iteration + step)
-        n_active = int(st.active.sum())
+    B, n_active, it = _progress(op, st)
+    while it < cfg.max_iter - 1 and n_active:
+        st = advance(op, data, cfg, st, it + step)
+        _, n_active, it = _progress(op, st)
         if checkpoint_dir is not None:
-            save_state(checkpoint_dir, st, st.iteration)
+            _save_state(op, checkpoint_dir, st, it)
             if verbose:
-                print(f"checkpoint at iteration {st.iteration}; {n_active} "
-                      "tasks still active")
+                print(f"checkpoint at iteration {it}; {n_active} tasks "
+                      "still active")
         if progress:
-            msg = (f"Cross-validating: iteration {st.iteration:4d}, "
+            msg = (f"Cross-validating: iteration {it:4d}, "
                    f"{B - n_active}/{B} models converged")
             print("\r" + msg if tty else msg, end="" if tty else "\n",
                   file=sys.stderr, flush=True)

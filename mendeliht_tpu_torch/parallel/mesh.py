@@ -18,13 +18,19 @@ Per-sample arrays (y, mu, xb, cv_wts) are whole on every rank of a task row
 and split over the task rows.  Where the JAX package places one global array
 with a sharding, each rank here holds its own block: ``shard_state`` cuts a
 rank's block out of a whole state, ``gather_state`` joins the blocks back
-into the whole state on every rank.
+into the whole state on every rank (or on the first rank alone, for a
+checkpoint), and ``scatter_state`` sends each rank its block of a whole
+state that the first rank holds (a checkpoint's resume).
 
 Every collective goes through :meth:`Mesh.all_reduce` /
-:meth:`Mesh.all_gather`.  Where the world's backend is gloo and the mesh's
+:meth:`Mesh.all_gather` / :meth:`Mesh.gather` / :meth:`Mesh.scatter` /
+:meth:`Mesh.broadcast`.  Where the world's backend is gloo and the mesh's
 device is a card (two ranks on one card: NCCL refuses two ranks on one
-GPU), they copy their operands to the host and the result back, since gloo
-has no CUDA ``all_gather``; the mesh decides that once, from the backend.
+GPU), they copy their operands to the host, since gloo has no CUDA
+``all_gather``, and ``all_reduce`` / ``all_gather`` copy the result back
+(``gather`` / ``scatter`` / ``broadcast`` leave it on the host, where a
+checkpoint's file is read and written); the mesh decides that once, from
+the backend.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ class Mesh:
     host_staged: bool        # collectives copy card operands to the host
     # collectives run through this mesh, by kind
     calls: dict = dataclasses.field(default_factory=lambda: {
-        "all_reduce": 0, "all_gather": 0})
+        "all_reduce": 0, "all_gather": 0, "gather": 0, "scatter": 0,
+        "broadcast": 0})
 
     axis_names = ("task", "snp")
 
@@ -90,6 +97,59 @@ class Mesh:
         dist.all_gather(parts, y, group=self.groups[axis])
         self.calls["all_gather"] += 1
         return torch.cat(parts, dim=dim).to(x.device)
+
+    @property
+    def _wire(self) -> torch.device:
+        """Where the collectives run: the host for a card under gloo."""
+        return torch.device("cpu") if self.host_staged else self.device
+
+    def _first(self, axis: str) -> int:
+        """The world rank of the first rank (coordinate 0) along ``axis``
+        of this rank's row or column of the grid."""
+        t, s = self.coords["task"], self.coords["snp"]
+        return int(self.ranks[0, s] if axis == "task" else self.ranks[t, 0])
+
+    def gather(self, x: torch.Tensor, axis: str = "snp",
+               dim: int = 0) -> torch.Tensor | None:
+        """The ranks' x along ``axis`` joined on ``dim`` in rank order, on
+        the first rank of ``axis`` alone (None on the others), where the
+        collective runs (the host where it is host-staged)."""
+        y = x.detach().to(self._wire).contiguous()
+        first = self.coords[axis] == 0
+        parts = ([torch.empty_like(y) for _ in range(self.shape[axis])]
+                 if first else None)
+        dist.gather(y, parts, dst=self._first(axis), group=self.groups[axis])
+        self.calls["gather"] += 1
+        return torch.cat(parts, dim=dim) if first else None
+
+    def scatter(self, x: torch.Tensor | None, axis: str, dim: int,
+                shape, dtype: torch.dtype) -> torch.Tensor:
+        """x, whole on the first rank of ``axis`` (None on the others),
+        split evenly along ``dim``: this rank's block, of ``shape`` and
+        ``dtype``, where the collective runs (the inverse of
+        :meth:`gather`)."""
+        out = torch.empty(tuple(shape), dtype=dtype, device=self._wire)
+        parts = None
+        if self.coords[axis] == 0:
+            parts = [p.contiguous() for p in
+                     x.to(self._wire).split(out.shape[dim], dim)]
+        dist.scatter(out, parts, src=self._first(axis),
+                     group=self.groups[axis])
+        self.calls["scatter"] += 1
+        return out
+
+    def broadcast(self, x: torch.Tensor | None, axis: str, shape,
+                  dtype: torch.dtype) -> torch.Tensor:
+        """x of the first rank of ``axis`` (None on the others) on every
+        rank of it, of ``shape`` and ``dtype``, where the collective
+        runs."""
+        if self.coords[axis] == 0:
+            y = x.detach().to(self._wire, copy=True).contiguous()
+        else:
+            y = torch.empty(tuple(shape), dtype=dtype, device=self._wire)
+        dist.broadcast(y, src=self._first(axis), group=self.groups[axis])
+        self.calls["broadcast"] += 1
+        return y
 
     def block(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """This rank's block of x along ``dim``, split evenly over the
@@ -240,22 +300,86 @@ def shard_mv_state(st, mesh: Mesh):
     return _blocks(st, mesh, mv_state_sharding(mesh))
 
 
-def gather_state(st, mesh: Mesh):
-    """The whole state (IHTState or MIHTState) on every rank from the
-    ranks' blocks: the port's ``np.asarray`` of a sharded global array.
-    Every rank calls it."""
-    specs = (state_sharding(mesh) if hasattr(st, "best_b")
-             else mv_state_sharding(mesh))
+def _specs(st, mesh: Mesh) -> dict:
+    """The specs of the state ``st``: an IHTState's or an MIHTState's."""
+    return (state_sharding(mesh) if hasattr(st, "best_b")
+            else mv_state_sharding(mesh))
+
+
+def gather_state(st, mesh: Mesh, to_first: bool = False):
+    """The whole state (IHTState or MIHTState) from the ranks' blocks: the
+    port's ``np.asarray`` of a sharded global array.  On every rank, or,
+    with ``to_first``, on the first rank of the grid alone, on the host
+    where the collectives are host-staged (None on the others: what a
+    checkpoint needs).  Every rank calls it."""
+    specs = _specs(st, mesh)
     updates = {}
     for f in dataclasses.fields(st):
         v = getattr(st, f.name)
         if not isinstance(v, torch.Tensor):
             continue
-        for dim, axis in enumerate(specs.get(f.name, ())):
-            if axis is not None:
-                v = mesh.all_gather(v, axis, dim)
+        spec = specs.get(f.name, ())
+        for axis in ("snp", "task"):
+            if not to_first:
+                if axis in spec:
+                    v = mesh.all_gather(v, axis, spec.index(axis))
+            elif v is not None:
+                # a block whole along ``axis`` is the same on its ranks
+                v = (mesh.gather(v, axis, spec.index(axis)) if axis in spec
+                     else v if mesh.coords[axis] == 0 else None)
         updates[f.name] = v
+    if to_first and mesh.coords != {"task": 0, "snp": 0}:
+        return None
     return dataclasses.replace(st, **updates)
+
+
+def whole_shapes(like, mesh: Mesh) -> dict:
+    """The whole state's shape of every tensor field of ``like``, this
+    rank's block of a state."""
+    specs, out = _specs(like, mesh), {}
+    for f in dataclasses.fields(like):
+        v = getattr(like, f.name)
+        if isinstance(v, torch.Tensor):
+            spec = specs.get(f.name, ())
+            out[f.name] = tuple(
+                n * (mesh.shape[spec[d]] if d < len(spec) and spec[d] else 1)
+                for d, n in enumerate(v.shape))
+    return out
+
+
+def from_first(v, spec, shape, dtype, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``v``, a tensor of ``shape`` held by the first
+    rank of the grid alone (None on the others), split as the ``spec``
+    says (whole along an axis it does not name), of ``dtype``, where the
+    collectives run: the task blocks to the rows' first ranks, then each
+    row's SNP blocks.  Every rank calls it."""
+    shape = list(shape)
+    for axis in ("task", "snp"):
+        dim = spec.index(axis) if axis in spec else None
+        if dim is not None:
+            shape[dim] //= mesh.shape[axis]
+        if axis == "task" and mesh.coords["snp"] != 0:
+            continue
+        v = (mesh.broadcast(v, axis, shape, dtype) if dim is None
+             else mesh.scatter(v, axis, dim, shape, dtype))
+    return v
+
+
+def scatter_state(whole: dict | None, like, mesh: Mesh):
+    """This rank's block of a whole state, its fields ``whole`` (name ->
+    tensor of the whole shape) held by the first rank of the grid alone
+    (None on the others), as the dataclass of ``like`` (this rank's block
+    of a state of the same whole shapes), with its dtypes, devices and
+    ``iteration``: :func:`shard_state` from one rank, through the mesh's
+    collectives (the inverse of ``gather_state(..., to_first=True)``).
+    Every rank calls it."""
+    specs, shapes, updates = _specs(like, mesh), whole_shapes(like, mesh), {}
+    for name, shape in shapes.items():
+        ref = getattr(like, name)
+        v = whole[name].to(ref.dtype) if whole is not None else None
+        updates[name] = from_first(v, specs.get(name, ()), shape, ref.dtype,
+                                   mesh).to(ref.device)
+    return dataclasses.replace(like, **updates)
 
 
 def shard_data(data, mesh: Mesh):

@@ -30,7 +30,8 @@ import torch
 from ..genotype.snparray import PackedGenotypes
 from ..ops.linalg import PackedOp
 from ..ops.projections import _group_sparse, put_slots
-from .mesh import Mesh
+from ..utils import checkpoint
+from .mesh import Mesh, gather_state, from_first, scatter_state, whole_shapes
 
 
 @dataclasses.dataclass
@@ -139,6 +140,58 @@ class ShardedPackedOp:
         """A reduction over the SNP axis ("sum" or "max") of this rank's
         columns, over all of them."""
         return self.mesh.all_reduce(x, "snp", how)
+
+    # -- checkpoints: one file of the whole state, from the first rank -----
+    def save_state(self, directory: str, st, step: int):
+        """The solver's save (``univariate.run_segmented``): the whole
+        state gathered to the first rank of the grid, which alone writes
+        it as ``directory/step_<step>`` with ``iteration`` = ``step``, in
+        the single-device format (``utils/checkpoint.py``), and keeps the
+        newest two steps.  Every rank calls it; returns the path on the
+        first rank, None on the others."""
+        whole = gather_state(st, self.mesh, to_first=True)
+        if whole is None:
+            return None
+        return checkpoint.save_state(
+            directory, dataclasses.replace(whole, iteration=step), step)
+
+    def restore_state(self, directory: str, like):
+        """The solver's restore: the first rank of the grid reads the
+        newest step in ``directory`` (the others never touch it, so hosts
+        need not share a filesystem), checks its shapes against the whole
+        shapes of ``like`` (this rank's block of the solve's state) and
+        sends every rank its block; returns (state, step) on every rank,
+        or None where nothing was saved.  A field whose shape is not the
+        whole solve's raises ValueError on every rank, before any
+        step."""
+        mesh, shapes = self.mesh, whole_shapes(like, self.mesh)
+        names = list(shapes)
+        first = mesh.coords == {"task": 0, "snp": 0}
+        # header: step (-1: none), iteration, the field that does not fit
+        # (-1: none), its saved ndim and shape (a state's fields have at
+        # most 3 dims)
+        head = torch.full((8,), -1, dtype=torch.int64)
+        payload = None
+        loaded = checkpoint.load_payload(directory) if first else None
+        if loaded is not None:
+            payload, step = loaded
+            head[:2] = torch.tensor([step, int(payload["iteration"])])
+            bad = [i for i, n in enumerate(names)
+                   if tuple(payload[n].shape) != shapes[n]]
+            if bad:
+                saved = payload[names[bad[0]]].shape[:4]
+                head[2:4] = torch.tensor([bad[0], len(saved)])
+                head[4:4 + len(saved)] = torch.tensor(saved)
+        head = from_first(head if first else None, (), (8,), torch.int64,
+                          mesh).tolist()
+        if head[0] < 0:
+            return None
+        if head[2] >= 0:
+            name = names[head[2]]
+            raise checkpoint.shape_error(directory, name,
+                                         head[4:4 + head[3]], shapes[name])
+        st = scatter_state(payload, like, mesh)
+        return dataclasses.replace(st, iteration=head[1]), head[0]
 
     # -- support primitives: exchange (B, S) lists, never (B, p) ------------
     def take_b(self, arr, gidx, gval):

@@ -12,7 +12,10 @@ A checkpoint is one file ``<directory>/step_<n>`` holding the state's
 fields as CPU tensors and its host ``iteration``; only the newest two are
 kept.  Each is written under a temporary name and then renamed over its
 final one (``os.replace``), so a kill during a save never leaves a corrupt
-newest step.  This port does not read the JAX package's orbax
+newest step.  A solve on a ``ShardedPackedOp`` writes the same file, of
+its whole state, from its first rank alone (``parallel/sharded_ops.py``),
+so a checkpoint resumes on one device or on any mesh whose padded shapes
+are the same.  This port does not read the JAX package's orbax
 checkpoints, nor does the JAX package read these.
 """
 
@@ -80,20 +83,40 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_state(directory: str, like, step: int | None = None):
-    """The state saved by :func:`save_state` at ``step`` (default the
-    newest) as the dataclass of ``like``, each tensor field cast to the
-    dtype, shape and device of ``like``'s; returns (state, step), or None
-    where nothing was saved."""
+def load_payload(directory: str, step: int | None = None):
+    """(the fields saved by :func:`save_state` at ``step`` (default the
+    newest) as written, step), or None where nothing was saved: what a
+    reader of the whole state needs that has no ``like`` of its shapes
+    (a sharded solve's first rank, ``ShardedPackedOp.restore_state``)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         return None
-    payload = torch.load(_path(directory, step), weights_only=True)
+    return torch.load(_path(directory, step), weights_only=True), step
+
+
+def shape_error(directory: str, name: str, saved, want) -> ValueError:
+    """The error of a saved field whose shape is not the solve's."""
+    return ValueError(f"checkpoint in {directory}: field {name!r} has shape "
+                      f"{tuple(saved)}, the solve's state {tuple(want)}")
+
+
+def restore_state(directory: str, like, step: int | None = None):
+    """The state saved by :func:`save_state` at ``step`` (default the
+    newest) as the dataclass of ``like``, each tensor field cast to the
+    dtype and device of ``like``'s; returns (state, step), or None where
+    nothing was saved.  A field whose shape is not ``like``'s raises
+    ValueError."""
+    loaded = load_payload(directory, step)
+    if loaded is None:
+        return None
+    payload, step = loaded
     fields = {}
     for f in dataclasses.fields(like):
         ref, v = getattr(like, f.name), payload[f.name]
         if isinstance(ref, torch.Tensor):
-            v = v.to(device=ref.device, dtype=ref.dtype).reshape(ref.shape)
+            if v.shape != ref.shape:
+                raise shape_error(directory, f.name, v.shape, ref.shape)
+            v = v.to(device=ref.device, dtype=ref.dtype)
         else:
             v = type(ref)(v)
         fields[f.name] = v

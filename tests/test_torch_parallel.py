@@ -33,9 +33,22 @@ JAX edge cases use 4 ranks where the JAX tests use 8 devices:
 The entry points ``fit_iht`` and ``cv_iht`` take the sharded operator
 (against the JAX package's public ones: support, beta rtol 1e-4, mse
 rtol 1e-4).  The ranks' results agree bit for bit.
+
+Checkpoints of the sharded cv (the ranks' ``_checkpoint_cases``, in
+directories under the test's tmp dir): within the port bit for bit (a
+second call on a finished run's directory, F6's problem; a cv stopped by
+max_iter = 5 and resumed against the uninterrupted one; the state a
+segmented solve held against its file and the sharded restore); across
+meshes and devices (a (2, 2) checkpoint resumed on (1, 4) and on one
+device, a single-device one on (2, 2)) mse within rtol 1e-4 and the same
+best k, as against the JAX package's cv stopped and resumed alike; a
+checkpoint of other shapes raises before any step; the progress and
+checkpoint lines count the whole grid.
 """
 
 import dataclasses
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,12 +69,16 @@ from mendeliht_tpu_torch.models.state import IHTState
 from mendeliht_tpu_torch.models.univariate import run_iht as trun_iht
 from mendeliht_tpu_torch.ops.linalg import PackedOp
 from mendeliht_tpu_torch.parallel import pad_geno_rows
+from mendeliht_tpu_torch.utils import checkpoint as ckpt
 
 from torch_multihost_worker import World
 
 MESHES = [(2, 2), (1, 4), (4, 1)]
 TAGS = [f"{a}x{b}" for a, b in MESHES]
 B = 4
+# the checkpointed cvs' budget (their 6 (fold, k) tasks all converge
+# within it)
+CK_MAX_ITER = 25
 # a fit that ends on a loglikelihood plateau, against the JAX package:
 # betas within this share of max|beta| (tests/test_torch_families.py)
 PLATEAU_SPREAD = 2e-3
@@ -180,7 +197,27 @@ def world(tmp_path_factory):
     for case, (_, st_np) in setups.items():
         inp.update({f"{case}/st0/{k}": v for k, v in st_np.items()})
 
+    # checkpoints: F6's problem, and the cv problem's under ck_dir
+    f6_codes, f6_y = _problem(5, 200, 512, 5)
+    inp.update({"f6/codes": f6_codes, "f6/y": f6_y,
+                "f6/folds": np.random.default_rng(5).integers(1, 3, size=200),
+                "ckpt/max_iter": CK_MAX_ITER})
+    ck_dir = tmp_path_factory.mktemp("parallel_ckpt")
+    inp["ckpt/dir"] = str(ck_dir)
+    ckw = dict(path=[2, 4, 6], q=2, folds=folds, verbose=False)
+    # the single-device checkpoint the ranks resume on the (2, 2) mesh
+    mt.cv_iht(y, mt.PackedGenotypes.from_codes(codes, device="cpu"),
+              checkpoint_dir=str(ck_dir / "from_single"), checkpoint_every=2,
+              max_iter=5, **ckw)
+
     w = World("parallel", 4, inp, tmp_path_factory.mktemp("parallel"))
+
+    jd = str(tmp_path_factory.mktemp("parallel_ckpt_jax"))
+    m.cv_iht(y, x, checkpoint_dir=jd, checkpoint_every=2, max_iter=5, **ckw)
+    ref["ckpt"] = dict(codes=codes, y=y, folds=folds, dir=ck_dir,
+                       jax_resumed=m.cv_iht(y, x, checkpoint_dir=jd,
+                                            checkpoint_every=2,
+                                            max_iter=CK_MAX_ITER, **ckw))
 
     # the oracles, while the ranks run: (ranks' initial state, solve)
     ref["iter"] = jiteration(op, data, cfg, st0)
@@ -379,6 +416,116 @@ def test_cv_iht_takes_sharded_operator(world):
     _close(res[0]["cv_entry/mse"], ref["cv"], 1e-4)
 
 
+# -- checkpoint and resume of the sharded cv ---------------------------------
+
+def _agree(got, want):
+    """mse within rtol 1e-4 of ``want`` and the same best k."""
+    _close(got, want, 1e-4)
+    assert np.argmin(got) == np.argmin(want)
+
+
+def test_sharded_cv_second_call_on_its_directory(world):
+    """F6's problem (n = 200, p = 512, 5 causal SNPs): a checkpointed cv
+    called again on its own directory (which holds the finished run's
+    last step) returns the same mse bit for bit, and both equal the run
+    without checkpoints (the ranks once resumed from another rank's SNP
+    columns and returned a wrong mse).  Held within the port: its task
+    (fold 2, k 2) stops at iteration 7 on one device and 8 on the meshes
+    (its convergence test at iteration 7 lies within f32 rounding of the
+    tolerance), which moves its mse 2.3e-4 from the JAX package's."""
+    out = world[0][0]
+    np.testing.assert_array_equal(out["f6/first"], out["f6/plain"])
+    np.testing.assert_array_equal(out["f6/second"], out["f6/first"])
+
+
+def test_sharded_cv_resumes_bit_for_bit(world):
+    """A cv stopped by max_iter = 5 (its last step 4) and called again
+    with the full budget resumes and equals the uninterrupted sharded cv
+    bit for bit, and the JAX package's cv stopped and resumed alike."""
+    out, ref = world[0][0], world[1]["ckpt"]
+    assert "resuming from checkpoint step 4" in str(out["ckpt/stdout"])
+    np.testing.assert_array_equal(out["ckpt/resumed"], out["ckpt/plain"])
+    _agree(out["ckpt/resumed"], ref["jax_resumed"])
+
+
+def test_sharded_checkpoint_is_one_whole_state_file(world):
+    """Each step is one file of the whole state (b (B, p_pad)), written by
+    rank 0 alone, the newest two kept; the single-device reader restores
+    it, equal bit for bit to the state the solve held whole, as the
+    sharded restore gives it back."""
+    res, ref = world[0], world[1]["ckpt"]
+    for name in ("twice", "stop", "state", "from_single"):
+        d = str(ref["dir"] / name)
+        names = sorted(os.listdir(d))
+        assert 1 <= len(names) <= 2
+        assert all(re.fullmatch(r"step_\d+", f)
+                   and os.path.isfile(os.path.join(d, f)) for f in names)
+    out = res[0]
+    held = {k.split("/", 1)[1]: v for k, v in out.items()
+            if k.startswith("ckpt_state/") and k != "ckpt_state/wrote"}
+    like = IHTState.from_numpy(dict(held, iteration=0), "cpu")
+    back, step = ckpt.restore_state(str(ref["dir"] / "state"), like)
+    assert step == back.iteration == 4 == int(out["ckpt_back/step"])
+    assert int(out["ckpt_back/iteration"]) == 4
+    assert back.b.shape == (6, 512)
+    for name, v in held.items():
+        np.testing.assert_array_equal(getattr(back, name).numpy(), v,
+                                      err_msg=name)
+        np.testing.assert_array_equal(out[f"ckpt_back/{name}"], v,
+                                      err_msg=name)
+    for r, o in enumerate(res):
+        assert len(o["ckpt_state/wrote"]) == 2
+        assert o["ckpt_state/wrote"].tolist() == [r == 0] * 2
+
+
+@pytest.mark.parametrize("where", ["1x4", "one_device", "from_one_device"])
+def test_checkpoint_resumes_on_another_grid(world, where, capsys):
+    """The (2, 2) mesh's checkpoint at step 4 resumes on the (1, 4) mesh
+    and on one CPU device (in this process), and a single-device
+    checkpoint resumes on the (2, 2) mesh (p = 512 pads to 512 on each):
+    the uninterrupted sharded cv's mse within rtol 1e-4, the same best
+    k."""
+    out, ref = world[0][0], world[1]["ckpt"]
+    if where == "one_device":
+        got = mt.cv_iht(ref["y"], mt.PackedGenotypes.from_codes(
+            ref["codes"], device="cpu"), path=[2, 4, 6], q=2,
+            folds=ref["folds"], max_iter=CK_MAX_ITER,
+            checkpoint_dir=str(ref["dir"] / "stop_single"),
+            checkpoint_every=2)
+        assert "resuming from checkpoint step 4" in capsys.readouterr().out
+    else:
+        got = out[{"1x4": "ckpt/resumed_1x4",
+                   "from_one_device": "ckpt/from_single"}[where]]
+    _agree(got, out["ckpt/plain"])
+
+
+def test_checkpoint_of_other_shapes_raises(world):
+    """A cv of 4 tasks on a directory of a 6-task cv raises ValueError on
+    every rank, naming both whole shapes, before any step (no step
+    saved)."""
+    for out in world[0]:
+        msg = str(out["ckpt/mismatch"])
+        assert "'b'" in msg and "(6, 512)" in msg and "(4, 512)" in msg
+        assert out["ckpt/mismatch_steps"].tolist() == [2, 4]
+
+
+def test_sharded_cv_progress_counts_whole_grid(world):
+    """Every rank's progress and checkpoint lines count the 6 tasks of
+    the whole grid (not its task row's 3), the same on every rank, down
+    to none still active."""
+    res = world[0]
+    lines = [str(o["ckpt/stderr"]).splitlines() for o in res]
+    assert lines[0] and all(ln == lines[0] for ln in lines)
+    for ln in lines[0]:
+        assert re.fullmatch(r"Cross-validating: iteration +\d+, \d/6 models "
+                            r"converged", ln), ln
+    assert lines[0][-1].endswith(" 6/6 models converged")
+    saves = [[ln for ln in str(o["ckpt/stdout"]).splitlines()
+              if ln.startswith("checkpoint at iteration")] for o in res]
+    assert saves[0] and all(s == saves[0] for s in saves)
+    assert saves[0][-1].endswith("; 0 tasks still active")
+
+
 def test_dryrun_multichip(world):
     """The dry run's twin on the 2 x 2 mesh: two univariate and two mv
     iterations, each loglikelihood the JAX package's single-device one."""
@@ -401,7 +548,8 @@ def test_ranks_agree(world):
     of a task row took every host-side branch alike."""
     res = world[0]
     for key, v in res[0].items():
-        if key == "mesh/coords":
+        # a rank's place, whether it wrote, the stdout with its walls
+        if key in ("mesh/coords", "ckpt_state/wrote", "ckpt/stdout"):
             continue
         for other in res[1:]:
             np.testing.assert_array_equal(other[key], v, err_msg=key)

@@ -24,10 +24,14 @@ sharded operator the JAX package's initial support, df within 1e-5 of
 max|df|.  The multivariate ``fit_iht`` through the sharded operator against
 the JAX package's public one: the same (trait, SNP) support, B and C within
 ``tests/test_torch_mv.py::MV_SPREAD`` (5e-4) of max|B|, logl within 1e-5
-relative, iterations within one.  The ranks' results agree bit for bit.
+relative, iterations within one.  The mv cv in two chunks of tasks,
+stopped by max_iter and resumed, equals the uninterrupted one bit for bit
+(a directory a chunk) and the JAX package's mv cv within rtol 1e-4.  The
+ranks' results agree bit for bit.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,7 +116,15 @@ def world(tmp_path_factory):
         test[i, :128] = folds == 1 + i // 2
     inp.update({"cv/ks": ks, "cv/train": train, "cv/test": test})
 
+    ck_folds = np.random.default_rng(97).integers(1, 3, size=128)
+    ck_dir = tmp_path_factory.mktemp("parallel_mv_ckpt")
+    inp.update({"ckpt/folds": ck_folds, "ckpt/dir": str(ck_dir)})
+
     w = World("parallel_mv", 4, inp, tmp_path_factory.mktemp("parallel_mv"))
+
+    ref["ckpt"] = dict(dir=ck_dir, jax=jmv.cv_mv_iht(
+        Y, m.PackedGenotypes.from_codes(codes), path=[2, 4, 6], q=2,
+        folds=ck_folds, max_iter=25, verbose=False))
 
     op, data, cfg, st0 = setups["main"][0]
     ref["iter"] = jmvs._iteration_mv_host(op, data, cfg, st0)
@@ -195,6 +207,23 @@ def test_mv_fit_iht_takes_sharded_operator(world):
     _close(out["fit_entry/c"], want.c, 0, MV_SPREAD * scale)
     _close(out["fit_entry/logl"], want.logl, 1e-5)
     assert abs(int(out["fit_entry/iter"]) - want.iter) <= 1
+
+
+def test_sharded_mv_cv_chunks_resume_bit_for_bit(world):
+    """The sharded mv cv in two chunks of tasks (4 and 2), stopped by
+    max_iter = 5 (each chunk's last step 4) and called again with the
+    full budget, equals the uninterrupted one bit for bit, one directory
+    a chunk (``chunk<lo>``, as on one device), each holding at most its
+    newest two steps; the JAX package's mv cv within rtol 1e-4."""
+    out, ref = world[0][0], world[1]["ckpt"]
+    assert out["ckpt/stopped_at"].tolist() == [4, 4]
+    np.testing.assert_array_equal(out["ckpt/resumed"], out["ckpt/plain"])
+    d = ref["dir"]
+    assert sorted(os.listdir(d)) == ["chunk0", "chunk4"]
+    for chunk in ("chunk0", "chunk4"):
+        assert 1 <= len(os.listdir(d / chunk)) <= 2
+    _close(out["ckpt/resumed"], ref["jax"], 1e-4)
+    assert np.argmin(out["ckpt/resumed"]) == np.argmin(ref["jax"])
 
 
 def test_ranks_agree(world):

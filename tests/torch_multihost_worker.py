@@ -210,9 +210,89 @@ def suite_parallel(inp, rank):
         y, shard_geno_op(PackedOp(x), mesh22), path=list(inp["cv/path"]),
         q=int(inp["cv/q"]), folds=inp["cv/folds"], verbose=False)
 
+    out.update(_checkpoint_cases(inp, rank, mesh22, mesh14))
+
     dry = dryrun_multichip(4, device="cpu")
     out["dryrun/logl"] = np.asarray(dry["logl"])
     out["dryrun/mv_logl"] = np.asarray(dry["mv_logl"])
+    return out
+
+
+def _checkpoint_cases(inp, rank, mesh22, mesh14):
+    """Checkpoint and resume of the sharded cv (``max_iter``
+    ``ckpt/max_iter``) in directories under ``ckpt/dir``: the ``f6/``
+    problem's cv called twice on one directory; on the cv problem
+    (``main/``, ``cv/``), a run stopped by ``max_iter`` = 5 and resumed
+    (rank 0 first copies its directory for the (1, 4) mesh and for the
+    test process), with the stdout and stderr of the resumed call; a grid
+    of other shapes on that directory; a run resumed from the test
+    process's single-device checkpoint; the state a segmented solve saved
+    and the state restored from it, whole."""
+    import contextlib
+    import io
+    import shutil
+
+    import mendeliht_tpu_torch as mt
+    from mendeliht_tpu_torch.models.cv import _task_masks
+    from mendeliht_tpu_torch.models.fit import build_fit
+    from mendeliht_tpu_torch.models.initialize import init_state
+    from mendeliht_tpu_torch.models.univariate import run_segmented
+    from mendeliht_tpu_torch.ops.linalg import PackedOp
+    from mendeliht_tpu_torch.parallel import shard_geno_op
+    from mendeliht_tpu_torch.utils.checkpoint import all_steps
+
+    root = str(inp["ckpt/dir"])
+    path = [int(k) for k in inp["cv/path"]]
+
+    def sub(name):
+        return os.path.join(root, name)
+
+    def cv(mesh, d=None, case="main", folds="cv", **extra):
+        kw = dict(path=path, q=int(inp["cv/q"]), folds=inp[f"{folds}/folds"],
+                  verbose=False, max_iter=int(inp["ckpt/max_iter"]))
+        return mt.cv_iht(inp[f"{case}/y"], shard_geno_op(PackedOp(_geno(
+            inp[f"{case}/codes"])), mesh), checkpoint_dir=d,
+            **dict(kw, **extra))
+
+    out = {}
+    for tag, d in (("plain", None), ("first", "twice"), ("second", "twice")):
+        out[f"f6/{tag}"] = cv(mesh22, d and sub(d), "f6", "f6",
+                              checkpoint_every=2)
+    out["ckpt/plain"] = cv(mesh22)
+    cv(mesh22, sub("stop"), checkpoint_every=2, max_iter=5)
+    if rank == 0:
+        for name in ("stop_1x4", "stop_single"):
+            shutil.copytree(sub("stop"), sub(name))
+    try:
+        cv(mesh22, sub("stop"), checkpoint_every=2, path=path[:2])
+        out["ckpt/mismatch"] = ""
+    except ValueError as e:
+        out["ckpt/mismatch"] = str(e)
+    out["ckpt/mismatch_steps"] = sorted(all_steps(sub("stop")))
+    err, log = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(log):
+        out["ckpt/resumed"] = cv(mesh22, sub("stop"), checkpoint_every=2,
+                                 verbose=True, show_progress=True)
+    out["ckpt/stderr"], out["ckpt/stdout"] = err.getvalue(), log.getvalue()
+    out["ckpt/resumed_1x4"] = cv(mesh14, sub("stop_1x4"), checkpoint_every=2)
+    out["ckpt/from_single"] = cv(mesh22, sub("from_single"),
+                                 checkpoint_every=2)
+
+    op, data, cfg, _ = build_fit(inp["main/y"], shard_geno_op(PackedOp(
+        _geno(inp["main/codes"])), mesh22), None, k=max(path), max_iter=5)
+    _, ks, train, _ = _task_masks(op, int(inp["cv/q"]), path,
+                                  inp["cv/folds"], None)
+    st0 = init_state(op, data, cfg, ks, train)
+    save, saved = op.save_state, []
+    op.save_state = lambda *a: saved.append(save(*a)) or saved[-1]
+    st = run_segmented(op, data, cfg, st0, checkpoint_dir=sub("state"),
+                       checkpoint_every=2)
+    out["ckpt_state/wrote"] = [p is not None for p in saved]
+    out.update({f"ckpt_state/{k}": v for k, v in _whole(st, mesh22).items()})
+    back, step = op.restore_state(sub("state"), st0)
+    out.update({f"ckpt_back/{k}": v
+                for k, v in _whole(back, mesh22).items()})
+    out["ckpt_back/step"], out["ckpt_back/iteration"] = step, back.iteration
     return out
 
 
@@ -238,11 +318,12 @@ def suite_parallel_mv(inp, rank):
 
     import mendeliht_tpu_torch as mt
     from mendeliht_tpu_torch.models.mv import (MIHTState, _iteration_mv,
-                                               build_mv, cv_mv)
+                                               build_mv, cv_mv, cv_mv_iht)
     from mendeliht_tpu_torch.ops.linalg import PackedOp
     from mendeliht_tpu_torch.parallel import (make_mesh, pad_geno_rows,
                                               shard_geno_op, shard_mv_data,
                                               shard_mv_state)
+    from mendeliht_tpu_torch.utils.checkpoint import latest_step
 
     out = {}
     x = _geno(inp["main/codes"])
@@ -264,6 +345,18 @@ def suite_parallel_mv(inp, rank):
     opr, datar, cfgr = build_mv(inp["ragged/Y"], shard_geno_op(
         PackedOp(xr), mesh14), k=int(inp["ragged/k"]), max_iter=20)
     out.update(_solve_mv(opr, datar, cfgr, mesh14, inp, "ragged"))
+
+    # a cv in two chunks (a directory each), stopped and resumed
+    kw = dict(path=[2, 4, 6], q=2, folds=inp["ckpt/folds"], verbose=False,
+              task_chunk=4, max_iter=25)
+    d = str(inp["ckpt/dir"])
+    out["ckpt/plain"] = cv_mv_iht(Y, op_s, **kw)
+    cv_mv_iht(Y, op_s, checkpoint_dir=d, checkpoint_every=2,
+              **dict(kw, max_iter=5))
+    out["ckpt/stopped_at"] = [latest_step(os.path.join(d, f"chunk{lo}"))
+                              for lo in (0, 4)]
+    out["ckpt/resumed"] = cv_mv_iht(Y, op_s, checkpoint_dir=d,
+                                    checkpoint_every=2, **kw)
 
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa
     out["cv/mse"] = cv_mv(op_s, data, cfg, torch.from_numpy(inp["cv/ks"]),
