@@ -24,6 +24,7 @@ from .initialize import init_state
 from .results import print_a_bunch_of_path_results, print_cv_results
 from .univariate import _all_tasks, cv_fused, run_iht
 from ..utils.device import float_dtype
+from ..utils.profiling import span
 
 
 def allocate_fold_and_k(q: int, path):
@@ -109,31 +110,36 @@ def cv_iht(y, x, z=None, d=None, l=None, path=None, q=5, est_r="none",
                          rng=rng, checkpoint_dir=checkpoint_dir,
                          checkpoint_every=checkpoint_every,
                          show_progress=show_progress)
-    dtype = float_dtype(dtype, "cv_iht")
-    d = d if d is not None else glm.Normal()
-    path = list(path) if path is not None else list(range(1, 21))
-    op, data, cfg, _ = build_fit(
-        y, x, z, k=max(path), d=d, l=l, group=group, weight=weight,
-        zkeep=zkeep, est_r=est_r, debias=debias, max_iter=max_iter,
-        min_iter=min_iter, dtype=dtype)
-    if max(path) > op.p:
-        raise ValueError("Sparsity level in `path` cannot be larger than "
-                         "total number of variables")
+    with span("iht.cv"):
+        dtype = float_dtype(dtype, "cv_iht")
+        d = d if d is not None else glm.Normal()
+        path = list(path) if path is not None else list(range(1, 21))
+        with span("iht.build"):
+            op, data, cfg, _ = build_fit(
+                y, x, z, k=max(path), d=d, l=l, group=group, weight=weight,
+                zkeep=zkeep, est_r=est_r, debias=debias, max_iter=max_iter,
+                min_iter=min_iter, dtype=dtype)
+        if max(path) > op.p:
+            raise ValueError("Sparsity level in `path` cannot be larger than "
+                             "total number of variables")
 
-    folds, ks, train, test = _task_masks(op, q, path, folds, rng)
+        with span("iht.masks"):
+            folds, ks, train, test = _task_masks(op, q, path, folds, rng)
 
-    t0 = _time.time()
-    mses = cv_fused(op, data, cfg, ks, train, test, init_beta=init_beta,
-                    checkpoint_dir=checkpoint_dir,
-                    checkpoint_every=checkpoint_every,
-                    progress=show_progress, verbose=verbose).cpu().numpy()
-    elapsed = _time.time() - t0
+        t0 = _time.time()
+        mses = cv_fused(op, data, cfg, ks, train, test, init_beta=init_beta,
+                        checkpoint_dir=checkpoint_dir,
+                        checkpoint_every=checkpoint_every,
+                        progress=show_progress, verbose=verbose)
+        with span("iht.fetch"):
+            mses = mses.cpu().numpy()
+            elapsed = _time.time() - t0
+            mse = meanloss(mses, q, folds)
 
-    mse = meanloss(mses, q, folds)
-    best_k = path[int(np.argmin(mse))]
-    if verbose:
-        print_cv_results(sys.stdout, mse, path, best_k)
-        print(f"Cross validation took {elapsed:.3f} seconds")
+        best_k = path[int(np.argmin(mse))]
+        if verbose:
+            print_cv_results(sys.stdout, mse, path, best_k)
+            print(f"Cross validation took {elapsed:.3f} seconds")
     return mse
 
 

@@ -19,6 +19,7 @@ from .results import IHTResult
 from .state import FitConfig, FitData
 from .univariate import finalize_iht, run_segmented, _sparse_extract
 from ..utils.device import float_dtype
+from ..utils.profiling import span
 
 
 def is_multivariate(y) -> bool:
@@ -177,11 +178,14 @@ def fit_fused_sparse(op, data: FitData, cfg: FitConfig, ks, cv_wts,
     """init + solve + finalize + pve of a batch of fits, and their sparse
     result pieces (``univariate._sparse_extract``); ``segments`` are
     ``univariate.run_segmented``'s checkpoint options."""
-    st = init_state(op, data, cfg, ks, cv_wts, init_beta=init_beta)
-    st = run_segmented(op, data, cfg, st, **segments)
-    st = finalize_iht(op, data, cfg, st)
-    sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)
-    return _sparse_extract(op, st, sigma_g)
+    with span("iht.init"):
+        st = init_state(op, data, cfg, ks, cv_wts, init_beta=init_beta)
+    with span("iht.solve"):
+        st = run_segmented(op, data, cfg, st, **segments)
+    with span("iht.finalize"):
+        st = finalize_iht(op, data, cfg, st)
+        sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)
+        return _sparse_extract(op, st, sigma_g)
 
 
 def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
@@ -233,55 +237,65 @@ def fit_iht(y, x, z=None, k=10, J=1, d=None, l=None, group=None,
                           init_beta=init_beta, debias=debias, dtype=dtype,
                           checkpoint_dir=checkpoint_dir,
                           checkpoint_every=checkpoint_every)
-    dtype = float_dtype(dtype, "fit_iht")
-    d = d if d is not None else glm.Normal()
-    if glm.dist_name(d) != "negativebinomial" and cfg_est_r_requested(est_r):
-        raise ValueError("Only negative binomial regression supports "
-                         "nuisance parameter estimation")
-    op, data, cfg, k_scalar = build_fit(
-        y, x, z, k=k, J=J, d=d, l=l, group=group, weight=weight, zkeep=zkeep,
-        est_r=est_r, debias=debias, tol=tol, max_iter=max_iter,
-        min_iter=min_iter, max_step=max_step, dtype=dtype)
-    if init_beta and cfg.dist != "normal":
-        raise ValueError("Initializing beta values only works for Gaussian "
-                         "phenotypes! Sorry!")
-    if verbose:
-        from ..utils.printing import print_iht_signature, print_parameters
-        print_iht_signature(io)
-        print_parameters(io, k, cfg.dist, cfg.link, use_maf, group, debias,
-                         tol, max_iter, min_iter, op.device)
-        # the per-iteration lines go to stdout, and to io when given
-        cfg = dataclasses.replace(cfg, log_iters=True, log_io=io)
+    with span("iht.fit"):
+        dtype = float_dtype(dtype, "fit_iht")
+        d = d if d is not None else glm.Normal()
+        if (glm.dist_name(d) != "negativebinomial"
+                and cfg_est_r_requested(est_r)):
+            raise ValueError("Only negative binomial regression supports "
+                             "nuisance parameter estimation")
+        with span("iht.build"):
+            op, data, cfg, k_scalar = build_fit(
+                y, x, z, k=k, J=J, d=d, l=l, group=group, weight=weight,
+                zkeep=zkeep, est_r=est_r, debias=debias, tol=tol,
+                max_iter=max_iter, min_iter=min_iter, max_step=max_step,
+                dtype=dtype)
+        if init_beta and cfg.dist != "normal":
+            raise ValueError("Initializing beta values only works for "
+                             "Gaussian phenotypes! Sorry!")
+        if verbose:
+            from ..utils.printing import (print_iht_signature,
+                                          print_parameters)
+            print_iht_signature(io)
+            print_parameters(io, k, cfg.dist, cfg.link, use_maf, group,
+                             debias, tol, max_iter, min_iter, op.device)
+            # the per-iteration lines go to stdout, and to io when given
+            cfg = dataclasses.replace(cfg, log_iters=True, log_io=io)
 
-    t0 = _time.time()
-    # the per-task k is the reference's v.k: the per-group cap with a
-    # scalar k and groups, the total sparsity otherwise (utilities.jl:255)
-    if cfg.group_k_is_vector:
-        k_task = 0
-    elif cfg.use_group:
-        k_task = int(k)
-    else:
-        k_task = k_scalar
-    parts = fit_fused_sparse(op, data, cfg, [k_task],
-                             data.sample_mask[None, :], init_beta=init_beta,
-                             **streamed_segments(op, checkpoint_dir,
-                                                 checkpoint_every, verbose))
-    # one host fetch, sparse: ~S floats instead of the dense (p,) beta
-    (sel_idx, sel_valid, sel_bc, c, logl, iters, failed, sg) = (
-        t[0].cpu().numpy() for t in parts)
-    b = np.zeros(op.p, sel_bc.dtype)
-    is_g = sel_valid & (sel_idx < op.p)
-    b[sel_idx[is_g]] = sel_bc[is_g]
-    tot_time = _time.time() - t0
+        t0 = _time.time()
+        # the per-task k is the reference's v.k: the per-group cap with a
+        # scalar k and groups, the total sparsity otherwise
+        # (utilities.jl:255)
+        if cfg.group_k_is_vector:
+            k_task = 0
+        elif cfg.use_group:
+            k_task = int(k)
+        else:
+            k_task = k_scalar
+        parts = fit_fused_sparse(
+            op, data, cfg, [k_task], data.sample_mask[None, :],
+            init_beta=init_beta,
+            **streamed_segments(op, checkpoint_dir, checkpoint_every,
+                                verbose))
+        # one host fetch, sparse: ~S floats instead of the dense (p,) beta
+        with span("iht.fetch"):
+            (sel_idx, sel_valid, sel_bc, c, logl, iters, failed, sg) = (
+                t[0].cpu().numpy() for t in parts)
+            b = np.zeros(op.p, sel_bc.dtype)
+            is_g = sel_valid & (sel_idx < op.p)
+            b[sel_idx[is_g]] = sel_bc[is_g]
+        tot_time = _time.time() - t0
 
-    if bool(failed):
-        raise FloatingPointError("Loglikelihood function is NaN/Inf, aborting...")
-    result = IHTResult(
-        time=tot_time, logl=float(logl), iter=int(iters), beta=b, c=c, J=J,
-        k=(list(np.asarray(k)) if cfg.group_k_is_vector else int(k)),
-        group=(np.asarray(group) if group is not None else np.array([], int)),
-        d=d, sigma_g=float(sg))
-    if verbose:
-        print(result)
+        if bool(failed):
+            raise FloatingPointError(
+                "Loglikelihood function is NaN/Inf, aborting...")
+        result = IHTResult(
+            time=tot_time, logl=float(logl), iter=int(iters), beta=b, c=c,
+            J=J, k=(list(np.asarray(k)) if cfg.group_k_is_vector else int(k)),
+            group=(np.asarray(group) if group is not None
+                   else np.array([], int)),
+            d=d, sigma_g=float(sg))
+        if verbose:
+            print(result)
     return result
 

@@ -8,7 +8,11 @@ so the iteration and its bounded backtracking line search run on the host,
 as in the JAX package's ``models/streamed.py``: one
 ``need.any()`` read per backtrack check and one ``active.any()`` read per
 iteration.  Tasks ride a leading batch axis B with masked updates; the
-support is a fixed-size list of S slots.
+support is a fixed-size list of S slots.  The loop's named spans
+(``utils/profiling.py::span``: ``iht.solve``, ``iht.iteration``,
+``iht.backtrack``, ``iht.sync``, ``iht.stepsize``, ``iht.project``,
+``iht.forward``, ``iht.score``, ``iht.finalize``) show in a profiler's
+trace and cost nothing without one.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ..ops import glm, negbin
 from ..ops.projections import (project_group_sparse_batched,
                                project_group_sparse_per_task,
                                project_topk_joint, put_slots, select_support)
+from ..utils.profiling import span
 from .state import IHTState, FitConfig, FitData
 
 _INF_STEP_GUARD = 1e-8
@@ -140,14 +145,21 @@ def _restore_state(op, directory, like):
     return checkpoint.restore_state(directory, like)
 
 
+def _any(mask) -> bool:
+    """``mask.any()`` read on the host: a wait for the card."""
+    with span("iht.sync"):
+        return bool(mask.any())
+
+
 def _progress(op, st):
     """(tasks, active tasks, iteration) of the whole solve: this
     operator's task rows' counts summed over every task row, and their
     largest iteration (a row whose tasks all converged stops advancing;
     the rows still active are all at it)."""
-    row = torch.tensor([[st.active.shape[0], int(st.active.sum()),
-                         st.iteration]], device=st.active.device)
-    rows = _all_tasks(op, row).cpu()
+    with span("iht.sync"):
+        row = torch.tensor([[st.active.shape[0], int(st.active.sum()),
+                             st.iteration]], device=st.active.device)
+        rows = _all_tasks(op, row).cpu()
     return (int(rows[:, 0].sum()), int(rows[:, 1].sum()),
             int(rows[:, 2].max()))
 
@@ -161,7 +173,8 @@ def _stepsize(op, data: FitData, cfg: FitConfig, st: IHTState):
     df2_supp = torch.where(st.idc, st.df2, torch.zeros_like(st.df2))
     numer = numer + (df2_supp * df2_supp).sum(dim=1)
 
-    xgk = op.forward_sel(gidx, df_sel, gval.to(df_sel.dtype))
+    with span("iht.forward"):
+        xgk = op.forward_sel(gidx, df_sel, gval.to(df_sel.dtype))
     xgk = xgk + df2_supp @ data.z.T
     me = glm.mueta(cfg.link, st.xb + st.zc)
     gv = torch.clamp(glm.glmvar(cfg.dist, st.mu, nb_r=st.nb_r[:, None]),
@@ -182,14 +195,16 @@ def _gradstep(op, data: FitData, cfg: FitConfig, st: IHTState, eta):
         # the group path projects the genetic coefficients alone
         # (reference src/utilities.jl:267-269); a scalar per-group k is the
         # task's own st.k, which cv varies per (fold, k) combo
-        b_new = _proj_group(op, cfg, b1, data.group, data.group_ks,
-                            None if cfg.group_k_is_vector else st.k)
-        sel_idx, sel_valid = _sel_support(op, b_new, torch.zeros_like(c1),
-                                          data.zkeep, cfg.S)
+        with span("iht.project"):
+            b_new = _proj_group(op, cfg, b1, data.group, data.group_ks,
+                                None if cfg.group_k_is_vector else st.k)
+            sel_idx, sel_valid = _sel_support(
+                op, b_new, torch.zeros_like(c1), data.zkeep, cfg.S)
         return b_new, c1, sel_idx, sel_valid, c1 != 0
-    b_new, c_new, sel_idx, _, sel_valid = _proj_joint(
-        op, b1, c1, st.k + cfg.zkeepn, data.zkeep, cfg.S,
-        weight=data.weight if cfg.has_weight else None)
+    with span("iht.project"):
+        b_new, c_new, sel_idx, _, sel_valid = _proj_joint(
+            op, b1, c1, st.k + cfg.zkeepn, data.zkeep, cfg.S,
+            weight=data.weight if cfg.has_weight else None)
     return b_new, c_new, sel_idx, sel_valid, c_new != 0
 
 
@@ -198,7 +213,8 @@ def _forward(op, data: FitData, cfg: FitConfig, b, c, sel_idx, sel_valid):
     family but the normal (reference src/utilities.jl:93-118)."""
     gidx, gval = _split_sel(sel_idx, sel_valid, op.p)
     bcoef = _take_b(op, b, gidx, gval)
-    xb = op.forward_sel(gidx, bcoef, gval.to(b.dtype))
+    with span("iht.forward"):
+        xb = op.forward_sel(gidx, bcoef, gval.to(b.dtype))
     zc = c @ data.z.T
     if cfg.dist != "normal":
         xb = torch.clamp(xb, -20.0, 20.0)
@@ -216,7 +232,9 @@ def _score(op, data: FitData, cfg: FitConfig, st: IHTState):
     src/utilities.jl:126-135)."""
     r = glm.score_residual(cfg.dist, cfg.link, data.y[None, :], st.mu,
                            st.xb + st.zc, st.cv_wts, nb_r=st.nb_r[:, None])
-    return op.xtr(r), r @ data.z
+    with span("iht.score"):
+        df = op.xtr(r)
+    return df, r @ data.z
 
 
 def _maybe_update_r(data: FitData, cfg: FitConfig, mu, nb_r, cv_wts):
@@ -260,18 +278,20 @@ def _iteration(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
     convergence."""
     act = st.active
     st = _save_prev(st)
-    eta = _stepsize(op, data, cfg, st)
+    with span("iht.stepsize"):
+        eta = _stepsize(op, data, cfg, st)
     old_logl = st.logl
     cur = _take_step(op, data, cfg, st, eta)
     n_bt = torch.zeros_like(eta, dtype=torch.int64)
     while True:
         need = _bt_need(act, old_logl, cur, n_bt, cfg.max_step)
-        if not bool(need.any()):
+        if not _any(need):
             break
-        eta = torch.where(need, eta / 2, eta)
-        nxt = _take_step(op, data, cfg, st, eta)
-        cur = {k: _where_b(need, nxt[k], cur[k]) for k in cur}
-        n_bt = n_bt + need.to(torch.int64)
+        with span("iht.backtrack"):
+            eta = torch.where(need, eta / 2, eta)
+            nxt = _take_step(op, data, cfg, st, eta)
+            cur = {k: _where_b(need, nxt[k], cur[k]) for k in cur}
+            n_bt = n_bt + need.to(torch.int64)
     return _post_step(op, data, cfg, st, cur, eta, n_bt)
 
 
@@ -336,8 +356,9 @@ def run_segment(op, data: FitData, cfg: FitConfig, st: IHTState,
     max_iter - 1 steps have run (the reference's ``for iter in 1:max_iter``
     breaks before stepping at iter == max_iter).  Resumable."""
     limit = min(int(stop), cfg.max_iter - 1)
-    while st.iteration < limit and bool(st.active.any()):
-        st = _iteration(op, data, cfg, st)
+    while st.iteration < limit and _any(st.active):
+        with span("iht.iteration"):
+            st = _iteration(op, data, cfg, st)
     return st
 
 
@@ -352,7 +373,9 @@ def finalize_iht(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
     best_b = _where_b(improved, st.b, st.best_b)
     best_c = _where_b(improved, st.c, st.best_c)
     best_logl = torch.where(improved, st.logl, st.best_logl)
-    sel_idx, sel_valid = _sel_support(op, best_b, best_c, data.zkeep, cfg.S)
+    with span("iht.project"):
+        sel_idx, sel_valid = _sel_support(op, best_b, best_c, data.zkeep,
+                                          cfg.S)
     xb, zc = _forward(op, data, cfg, best_b, best_c, sel_idx, sel_valid)
     mu = glm.linkinv(cfg.link, xb)     # genotype-only mean, used by pve
     return dataclasses.replace(
@@ -425,8 +448,10 @@ def run_iht(op, data: FitData, cfg: FitConfig, st: IHTState,
     """Full solve: loop to completion (:func:`run_segmented`, with its
     checkpoint and progress ``segments`` options), then restore the best
     model."""
-    st = run_segmented(op, data, cfg, st, **segments)
-    return finalize_iht(op, data, cfg, st)
+    with span("iht.solve"):
+        st = run_segmented(op, data, cfg, st, **segments)
+    with span("iht.finalize"):
+        return finalize_iht(op, data, cfg, st)
 
 
 def predict_deviance(op, data: FitData, cfg: FitConfig, st: IHTState,
@@ -446,10 +471,12 @@ def cv_fused(op, data: FitData, cfg: FitConfig, ks, train_wts, test_wts,
     :func:`run_segmented`'s checkpoint and progress options."""
     from .initialize import init_state
 
-    st = init_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
+    with span("iht.init"):
+        st = init_state(op, data, cfg, ks, train_wts, init_beta=init_beta)
     st = run_iht(op, data, cfg, st, **segments)
-    (test_wts,) = _local_tasks(op, test_wts)
-    return _all_tasks(op, predict_deviance(op, data, cfg, st, test_wts))
+    with span("iht.finalize"):
+        (test_wts,) = _local_tasks(op, test_wts)
+        return _all_tasks(op, predict_deviance(op, data, cfg, st, test_wts))
 
 
 def _sparse_extract(op, st: IHTState, sigma_g):

@@ -1,5 +1,5 @@
 """Read ceiling and roofline of the score kernels on a CUDA card (the JAX
-package's ``utils/profiling.py``).
+package's ``utils/profiling.py``), and the solver's named spans.
 
 - :func:`stream_bandwidth_kernel` — the card's measured read ceiling: the
   read-bandwidth probe kernel (``csrc/read_probe.cu``) over the packed words.
@@ -10,12 +10,30 @@ package's ``utils/profiling.py``).
   ceiling.
 - :func:`trace` — where a call's time goes on the card: wall time, device
   busy time and idle share, launches and host syncs, the heaviest kernels.
-- :func:`fit_report` — a fit's wall time by phase (build, init, solve,
-  finalize) and its iterations.
+- :func:`span` — a named range of the program (``iht.fit``, ``iht.solve``,
+  ``iht.iteration``, ``iht.sync``, ...) in the profiler's trace while a
+  ``torch.profiler`` records, and nothing otherwise.
 
 Each device measurement uses CUDA events or the profiler and raises where
-there is no card: a CPU run gives no device number.  ``fit_report`` times on
-the host clock, after a synchronize on a card, on any device.
+there is no card: a CPU run gives no device number.
+
+**The spans.** ``fit_iht`` and ``cv_iht`` (``models/fit.py``,
+``models/cv.py``, ``models/univariate.py``) open a span at each layer
+boundary: the call (``iht.fit`` / ``iht.cv``); its host prep
+(``iht.build``, ``iht.masks``), ``iht.init``, the host-stepped loop
+(``iht.solve``) and in it each ``iht.iteration``, each wasted backtracking
+step (``iht.backtrack``) and each host read that waits for the card
+(``iht.sync``); the solver's ``iht.stepsize``, ``iht.project`` (top-k),
+``iht.forward`` (the k-sparse products) and ``iht.score``; and
+``iht.finalize`` and ``iht.fetch`` (the result crossing to the host).
+The count of a span in a trace is its counter: iterations, backtracks,
+host syncs.  Under ``with trace(logdir=...)`` around a call, the written
+``trace.json`` shows the spans above the kernels on one timeline.  With no
+profiler recording a span is one check and a shared empty context: it
+costs well under a microsecond and adds no launch and no sync.  These
+spans replace ``fit_report``, which re-ran a fit's phases with a
+synchronize between each: ``iht.build`` / ``iht.init`` / ``iht.solve`` /
+``iht.finalize`` give the same phases inside a real call.
 """
 
 from __future__ import annotations
@@ -177,6 +195,18 @@ def trace(logdir: str | None = None, top: int = 8):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks its body as the range ``name`` in the trace of
+    a recording ``torch.profiler`` (``torch.profiler.record_function``),
+    and a shared empty context when no profiler records."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 def _union_us(spans) -> float:
     """Total length of the union of (start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -199,13 +229,19 @@ def summarize(events, wall_s: float, top: int = 8) -> dict:
       ``cudaLaunchKernel`` calls and their host ms, ``syncs``: host stream
       or device synchronizations and the ms they waited;
     - ``kernels``: the ``top`` device activities by total ms, each
-      ``(name, ms, count)``."""
+      ``(name, ms, count)``.
+
+    The device-side mark of a named range (a :func:`span`'s, which runs
+    from the range's first kernel to its last) is a user annotation, not
+    device activity, and counts nowhere."""
     cuda = torch.autograd.DeviceType.CUDA
     spans, by_name = [], collections.defaultdict(lambda: [0.0, 0])
     launches, launch_us, syncs, sync_us = 0, 0.0, 0, 0.0
     for e in events:
         s, t = e.time_range.start, e.time_range.end
         if e.device_type == cuda:
+            if getattr(e, "is_user_annotation", False):
+                continue
             spans.append((s, t))
             by_name[e.name][0] += t - s
             by_name[e.name][1] += 1
@@ -228,41 +264,3 @@ def summarize(events, wall_s: float, top: int = 8) -> dict:
         "sync_wait_ms": sync_us / 1e3,
         "kernels": [(name, us / 1e3, cnt) for name, (us, cnt) in heavy],
     }
-
-
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def fit_report(y, x, z=None, **kwargs):
-    """Run ``fit_iht``'s phases with a host wall-clock time for each, after
-    a device synchronize (the JAX package's ``fit_report``).
-
-    Returns ({"build", "init", "solve", "finalize": seconds, "iterations",
-    "ms_per_iteration"}, the final solver state); ``kwargs`` go to
-    ``build_fit`` (k, d, l, tol, max_iter, min_iter, max_step)."""
-    from ..models.fit import build_fit
-    from ..models.initialize import init_state
-    from ..models.univariate import finalize_iht, run_segment
-
-    t = {}
-    t0 = time.perf_counter()
-    op, data, cfg, k = build_fit(y, x, z, **kwargs)
-    _sync(op.device)
-    t["build"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    st = init_state(op, data, cfg, [k], data.sample_mask[None, :])
-    _sync(op.device)
-    t["init"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    st = run_segment(op, data, cfg, st, cfg.max_iter - 1)
-    _sync(op.device)
-    t["solve"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    st = finalize_iht(op, data, cfg, st)
-    _sync(op.device)
-    t["finalize"] = time.perf_counter() - t0
-    t["iterations"] = int(st.iteration)
-    t["ms_per_iteration"] = t["solve"] / max(st.iteration, 1) * 1e3
-    return t, st

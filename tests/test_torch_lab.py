@@ -620,14 +620,19 @@ def test_lab_main_writes_nothing_when_cpu_timing_raises(tmp_path,
 
 
 def test_fit_report_phases_and_iterations(small_sim):
+    """The JAX package's ``fit_report`` phases and iterations against the
+    port's spans in a profiled ``fit_iht`` (which replace its
+    ``fit_report``)."""
+    from torch.profiler import ProfilerActivity, profile
     x, y, _, _ = small_sim
     jt, _ = jprofiling.fit_report(y, x, k=5)
     g = mt.PackedGenotypes.from_numpy(
         np.asarray(x.words), np.asarray(x.mu), np.asarray(x.inv_sd), n=x.n,
         p=x.p, has_missing=x.has_missing, device="cpu")
-    t, st = profiling.fit_report(y, g, k=5)
-    assert set(t) == set(jt)
-    assert all(t[k] >= 0 for k in ("build", "init", "solve", "finalize"))
-    res = mt.fit_iht(y, g, k=5, verbose=False)
-    assert t["iterations"] == res.iter == jt["iterations"]
-    assert int(st.iters[0]) == res.iter
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = mt.fit_iht(y, g, k=5, verbose=False)
+    spans = [e.name for e in prof.events() if e.name.startswith("iht.")]
+    phases = ("build", "init", "solve", "finalize")
+    assert set(phases) < set(jt)
+    assert all(spans.count(f"iht.{k}") == 1 for k in phases)
+    assert spans.count("iht.iteration") == res.iter == jt["iterations"]

@@ -64,6 +64,21 @@ def test_summarize_counts_device_time_launches_and_syncs():
     assert s["kernels"] == [("score", pytest.approx(0.03), 2)]
 
 
+def test_summarize_leaves_out_range_marks():
+    """A named range's device-side mark (a user annotation on the CUDA
+    timeline, from the range's first kernel to its last) is no device
+    activity: it counts in no busy time, op count or kernel list."""
+    score = _event("score", 10, 20)
+    events = [score, _event("iht.solve", 0, 50), _event("iht.sync", 30, 45)]
+    for e in events:
+        e.is_user_annotation = e is not score
+    s = profiling.summarize(events, wall_s=50e-6)
+    assert s["device_busy_ms"] == pytest.approx(0.01)
+    assert s["idle_share"] == pytest.approx(0.8)
+    assert s["device_ops"] == 1
+    assert s["kernels"] == [("score", pytest.approx(0.01), 1)]
+
+
 def test_trace_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
