@@ -228,6 +228,10 @@ class PackedGenotypes:
     # (n4/4, 4*p4) of ops/kernels.build_words_t, built by with_dual_layout;
     # never used for gathers
     words_t: torch.Tensor | None = None
+    # the single-task fit's iteration captured as CUDA graphs over these
+    # genotypes (models/replay.py::Loop), set on the instance by the first
+    # replayed fit: a class attribute, not a field, so never copied
+    replay_loop = None
 
     @property
     def shape(self):

@@ -13,6 +13,7 @@ import torch
 from ..ops import glm
 from ..ops.linalg import make_operator
 from ..ops.streaming import StreamedPackedOp
+from . import replay
 from .initialize import init_state
 from .pve import pve as _pve
 from .results import IHTResult
@@ -177,11 +178,16 @@ def fit_fused_sparse(op, data: FitData, cfg: FitConfig, ks, cv_wts,
                      init_beta: bool = False, **segments):
     """init + solve + finalize + pve of a batch of fits, and their sparse
     result pieces (``univariate._sparse_extract``); ``segments`` are
-    ``univariate.run_segmented``'s checkpoint options."""
+    ``univariate.run_segmented``'s checkpoint options.  A single task on
+    the card replays its iterations from CUDA graphs where
+    ``replay.engaged`` says so."""
     with span("iht.init"):
         st = init_state(op, data, cfg, ks, cv_wts, init_beta=init_beta)
     with span("iht.solve"):
-        st = run_segmented(op, data, cfg, st, **segments)
+        if replay.engaged(op, cfg, st.active.shape[0], segments):
+            st = replay.solve(op, data, cfg, st)
+        else:
+            st = run_segmented(op, data, cfg, st, **segments)
     with span("iht.finalize"):
         st = finalize_iht(op, data, cfg, st)
         sigma_g = _pve(data.y, st.mu, data.sample_mask, data.n_true)

@@ -273,32 +273,51 @@ def _bt_need(act, old_logl, cur, n_bt, max_step):
     return act & (old_logl > cur["logl"]) & (n_bt < max_step)
 
 
-def _iteration(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
-    """One IHT iteration: save_prev, stepsize, step, backtracking, score,
-    convergence."""
-    act = st.active
+def _step(op, data: FitData, cfg: FitConfig, st: IHTState):
+    """An iteration up to its first backtracking test: save_prev,
+    stepsize, the first step; returns (the saved state, eta, the step,
+    the backtracks so far, which tasks backtrack)."""
     st = _save_prev(st)
     with span("iht.stepsize"):
         eta = _stepsize(op, data, cfg, st)
-    old_logl = st.logl
     cur = _take_step(op, data, cfg, st, eta)
     n_bt = torch.zeros_like(eta, dtype=torch.int64)
-    while True:
-        need = _bt_need(act, old_logl, cur, n_bt, cfg.max_step)
-        if not _any(need):
-            break
+    return st, eta, cur, n_bt, _bt_need(st.active, st.logl, cur, n_bt,
+                                        cfg.max_step)
+
+
+def _backtrack(op, data: FitData, cfg: FitConfig, st: IHTState, eta, cur,
+               n_bt, need):
+    """One backtracking step of the tasks in ``need`` at half their eta;
+    returns (eta, the step, the backtracks, which tasks backtrack
+    next)."""
+    eta = torch.where(need, eta / 2, eta)
+    nxt = _take_step(op, data, cfg, st, eta)
+    cur = {k: _where_b(need, nxt[k], cur[k]) for k in cur}
+    n_bt = n_bt + need.to(torch.int64)
+    return eta, cur, n_bt, _bt_need(st.active, st.logl, cur, n_bt,
+                                    cfg.max_step)
+
+
+def _iteration(op, data: FitData, cfg: FitConfig, st: IHTState) -> IHTState:
+    """One IHT iteration: save_prev, stepsize, step, backtracking, score,
+    convergence (``models/replay.py`` replays the same three pieces,
+    :func:`_step`, :func:`_backtrack` and :func:`_post_step`, as CUDA
+    graphs)."""
+    st, eta, cur, n_bt, need = _step(op, data, cfg, st)
+    while _any(need):
         with span("iht.backtrack"):
-            eta = torch.where(need, eta / 2, eta)
-            nxt = _take_step(op, data, cfg, st, eta)
-            cur = {k: _where_b(need, nxt[k], cur[k]) for k in cur}
-            n_bt = n_bt + need.to(torch.int64)
+            eta, cur, n_bt, need = _backtrack(op, data, cfg, st, eta, cur,
+                                              n_bt, need)
     return _post_step(op, data, cfg, st, cur, eta, n_bt)
 
 
 def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
-               n_bt) -> IHTState:
+               n_bt, it=None) -> IHTState:
     """Accept the line-search result: score, NaN guard, debias,
-    convergence."""
+    convergence.  ``it``, the 1-based iteration just completed, is
+    ``st.iteration + 1`` (a host int) unless given as a 0-d tensor on the
+    card (a replayed graph bakes in no host value)."""
     act = st.active
     new = dataclasses.replace(
         st, **{k: _where_b(act, cur[k], getattr(st, k)) for k in cur},
@@ -315,7 +334,8 @@ def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
 
     # debias from the 5th iteration on, where the support did not change
     # (reference src/fit.jl:188, utilities.jl:1014-1020)
-    if cfg.debias and new.iteration + 1 >= 5:
+    it_host = new.iteration + 1
+    if cfg.debias and it_host >= 5:
         from .debias import debias_refit
         supp_same = _snp_reduce(
             op, ((new.b != 0) != (new.b0 != 0)).sum(dim=1), "sum") == 0
@@ -323,16 +343,18 @@ def _post_step(op, data: FitData, cfg: FitConfig, st: IHTState, cur, eta,
             act & supp_same, debias_refit(op, data, cfg, new), new.b))
 
     # convergence (reference src/utilities.jl:953-957, fit.jl:193-203)
-    it = new.iteration + 1             # 1-based iteration just completed
+    it = it_host if it is None else it
     scaled = _scaled_change(op, new)
     done = act & (((it >= cfg.min_iter) & (scaled < cfg.tol)) | bad)
     new = dataclasses.replace(
         new, active=act & ~done, failed=new.failed | bad,
-        iters=torch.where(done, torch.full_like(new.iters, it), new.iters),
-        iteration=it)
+        iters=torch.where(done, it if torch.is_tensor(it)
+                          else torch.full_like(new.iters, it), new.iters),
+        iteration=it_host)
     if cfg.log_iters:
         # task 0's line (reference fit.jl:194-196)
-        line = (f"Iteration {it}: loglikelihood = {float(new.logl[0])}, "
+        line = (f"Iteration {it_host}: loglikelihood = "
+                f"{float(new.logl[0])}, "
                 f"backtracks = {int(new.backtracks[0])}, "
                 f"tol = {float(scaled[0])}")
         if cfg.log_io is not None:

@@ -484,6 +484,15 @@ def _digit_source_t(m: int, ng: int, split: bool, passes: int, device):
     return src.to(device)
 
 
+def score_row_map(m: int, planes: int, f64: bool, device) -> torch.Tensor:
+    """The cached device tensor that a card score of an RHS m wide with
+    ``planes`` output planes (float64 where ``f64``) reads besides the
+    words and its RHS: the digit-row map of ``_digit_source_t``.  A
+    caller that records the score in a CUDA graph keys on its address."""
+    m = 3 * m if f64 else m
+    return _digit_source_t(m, *score_plan_t(m, planes), device)
+
+
 def _digit_rows_t(planes: torch.Tensor, nw: int, ng: int, split: bool,
                   passes: int) -> torch.Tensor:
     """(3m, 16*nw) digit planes [hi|mid|lo] -> (passes*rows, 4, k4) int8 in

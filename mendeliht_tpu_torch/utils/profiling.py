@@ -25,7 +25,10 @@ boundary: the call (``iht.fit`` / ``iht.cv``); its host prep
 step (``iht.backtrack``) and each host read that waits for the card
 (``iht.sync``); the solver's ``iht.stepsize``, ``iht.project`` (top-k),
 ``iht.forward`` (the k-sparse products) and ``iht.score``; and
-``iht.finalize`` and ``iht.fetch`` (the result crossing to the host).
+``iht.finalize`` and ``iht.fetch`` (the result crossing to the host);
+where a single-task fit replays its iterations from CUDA graphs
+(``models/replay.py``), ``iht.capture`` around their capture and
+``iht.replay`` around each replay, inside ``iht.iteration``.
 The count of a span in a trace is its counter: iterations, backtracks,
 host syncs.  Under ``with trace(logdir=...)`` around a call, the written
 ``trace.json`` shows the spans above the kernels on one timeline.  With no
