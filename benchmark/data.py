@@ -18,6 +18,13 @@ per-SNP counts taken on the card.  The phenotypes are drawn by the model
 of the configuration's family, ``phenotypes/<family>.py``, from the
 linear predictor X beta + intercept, whose X beta is the benchmark's own
 decode of the causal columns (``reference/decode.py``), never the port's.
+
+A cell sharded over the SNP axis of a mesh (``make_shard_problem``) makes
+on each rank only its own SNP rows, a block of ``BLOCK_ROWS`` quad rows at
+a time, each block from a generator seeded by the seed and the block's
+number alone: the whole matrix is the same at any number of shards (but
+not the matrix ``make_words`` makes, whose generator runs through the
+rows in one sequence).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ CHUNK_WORDS = 1 << 28      # int32 words made at a time (1 GiB)
 _LO = 0x55555555           # the low bit of every crumb
 _PAIRS = 0x33333333
 _NIBBLES = 0x0F0F0F0F
+BLOCK_ROWS = 2500          # quad rows of one seeded block of a shard
 
 
 def padded_n4(n: int) -> int:
@@ -82,9 +90,7 @@ def make_words(n: int, p: int, gen: torch.Generator, device,
     """(words (ceil(p/4), n4) int32 on ``device``, value sums (p,) int64,
     missing calls (p,) int64, both on the host): uniform codes, 01 recoded
     to 00 where ``missing`` is 0 and kept where it is 0.25; padding 00."""
-    if missing not in MISSING_SHARES:
-        raise ValueError(f"missing_calls {missing!r}: the harness makes "
-                         f"only the shares {MISSING_SHARES}")
+    _check_share(missing)
     n4, p4 = padded_n4(n), -(-p // 4)
     words = torch.empty((p4, n4), dtype=torch.int32, device=device)
     sums = torch.empty((4 * p4,), dtype=torch.int64, device=device)
@@ -93,12 +99,7 @@ def make_words(n: int, p: int, gen: torch.Generator, device,
     rows = max(1, CHUNK_WORDS // n4)
     for lo in range(0, p4, rows):
         hi = min(lo + rows, p4)
-        x = torch.randint(0, 256, (hi - lo, n4, 4), dtype=torch.uint8,
-                          generator=gen, device=device)
-        x = x.view(torch.int32).reshape(hi - lo, n4)
-        if not missing:
-            x = x & ~((~x >> 1) & _LO)           # 01 -> 00: no missing call
-        x &= mask[None, :]
+        x = _random_rows(hi - lo, n4, gen, device, missing, mask)
         words[lo:hi] = x
         sums[4 * lo:4 * hi] = value_sums(x)
         if missing:
@@ -107,6 +108,24 @@ def make_words(n: int, p: int, gen: torch.Generator, device,
         words[-1] &= ~torch.tensor(
             _byte_mask(p - 4 * (p4 - 1)), dtype=torch.int32, device=device)
     return words, sums[:p].cpu().numpy(), miss[:p].cpu().numpy()
+
+
+def _check_share(missing: float):
+    if missing not in MISSING_SHARES:
+        raise ValueError(f"missing_calls {missing!r}: the harness makes "
+                         f"only the shares {MISSING_SHARES}")
+
+
+def _random_rows(rows: int, n4: int, gen, device, missing: float, mask):
+    """(rows, n4) int32 quad words of uniform codes from ``gen``: 01
+    recoded to 00 where ``missing`` is 0; samples past n (``mask``) 00."""
+    x = torch.randint(0, 256, (rows, n4, 4), dtype=torch.uint8,
+                      generator=gen, device=device)
+    x = x.view(torch.int32).reshape(rows, n4)
+    if not missing:
+        x = x & ~((~x >> 1) & _LO)               # 01 -> 00: no missing call
+    x &= mask[None, :]
+    return x
 
 
 def _byte_mask(keep: int) -> int:
@@ -197,6 +216,121 @@ def make_problem(config: dict, traffic: dict, seed: int, device) -> Problem:
             folds.append(rng.integers(1, q + 1, size=n))
     return Problem(n, p, words, mu, inv_sd, n_missing, ys, causal, betas,
                    folds)
+
+
+def _block_generator(seed: int, block: int, device) -> torch.Generator:
+    """The generator of quad-row block ``block``: a function of the seed and
+    the block's number alone."""
+    hi, lo = np.random.SeedSequence([int(seed), 4, block]).generate_state(
+        2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(hi) << 32) | int(lo))
+    return gen
+
+
+def shard_words(n: int, p: int, lo: int, per: int, seed: int, device,
+                missing: float = 0):
+    """The SNP rows [lo, lo + per) of the matrix of ``seed`` (``lo`` and
+    ``per`` multiples of 4): (words (per/4, n4) int32 on ``device``, value
+    sums (per,) int64, missing calls (per,) int64, both on the host).
+    Codes as ``make_words``'; SNPs past p are zero words (inert rows, whose
+    1/sd is 0)."""
+    _check_share(missing)
+    if lo % 4 or per % 4:
+        raise ValueError(f"a shard holds whole quad rows: lo={lo}, "
+                         f"per={per}")
+    n4, p4 = padded_n4(n), -(-p // 4)
+    q0, q1 = lo // 4, (lo + per) // 4
+    words = torch.zeros((q1 - q0, n4), dtype=torch.int32, device=device)
+    sums = torch.zeros((per,), dtype=torch.int64, device=device)
+    miss = torch.zeros((per,), dtype=torch.int64, device=device)
+    mask = pad_mask(n, n4, device)
+    for b in range(q0 // BLOCK_ROWS, -(-min(q1, p4) // BLOCK_ROWS)):
+        b0, b1 = b * BLOCK_ROWS, min((b + 1) * BLOCK_ROWS, p4)
+        x = _random_rows(b1 - b0, n4, _block_generator(seed, b, device),
+                         device, missing, mask)
+        if b1 == p4 and 4 * p4 > p:              # SNPs past p: all 00
+            x[-1] &= ~torch.tensor(_byte_mask(p - 4 * (p4 - 1)),
+                                   dtype=torch.int32, device=device)
+        r0, r1 = max(b0, q0), min(b1, q1)
+        x = x[r0 - b0:r1 - b0]
+        words[r0 - q0:r1 - q0] = x
+        sums[4 * (r0 - q0):4 * (r1 - q0)] = value_sums(x)
+        if missing:
+            miss[4 * (r0 - q0):4 * (r1 - q0)] = missing_counts(x)
+    return words, sums.cpu().numpy(), miss.cpu().numpy()
+
+
+@dataclasses.dataclass
+class Shard(Problem):
+    """A rank's inputs of a sharded cell: its SNP rows [lo, lo + per) of
+    the p (``words``, ``mu``, ``inv_sd``, ``n_missing`` of those rows), and
+    the whole phenotypes and folds, the same on every rank."""
+    lo: int = 0
+    per: int = 0
+    missing_anywhere: bool = False
+
+    @property
+    def has_missing(self) -> bool:
+        return self.missing_anywhere
+
+
+def make_shard_problem(config: dict, traffic: dict, seed: int, device,
+                       lo: int, per: int, ranks=None) -> Shard:
+    """A rank's inputs from ``seed``: its SNP rows [lo, lo + per)
+    (``shard_words``) with their own statistics, and the phenotypes and
+    folds of the whole matrix.  ``ranks`` (None: one rank holds every SNP)
+    joins the ranks' parts: ``snp_sum(t)`` sums a tensor over the ranks
+    that share this rank's tasks and split its SNPs, ``from_first(t)``
+    gives every rank the first rank's ``t``.
+
+    The causal SNPs and effects are drawn as ``make_problem`` draws them,
+    every input first; X beta sums each rank's decode of the causal
+    columns it owns; the first rank then draws each input's phenotype and
+    folds from a second stream of the seed."""
+    n, p = int(config["n"]), int(config["p"])
+    model = phenotype_model(config)
+    words, sums, n_missing = shard_words(
+        n, p, lo, per, seed, device, config["genotypes"]["missing_calls"])
+    mu, inv_sd = standardization(sums, n, n_missing)
+    counts = torch.tensor([int(n_missing.sum())], device=device)
+    ph = config["phenotype"]
+    sizes = np.asarray(effect_sizes(int(ph["causal"])))
+    rng = np.random.default_rng([int(seed), 1])
+    inputs = int(traffic["inputs"])
+    causal, betas = [], []
+    eta = torch.zeros((inputs, n), dtype=torch.float64, device=device)
+    for j in range(inputs):
+        idx = np.sort(rng.choice(p, size=len(sizes), replace=False))
+        beta = rng.permutation(sizes) * rng.choice([-1.0, 1.0], len(sizes))
+        own = (idx >= lo) & (idx < lo + per)
+        if own.any():
+            eta[j] = torch.as_tensor(decode.x_beta(
+                words, idx[own] - lo, beta[own], n, mu, inv_sd),
+                device=device)
+        causal.append(idx)
+        betas.append(beta)
+    if ranks is not None:
+        counts, eta = ranks.snp_sum(counts), ranks.snp_sum(eta)
+    eta = eta.cpu().numpy() + float(ph["intercept"])
+    q = int(traffic["args"]["q"]) if traffic.get("folds") else 0
+    ys = np.zeros((inputs, n))
+    folds = np.zeros((inputs if q else 0, n), dtype=np.int64)
+    if ranks is None or ranks.first:
+        rng = np.random.default_rng([int(seed), 3])
+        for j in range(inputs):
+            ys[j] = model.draw(eta[j], rng, ph)
+            if q:
+                folds[j] = rng.integers(1, q + 1, size=n)
+    if ranks is not None:
+        ys = ranks.from_first(torch.as_tensor(ys, device=device))
+        ys = ys.cpu().numpy()
+        if q:
+            folds = ranks.from_first(torch.as_tensor(folds, device=device))
+            folds = folds.cpu().numpy()
+    return Shard(n, p, words, mu, inv_sd, n_missing, list(ys), causal,
+                 betas, list(folds), lo=lo, per=per,
+                 missing_anywhere=bool(counts.item() > 0))
 
 
 def effect_sizes(k: int) -> list:

@@ -27,7 +27,9 @@ def test_cell_resolves(cell):
     assert (ROOT / conf["file"]).is_file()
     assert json.loads((ROOT / conf["file"]).read_text())["name"] == conf["name"]
     assert (ROOT / "benchmark" / "traffic" / f"{cell['traffic']}.json").is_file()
-    assert cell["chips"] == 1
+    assert cell["chips"] in (1, 4)
+    from benchmark import run                    # refuses a wrong mesh
+    run.sharding(cell, *run.load_cell(cell["name"])[2:])
     assert len(cell["why"]) <= 200
     for m in BENCH["per_layer"]:
         if cell["name"] in m.get("workloads", []):

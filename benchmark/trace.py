@@ -51,18 +51,22 @@ def score_range(widths: list):
         linalg.PackedOp._xt_dots = xt_dots
 
 
-def profile(calls):
+def profile(calls, device=None):
     """Run ``calls()`` under the profiler with the score's range on; returns
     (its result, the profiler's events, the host wall seconds from the
-    start to a synchronize after it, the score widths seen)."""
+    start to a synchronize after it, the score widths seen).  The card is
+    traced unless ``device`` is the CPU."""
     from torch.profiler import ProfilerActivity, profile as _profile
+    cuda = device is None or device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     widths = []
-    torch.cuda.synchronize()
+    sync()
     with score_range(widths), _profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            activities=[ProfilerActivity.CPU]
+            + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
         t0 = time.perf_counter()
         out = calls()
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
     return out, prof.events(), wall, widths
 
@@ -147,12 +151,26 @@ def _innermost(events, times):
     return out
 
 
-def summarize(events, wall_s: float, widths, peak: dict,
+def rank_reading(events, wall_s: float) -> dict:
+    """One rank's share of a sharded cell's trace: its device-busy and
+    wall seconds, and the device ms of its collectives (operations whose
+    name starts with ``nccl``)."""
+    device = [e for e in events if _is_device(e)]
+    return {"busy_s": _union_us([(e.time_range.start, e.time_range.end)
+                                 for e in device]) / 1e6,
+            "wall_s": wall_s,
+            "nccl_ms": sum(e.time_range.end - e.time_range.start
+                           for e in device if e.name.startswith("nccl"))
+            / 1e3}
+
+
+def summarize(events, wall_s: float, widths, peak: dict | None,
               top: int = 10) -> dict:
     """What the metric readers take: device-busy and score seconds, the
-    score's least seconds (``workcount``), launches and syncs, and the
-    breakdown (device ops by total seconds; device idle seconds by the
-    innermost host range open when each gap began)."""
+    score's least seconds (``workcount``; None without a card's ``peak``),
+    launches and syncs, and the breakdown (device ops by total seconds;
+    device idle seconds by the innermost host range open when each gap
+    began)."""
     from . import workcount
     device = [e for e in events if _is_device(e)]
     host = [e for e in events if not _on_card(e)]
@@ -204,7 +222,7 @@ def summarize(events, wall_s: float, widths, peak: dict,
         "score_ops": sorted(score_ops.items(), key=lambda kv: -kv[1][1])[:8],
         "score_calls": len(widths),
         "score_bound_s": sum(workcount.score_bound_s(n, p, m, peak)
-                             for n, p, m in widths),
+                             for n, p, m in widths) if peak else None,
         "launches": launches,
         "syncs": syncs,
         "breakdown": {"device_ops": [[k[:NAME], v / 1e6] for k, v in heavy],
